@@ -2,11 +2,15 @@
 
     python3 chip_smoke.py
 
-1. builds the port's CUDA kernels (K1-K4) from ``sleekit_tpu_torch/csrc``;
+1. builds the port's CUDA kernels (K1-K5, K10, K11, K14, K15) from
+   ``sleekit_tpu_torch/csrc``, one nvcc per source, all at once;
 2. holds each kernel against its plain PyTorch version on the card at the
    shapes OPT-1.3B serving gives it, and times the kernel, the plain
-   version and one PyTorch library call computing the same function (a
-   yardstick the port never calls) with CUDA events;
+   version and, where one exists, one PyTorch library call computing the
+   same function (a yardstick the port never calls) with CUDA events. The
+   page-pool kernels (K5, K14, K15) run over a strided, out-of-order table
+   of distinct 64-row pages; K5 is held bit for bit to K3 on the same
+   logical rows;
 3. serves 8 greedy requests of 32 new tokens through the port's slot
    Engine with OPT-1.3B at full width and depth (random int4 'pair'
    weights from a seed, fused q|k|v, int8 head, int8 KV cache with bf16
@@ -14,7 +18,16 @@
    decode step, checks the prefill logits against the kernels' plain
    versions on the card (bf16 tolerance through the first layer, relative
    L2 through all of them), and times batch-8 decode;
-4. prints the kernels line, the card's name and power limit, and, last,
+4. serves the same requests through the paged Engine (page pool of 64-row
+   pages): run A on the default pool emits the slot Engine's tokens and
+   launches 96 K1, 1 K2 and 24 K5 (no K3) per decode step; run B on a
+   17-page pool blocks admission and recycles pages; decode through a
+   pool holding the slot cache's rows gives the slot cache's logits, bit
+   for bit, and is timed as in 3;
+5. takes one decode step on the split route (FLASH_FUSED_APPEND off) over
+   the slot cache (24 K10 + 24 K11) and over the pool (24 K14 + 24 K15),
+   within the bf16 tolerance of the fused route's logits;
+6. prints the kernels line, the card's name and power limit, and, last,
    the result line.
 
 Any failure raises; there is no CPU branch and no fallback. It needs a
@@ -46,8 +59,10 @@ from sleekit_tpu_torch.models.transformer import (  # noqa: E402
 from sleekit_tpu_torch.models.zoo import opt_1b3  # noqa: E402
 from sleekit_tpu_torch.ops import attention as attn  # noqa: E402
 from sleekit_tpu_torch.ops import dequant_matmul as dm  # noqa: E402
-from sleekit_tpu_torch.ops.attention import K3, K4  # noqa: E402
+from sleekit_tpu_torch.ops import paged_attention as paged  # noqa: E402
+from sleekit_tpu_torch.ops.attention import K3, K4, K10, K11  # noqa: E402
 from sleekit_tpu_torch.ops.dequant_matmul import K1, K2  # noqa: E402
+from sleekit_tpu_torch.ops.paged_attention import K5, K14, K15  # noqa: E402
 from sleekit_tpu_torch.serve.engine import Engine, Request  # noqa: E402
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): device memory rate
@@ -296,6 +311,182 @@ def check_k4(dev, g, cfg):
                  bound_by=b_by, bytes=nbytes)]
 
 
+# Page geometry of the paged phases: OPT-1.3B serving pages of 64 rows, 8
+# logical pages (512 rows) per sequence.
+PS, MAXP = 64, 8
+
+
+def strided_table(B: int, dev) -> torch.Tensor:
+    """Row b's logical page j in physical page 1 + (MAXP-1-j)*B + b:
+    distinct pages, strided across rows and in reverse order; page 0 is
+    the trash page and stays unused."""
+    j = torch.arange(MAXP)[None, :]
+    b = torch.arange(B)[:, None]
+    return (1 + (MAXP - 1 - j) * B + b).to(torch.int32).to(dev)
+
+
+def to_pool(x, table):
+    """A slot-cache plane (L, B, KV, S[, D]) laid out page by page into a
+    pool (L, 1 + B*S/PS, KV, PS[, D]) through ``table``."""
+    L, B, KV, S = x.shape[:4]
+    rest = x.shape[4:]
+    pages = x.reshape(L, B, KV, S // PS, PS, *rest).transpose(2, 3)
+    pool = torch.zeros((L, 1 + B * S // PS, KV, PS, *rest), dtype=x.dtype,
+                       device=x.device)
+    pool[:, table.reshape(-1).long()] = pages.reshape(L, -1, KV, PS, *rest)
+    return pool
+
+
+def decode_bytes(p, H, D, fused: bool, paged: bool):
+    """Bytes one decode-attention kernel must move at positions ``p`` (B,)
+    over an int8 cache with bf16 scales: the cache rows it reads or writes
+    ((p + 1) per batch row and head, each 2*D int8 plus two bf16 scales),
+    q and the output (and the new K/V when fused), and the table entries
+    of the pages those rows live in. Returns (bytes, rows)."""
+    B = p.numel()
+    rows = int((p + 1).sum().item()) * H
+    nbytes = rows * (2 * D + 2 * 2) + (4 if fused else 2) * B * H * D * 2
+    if paged:
+        nbytes += int((p // PS + 1).sum().item()) * 4
+    return nbytes, rows
+
+
+def check_paged(dev, g, cfg):
+    """The page-pool kernels K5, K14 and K15 and the split route's slot
+    kernels K10 and K11 at serving decode (OPT-1.3B: B 8, H = KV 32, D 64,
+    24 layers of int8 cache with bf16 scales, PS 64, MAXP 8, a strided
+    out-of-order table of distinct pages), scalar and ragged positions.
+    The pool holds the slot cache's rows page by page, so K5 is held to K3
+    on the same logical rows: output and written bytes equal."""
+    L, B, H, D = cfg.n_layers, 8, cfg.n_heads, cfg.head_dim
+    S = PS * MAXP
+    gd = torch.Generator(device=dev).manual_seed(1)
+    kq, ks = attn._quant_rows(torch.randn(L, B, H, S, D, device=dev,
+                                          generator=gd))
+    vq, vs = attn._quant_rows(torch.randn(L, B, H, S, D, device=dev,
+                                          generator=gd))
+    slot = [kq, vq, ks[..., 0].bfloat16(), vs[..., 0].bfloat16()]
+    del kq, vq, ks, vs
+    table = strided_table(B, dev)
+    pool = [to_pool(x, table) for x in slot]
+    q = torch.randn(B, H, D, generator=g).to(dev, torch.bfloat16)
+    kn = torch.randn(B, H, D, generator=g).to(dev, torch.bfloat16)
+    vn = torch.randn(B, H, D, generator=g).to(dev, torch.bfloat16)
+    scale = 1.0 / math.sqrt(D)
+    ragged = torch.tensor([17, 100, 200, 256, 300, 400, 511, 60],
+                          dtype=torch.int32, device=dev)
+    cases = {name: [] for name in ("K5", "K10", "K11", "K14", "K15")}
+
+    def clone(planes):
+        return [t.clone() for t in planes]
+
+    def sdpa_ms(planes, gather):
+        """SDPA over the rows s <= 256 dequantized to bf16 (4 layers)."""
+        def rows(x, i):
+            return (paged._gathered(x, table, i) if gather else x[i])[:, :,
+                                                                     :257]
+        n_lay = min(4, L)
+        kd = [(rows(planes[0], i).float() * rows(planes[2], i)[..., None]
+               .float()).bfloat16() for i in range(n_lay)]
+        vd = [(rows(planes[1], i).float() * rows(planes[3], i)[..., None]
+               .float()).bfloat16() for i in range(n_lay)]
+        return cuda_ms(lambda i: F.scaled_dot_product_attention(
+            q[:, :, None], kd[i], vd[i]), n_lay)
+
+    def record(name, label, err, ms, plain_ms, lib_ms, nbytes, flops):
+        b_ms, b_by = bound(nbytes, flops)
+        cases[name].append(dict(case=label, max_abs_err=err, ms=ms,
+                                plain_ms=plain_ms, library_ms=lib_ms,
+                                bound_ms=b_ms, bound_by=b_by, bytes=nbytes))
+        lib = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
+        log(f"{name} {label}: err {err:.3g} | kernel {ms:.4f} ms plain "
+            f"{plain_ms:.3f} ms library {lib} bound {b_ms:.4f} ms ({b_by})")
+
+    def equal(got, want, what):
+        for a, b in zip(got, want):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{what}: written bytes differ")
+
+    for label, pos in (("pos 256", 256), ("ragged pos", ragged)):
+        p = torch.clamp(torch.as_tensor(pos, device=dev).expand(B), 0, S - 1)
+        lib = label == "pos 256"
+
+        # K5 against its plain version, and against K3 on the slot rows.
+        got_p, ref_p, got_s = clone(pool), clone(pool), clone(slot)
+        got = paged.paged_fused_decode_append(
+            q, kn, vn, got_p[0], got_p[1], table, pos, L - 1, scale,
+            k_scale=got_p[2], v_scale=got_p[3])
+        want = paged.paged_fused_decode_append_plain(
+            q, kn, vn, ref_p[0], ref_p[1], table, pos, L - 1, scale,
+            k_scale=ref_p[2], v_scale=ref_p[3])
+        k3 = attn.fused_decode_append(q, kn, vn, got_s[0], got_s[1], pos,
+                                      L - 1, scale, k_scale=got_s[2],
+                                      v_scale=got_s[3])
+        torch.cuda.synchronize()
+        err = bf16_check(got[0], want[0], f"K5 {label}")
+        equal(got[1:], want[1:], f"K5 {label} vs plain")
+        if not torch.equal(got[0], k3[0]):
+            raise AssertionError(f"K5 {label}: output differs from K3's")
+        equal(got[1:], [to_pool(x, table) for x in k3[1:]],
+              f"K5 {label} vs K3")
+        nbytes, rows = decode_bytes(p, H, D, True, True)
+        record("K5", label, err, cuda_ms(
+            lambda i: paged.paged_fused_decode_append(
+                q, kn, vn, got_p[0], got_p[1], table, pos, i, scale,
+                k_scale=got_p[2], v_scale=got_p[3]), L),
+            cuda_ms(lambda i: paged.paged_fused_decode_append_plain(
+                q, kn, vn, ref_p[0], ref_p[1], table, pos, i, scale,
+                k_scale=ref_p[2], v_scale=ref_p[3]), L, iters=5, warmup=1,
+                graph=False),
+            sdpa_ms(pool, True) if lib else None, nbytes, 4.0 * rows * D)
+        log(f"K5 {label}: output and written bytes equal K3's on the same "
+            f"logical rows")
+        del got_p, ref_p, got_s, got, want, k3
+
+        # K15 and K11: flash decode over s <= pos.
+        for name, planes, fn, plain, extra in (
+                ("K15", pool, paged.paged_flash_decode,
+                 paged.paged_flash_decode_plain, (table,)),
+                ("K11", slot, attn.flash_decode, attn.flash_decode_plain,
+                 ())):
+            def call(f, i, planes=planes, extra=extra):
+                return f(q, planes[0], planes[1], *extra, pos, i, scale,
+                         None, planes[2], planes[3])
+            got = call(fn, L - 1)
+            want = call(plain, L - 1)
+            torch.cuda.synchronize()
+            err = bf16_check(got, want, f"{name} {label}")
+            nbytes, rows = decode_bytes(p, H, D, False, name == "K15")
+            record(name, label, err, cuda_ms(lambda i: call(fn, i), L),
+                   cuda_ms(lambda i: call(plain, i), L, iters=5, warmup=1,
+                           graph=False),
+                   sdpa_ms(planes, name == "K15") if lib else None, nbytes,
+                   4.0 * rows * D)
+
+        # K14 and K10: the append alone.
+        for name, planes, fn, plain, extra in (
+                ("K14", pool, paged.paged_kv_append,
+                 paged.paged_kv_append_plain, (table,)),
+                ("K10", slot, attn.kv_append, attn.kv_append_plain, ())):
+            got_c, ref_c = clone(planes), clone(planes)
+
+            def call(f, c, i, extra=extra):
+                return f(kn, vn, c[0], c[1], *extra, pos, i, c[2], c[3])
+            call(fn, got_c, L - 1)
+            call(plain, ref_c, L - 1)
+            torch.cuda.synchronize()
+            equal(got_c, ref_c, f"{name} {label}")
+            nbytes = (2 * B * H * D * 2 + B * H * (2 * D + 2 * 2)
+                      + (B * 4 if extra else 0))
+            record(name, label, 0.0, cuda_ms(lambda i: call(fn, got_c, i),
+                                             L),
+                   cuda_ms(lambda i: call(plain, ref_c, i), L, iters=5,
+                           warmup=1, graph=False),
+                   None, nbytes, 4.0 * B * H * D)
+            del got_c, ref_c
+    return cases
+
+
 # ---- phase 3: the Engine ------------------------------------------------------
 
 
@@ -331,12 +522,7 @@ def run_engine(dev, cfg, card: str):
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{name} never launched on the main path")
-    for c, p in zip(comps, prompts):
-        if (len(c.new_tokens) != NEW_TOKENS or c.finish_reason != "length"
-                or not ((c.new_tokens >= 0)
-                        & (c.new_tokens < cfg.vocab_size)).all()
-                or not np.array_equal(c.tokens[:len(p)], p)):
-            raise AssertionError(f"bad completion {c.request_id}")
+    check_completions(comps, prompts, cfg, "slot Engine")
 
     # One decode step through the public entry point: 4 K1 per layer
     # (qkv, o, fc1, fc2), one K2 head, one K3 per layer.
@@ -407,12 +593,214 @@ def run_engine(dev, cfg, card: str):
     log(f"decode: batch 8, ctx 256-288, {steps} steps: "
         f"{dt / steps * 1e3:.3f} ms/step, {tok_s:.1f} tokens/s; one step "
         f"replayed as a CUDA graph: {dev_ms:.3f} ms ({card})")
+    state = dict(params=params, prompts=prompts, cache=engine.cache,
+                 tokens=[c.tokens for c in comps])
     return launches, dict(engine_run_s=run_s, decode_ms_per_step=dt / steps
                           * 1e3, decode_tokens_per_s=tok_s,
                           decode_step_graph_ms=dev_ms,
                           prefill_layer1_max_err=err1,
                           prefill_full_rel_l2=rel,
-                          prefill_full_argmax_agree=agree)
+                          prefill_full_argmax_agree=agree), state
+
+
+def counts():
+    return {k.name: k.launches for k in kernels.KERNELS}
+
+
+def check_completions(comps, prompts, cfg, what):
+    for c, p in zip(comps, prompts):
+        if (len(c.new_tokens) != NEW_TOKENS or c.finish_reason != "length"
+                or not ((c.new_tokens >= 0)
+                        & (c.new_tokens < cfg.vocab_size)).all()
+                or not np.array_equal(c.tokens[:len(p)], p)):
+            raise AssertionError(f"{what}: bad completion {c.request_id}")
+
+
+def serve_paged(engine, reqs):
+    """Submit ``reqs``, take the first step (admission, one decode step)
+    and a second, pure decode step, then step until drained. Returns
+    (completions in submission order, the second step's launches, the
+    queue left after the first step)."""
+    ids = [engine.submit(r) for r in reqs]
+    engine.step()
+    queued = len(engine.queue)
+    before = counts()
+    engine.step()
+    torch.cuda.synchronize()
+    step = {k: n - before[k] for k, n in counts().items()}
+    while engine.has_work():
+        engine.step_auto()
+    by_id = {c.request_id: c for c in engine.finished}
+    return [by_id[i] for i in ids], step, queued
+
+
+def run_paged_engine(dev, cfg, card: str, state):
+    """The paged Engine (page pool of 64-row pages) on the slot phase's
+    params and requests. Run A, default pool: all 8 requests admitted at
+    once, the slot Engine's tokens, 96 K1 + 1 K2 + 24 K5 (no K3) per
+    decode step. Run B, 17 pages (16 usable of the 20 the requests need):
+    admission blocks, pages are recycled. Then decode through a pool that
+    holds the slot cache's rows: the slot cache's logits bit for bit, and
+    its rate. Returns (run A's launches, metrics, that pool)."""
+    params, prompts = state["params"], state["prompts"]
+
+    def engine(**kw):
+        return Engine(cfg, params, max_slots=8, max_seq_len=512,
+                      cache_dtype=torch.int8, paged=True, page_size=PS,
+                      device=dev, use_kernel=True, **kw)
+
+    def requests():
+        return [Request(prompt=p, max_new_tokens=NEW_TOKENS) for p in prompts]
+
+    eng = engine()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    comps, step, queued = serve_paged(eng, requests())
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = counts()
+    log(f"paged Engine run A ({eng.total_pages} pages of {PS}): 8 requests "
+        f"x {NEW_TOKENS} tokens in {run_s:.2f} s; launches "
+        f"{ {k: n for k, n in launches.items() if n} }")
+    if queued:
+        raise AssertionError("run A: the default pool did not admit all 8")
+    for name in ("K1", "K2", "K4", "K5"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} never launched on the paged path")
+    want = {"K1": 4 * cfg.n_layers, "K2": 1, "K5": cfg.n_layers}
+    if {k: n for k, n in step.items() if n} != want:
+        raise AssertionError(f"one paged decode step launched {step}")
+    log(f"one paged decode step launches {want}, no K3")
+    check_completions(comps, prompts, cfg, "paged run A")
+    for c, tokens in zip(comps, state["tokens"]):
+        if not np.array_equal(c.tokens, tokens):
+            raise AssertionError(f"paged run A: request {c.request_id}'s "
+                                 f"tokens differ from the slot Engine's")
+    log("paged run A: greedy tokens equal the slot Engine's")
+    if (sorted(eng._free_pages) != list(range(1, eng.total_pages))
+            or eng._slot_pages):
+        raise AssertionError("paged run A: pages not returned")
+
+    eng_b = engine(total_pages=17)
+    kernels.reset_launch_counts()
+    comps_b, _, queued = serve_paged(eng_b, requests())
+    torch.cuda.synchronize()
+    check_completions(comps_b, prompts, cfg, "paged run B")
+    if not queued or K5.launches <= 0:
+        raise AssertionError(f"paged run B: {queued} requests queued after "
+                             f"the first admission, {K5.launches} K5")
+    if (sorted(eng_b._free_pages) != list(range(1, 17))
+            or eng_b._slot_pages):
+        raise AssertionError("paged run B: pages not returned")
+    agree = np.mean([np.mean(a.new_tokens == b.new_tokens)
+                     for a, b in zip(comps_b, comps)])
+    log(f"paged run B (17 pages): {queued} of 8 requests waited for pages; "
+        f"all pages returned; new-token agreement with run A {agree:.4f} "
+        f"(prefill groups differ)")
+
+    # Decode through a pool holding the slot cache's rows, strided and out
+    # of order: the slot cache's logits bit for bit, then the rate.
+    table = strided_table(8, dev)
+    pool = {k: to_pool(v, table) for k, v in state["cache"].items()}
+    pool["page_table"] = table
+    tok = torch.zeros((8, 1), dtype=torch.int64, device=dev)
+    slot_cache = {k: v.clone() for k, v in state["cache"].items()}
+    want, _ = decode_step(cfg, params, tok, slot_cache, 256, use_kernel=True)
+    got, _ = decode_step(cfg, params, tok, pool, 256, use_kernel=True)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError("decode through the pool: logits differ from "
+                             "the slot cache's")
+    del slot_cache
+    last = torch.zeros(8, dtype=torch.int32, device=dev)
+    decode_scan(cfg, params, pool, last, 256, 4, use_kernel=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    steps = 32
+    decode_scan(cfg, params, pool, last, 256, steps, use_kernel=True)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    dev_ms = cuda_ms(lambda i: decode_step(cfg, params, tok, pool, 288,
+                                           use_kernel=True), 1, iters=4)
+    log(f"paged decode: logits at ctx 256 equal the slot cache's; batch 8, "
+        f"ctx 256-288, {steps} steps: {dt / steps * 1e3:.3f} ms/step, "
+        f"{8 * steps / dt:.1f} tokens/s; one step replayed as a CUDA graph: "
+        f"{dev_ms:.3f} ms ({card})")
+    return launches, dict(paged_run_s=run_s, paged_pages=eng.total_pages,
+                          paged_small_pool_agree=float(agree),
+                          paged_decode_ms_per_step=dt / steps * 1e3,
+                          paged_decode_tokens_per_s=8 * steps / dt,
+                          paged_decode_step_graph_ms=dev_ms), pool
+
+
+def run_split(dev, cfg, state, pool):
+    """One decode step on the split route (FLASH_FUSED_APPEND off) over
+    the slot cache and over the pool, each after the fused route's step
+    at the same position (every row active): 24 K10 + 24 K11, then 24 K14
+    + 24 K15. Through the first layer the logits agree with the fused
+    route's within the bf16 tolerance; through all 24, within a relative
+    L2 of 2^-6, for the reason the prefill check gives (the two sum the
+    new token in another order, and each wide product spreads one bf16
+    step). Then times one step on each route as a CUDA graph. Returns
+    (each split kernel's launches, the step times)."""
+    params = state["params"]
+    tok = torch.zeros((8, 1), dtype=torch.int64, device=dev)
+    launches, metrics = {}, {}
+
+    def both(n_layers, cache):
+        c = dataclasses.replace(cfg, n_layers=n_layers)
+        p = dict(params, layers=params["layers"][:n_layers])
+        cache = {k: v if k == "page_table" else v[:n_layers]
+                 for k, v in cache.items()}
+        fused, _ = decode_step(c, p, tok, cache, 300, use_kernel=True)
+        attn.FLASH_FUSED_APPEND = False
+        try:
+            kernels.reset_launch_counts()
+            split, _ = decode_step(c, p, tok, cache, 300, use_kernel=True)
+            torch.cuda.synchronize()
+            step = counts()
+        finally:
+            attn.FLASH_FUSED_APPEND = True
+        return fused.float(), split.float(), step
+
+    def step_ms(cache, fused_route):
+        attn.FLASH_FUSED_APPEND = fused_route
+        try:
+            return cuda_ms(lambda i: decode_step(cfg, params, tok, cache, 300,
+                                                 use_kernel=True), 1, iters=4)
+        finally:
+            attn.FLASH_FUSED_APPEND = True
+
+    for mode, cache, names in (("slot", state["cache"], ("K10", "K11")),
+                               ("paged", pool, ("K14", "K15"))):
+        fused, split, _ = both(1, cache)
+        err1 = bf16_check(split, fused,
+                          f"split route ({mode}) logits through layer 1")
+        fused, split, step = both(cfg.n_layers, cache)
+        want = {"K1": 4 * cfg.n_layers, "K2": 1, names[0]: cfg.n_layers,
+                names[1]: cfg.n_layers}
+        if {k: n for k, n in step.items() if n} != want:
+            raise AssertionError(f"split route ({mode}): one step launched "
+                                 f"{step}")
+        rel = ((split - fused).norm() / fused.norm()).item()
+        if not rel <= 2 ** -6 or not torch.isfinite(split).all():
+            raise AssertionError(f"split route ({mode}): relative L2 "
+                                 f"{rel:.4g} over 2^-6")
+        launches.update({n: step[n] for n in names})
+        agree = (split.argmax(-1) == fused.argmax(-1)).float().mean().item()
+        log(f"split route ({mode}): one decode step launches {want}; logits "
+            f"vs the fused route's: layer 1 max |err| {err1:.4g} (bf16 "
+            f"tolerance), {cfg.n_layers} layers relative L2 {rel:.4g} "
+            f"(<= 2^-6), max |err| {(split - fused).abs().max().item():.4g}, "
+            f"argmax agreement {agree:.4f}")
+        ms = {route: step_ms(cache, route == "fused")
+              for route in ("fused", "split")}
+        metrics.update({f"{mode}_{route}_step_graph_ms": t
+                        for route, t in ms.items()})
+        log(f"split route ({mode}): one decode step at ctx 300 replayed as a "
+            f"CUDA graph: {ms['split']:.3f} ms, fused route {ms['fused']:.3f} "
+            f"ms")
+    return launches, metrics
 
 
 def main():
@@ -436,11 +824,18 @@ def main():
     cfg = opt_1b3(dtype=torch.bfloat16)
     g = torch.Generator().manual_seed(0)
     cases = {"K1": check_k1(dev, g, cfg), "K2": check_k2(dev, g, cfg),
-             "K3": check_k3(dev, g, cfg), "K4": check_k4(dev, g, cfg)}
-    launches, engine = run_engine(dev, cfg, smi)
+             "K3": check_k3(dev, g, cfg), "K4": check_k4(dev, g, cfg),
+             **check_paged(dev, g, cfg)}
+    launches, engine, state = run_engine(dev, cfg, smi)
+    paged_launches, paged_metrics, pool = run_paged_engine(dev, cfg, smi,
+                                                           state)
+    launches["K5"] = paged_launches["K5"]
+    split_launches, split_metrics = run_split(dev, cfg, state, pool)
+    launches.update(split_launches)
+    engine.update(paged_metrics, **split_metrics)
 
     rows = []
-    for k in (K1, K2, K3, K4):
+    for k in (K1, K2, K3, K4, K5, K10, K11, K14, K15):
         cs = cases[k.name]
         # K1 reports one decode layer's four projections (M = 8); the
         # others their first case. Every case is listed under "cases".
@@ -461,9 +856,10 @@ def main():
             cases=cs))
     print(json.dumps({"kernels": rows, "engine": engine}))
     print(smi)
+    # The run uses one card, whatever the machine holds.
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": 1}}))
 
 
 if __name__ == "__main__":

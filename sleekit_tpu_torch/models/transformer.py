@@ -3,14 +3,16 @@
 
 Params are nested dicts of tensors; a quantized linear is a
 :class:`~sleekit_tpu_torch.ops.pack.PackedLinear`, per layer in a Python
-list. The KV cache is always the stacked (L, B, KV, S, D) dict, because the
-kernels take a layer index, and it is updated IN PLACE by prefill and
-decode. ``lax.scan`` over layers and decode steps becomes a Python loop.
+list. The KV cache is a stacked dict, because the kernels take a layer
+index: the slot cache (L, B, KV, S, D), or for decode the page pool
+(L, P, KV, PS, D) with its page table; it is updated IN PLACE by prefill
+and decode. ``lax.scan`` over layers and decode steps becomes a Python loop.
 
 The packed bf16 projections go through K1/K2 (with the norm, activation
-and residual fused when M <= 1024), decode attention through K3 and
-128-aligned prefill of >= 256 tokens through K4, as the JAX package routes
-them to its Pallas kernels on the TPU. ``use_kernel`` (default: the tokens
+and residual fused when M <= 1024), decode attention through K3 (K5 over a
+page pool; K10/K11 or K14/K15 on the split route) and 128-aligned prefill
+of >= 256 tokens through K4, as the JAX package routes them to its Pallas
+kernels on the TPU. ``use_kernel`` (default: the tokens
 are on CUDA) launches the kernels; ``use_kernel=False`` runs their plain
 PyTorch versions instead, on any device. Everything else (f32
 activations, dense weights, short prompts' attention) is PyTorch code.
@@ -35,6 +37,7 @@ from sleekit_tpu_torch.ops.attention import (
 from sleekit_tpu_torch.ops.dequant_matmul import (
     can_fuse_glue, fused_quantized_matmul, quantized_matmul)
 from sleekit_tpu_torch.ops.pack import PackedLinear, concat_packed
+from sleekit_tpu_torch.ops.paged_attention import paged_decode_attention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -293,10 +296,11 @@ def _block(cfg, layer, x, positions, kv, slopes, use_kernel: bool):
     """One transformer block. ``kv`` selects the attention path:
     * None - full-sequence forward (no cache);
     * ("prefill", cache, lidx) - write this layer's K/V for positions
-      [0, T) into the stacked cache and attend them (int8 caches attend
-      the dequantized cache values, as the JAX package does);
+      [0, T) into the stacked slot cache and attend them (int8 caches
+      attend the dequantized cache values, as the JAX package does);
     * ("decode", cache, pos, lidx) - single-token decode: in-place append
-      and attention over the cache (K3 on the kernel path).
+      and attention over the slot cache or the page pool (K3 or K5 on the
+      kernel path; K10 + K11 or K14 + K15 on the split route).
     The cache tensors are updated in place."""
     b, t, d = x.shape
     kv_dim = cfg.kv_heads * cfg.head_dim
@@ -322,13 +326,19 @@ def _block(cfg, layer, x, positions, kv, slopes, use_kernel: bool):
         attn = _causal_attention(cfg, q, k.transpose(1, 2), v.transpose(1, 2),
                                  positions, slopes, use_kernel)
     elif kv[0] == "decode":
+        # A cache holding a "page_table" is a shared page pool
+        # (ops/paged_attention.py); otherwise the slot cache.
         cache, pos, lidx = kv[1], kv[2], kv[3]
-        res = decode_attention(
-            q[:, 0].contiguous(), k[:, 0].contiguous(), v[:, 0].contiguous(),
-            cache["k"], cache["v"], pos, lidx,
-            scale=1.0 / math.sqrt(cfg.head_dim), alibi_slopes=slopes,
-            k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
-            use_kernel=use_kernel)
+        step = (q[:, 0].contiguous(), k[:, 0].contiguous(),
+                v[:, 0].contiguous(), cache["k"], cache["v"])
+        common = dict(scale=1.0 / math.sqrt(cfg.head_dim),
+                      alibi_slopes=slopes, k_scale=cache.get("k_scale"),
+                      v_scale=cache.get("v_scale"), use_kernel=use_kernel)
+        if "page_table" in cache:
+            res = paged_decode_attention(*step, cache["page_table"], pos,
+                                         lidx, **common)
+        else:
+            res = decode_attention(*step, pos, lidx, **common)
         attn = res[0][:, None]
     else:
         cache, lidx = kv[1], kv[2]
@@ -475,13 +485,10 @@ def forward(cfg: TransformerConfig, params, tokens: torch.Tensor,
 # ---- KV-cache serving -------------------------------------------------------
 
 
-def init_kv_cache(cfg: TransformerConfig, batch: int, max_len: int,
-                  dtype=torch.float32, scale_dtype=None, device="cuda"):
-    """Stacked KV cache {'k', 'v': (L, B, KV, S, D)}; ``dtype=torch.int8``
-    adds per-(token, head) scale planes {'k_scale', 'v_scale':
-    (L, B, KV, S)}, bf16 by default (the serving default)."""
+def _kv_planes(shape, dtype, scale_dtype, device):
+    """Zeroed K and V planes of ``shape`` (..., D); int8 ones get per-row
+    scale planes shape[:-1], bf16 by default (the serving default)."""
     dev = resolve_device(device)
-    shape = (cfg.n_layers, batch, cfg.kv_heads, max_len, cfg.head_dim)
     out = {"k": torch.zeros(shape, dtype=dtype, device=dev),
            "v": torch.zeros(shape, dtype=dtype, device=dev)}
     if dtype == torch.int8:
@@ -493,11 +500,38 @@ def init_kv_cache(cfg: TransformerConfig, batch: int, max_len: int,
     return out
 
 
+def init_kv_cache(cfg: TransformerConfig, batch: int, max_len: int,
+                  dtype=torch.float32, scale_dtype=None, device="cuda"):
+    """Stacked KV cache {'k', 'v': (L, B, KV, S, D)}; ``dtype=torch.int8``
+    adds per-(token, head) scale planes {'k_scale', 'v_scale':
+    (L, B, KV, S)}, bf16 by default (the serving default)."""
+    return _kv_planes((cfg.n_layers, batch, cfg.kv_heads, max_len,
+                       cfg.head_dim), dtype, scale_dtype, device)
+
+
+def init_paged_kv_cache(cfg: TransformerConfig, total_pages: int,
+                        page_size: int, slots: int, max_pages_per_seq: int,
+                        dtype=torch.float32, scale_dtype=None,
+                        device="cuda"):
+    """Paged KV cache: a shared page pool {'k', 'v': (L, P, KV, PS, D)} and
+    a page table {'page_table': (slots, max_pages_per_seq) int32}
+    (ops/paged_attention.py); ``dtype=torch.int8`` adds per-token scale
+    planes (L, P, KV, PS), bf16 by default. Unallocated table entries hold
+    page 0 (a valid address; the kernels never read them)."""
+    out = _kv_planes((cfg.n_layers, total_pages, cfg.kv_heads, page_size,
+                      cfg.head_dim), dtype, scale_dtype, device)
+    out["page_table"] = torch.zeros((slots, max_pages_per_seq),
+                                    dtype=torch.int32,
+                                    device=out["k"].device)
+    return out
+
+
 def decode_step(cfg: TransformerConfig, params, tokens: torch.Tensor, cache,
                 pos, use_kernel: Optional[bool] = None):
     """One token of cached decode. tokens (B, 1); pos an int (uniform
-    batch) or a (B,) int32 tensor (ragged slots). The cache is updated in
-    place. Returns (logits (B, V), cache)."""
+    batch) or a (B,) int32 tensor (ragged slots); ``cache`` a slot cache or
+    a page pool with its table. The cache is updated in place. Returns
+    (logits (B, V), cache)."""
     if use_kernel is None:
         use_kernel = tokens.is_cuda
     b = tokens.shape[0]

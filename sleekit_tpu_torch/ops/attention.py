@@ -8,14 +8,20 @@ kernels take a layer index, so no per-layer slice is ever copied.
   plain versions against.
 * Kernel K3, :func:`fused_decode_append` - in-place append of the new
   token (int8-quantized with a per-(token, head) scale) plus flash decode
-  over s <= pos (``fused_decode_append_pallas``), CUDA in
-  ``csrc/decode_attention.cu``.
+  over s <= pos (``fused_decode_append_pallas``).
+* The split route, taken when :data:`FLASH_FUSED_APPEND` is off: kernel
+  K10, :func:`kv_append` - the append on its own (``kv_append_pallas``) -
+  then kernel K11, :func:`flash_decode` - flash decode over the cached
+  rows s <= pos (``flash_decode_pallas``).
 * Kernel K4, :func:`flash_prefill` - causal flash attention with native
   GQA and ALiBi (``flash_prefill_pallas``), CUDA in
   ``csrc/prefill_attention.cu``.
 
-The JAX kernels return new cache arrays through ``input_output_aliases``;
-here the caches are updated IN PLACE and the same tensors are returned.
+K3 and K11 are ``csrc/decode_attention.cu``, K10 ``csrc/kv_append.cu``;
+the same entries serve the page pool (``ops/paged_attention.py``), with a
+page table in place of the slot rule. The JAX kernels return new cache
+arrays through ``input_output_aliases``; here the caches are updated IN
+PLACE and the same tensors are returned.
 """
 
 from __future__ import annotations
@@ -31,14 +37,31 @@ from sleekit_tpu_torch.kernels import CudaKernel
 _INT8_MAX = 127.0
 _SCALE_FLOOR = 1e-8
 
+# Fuse the KV append INTO the flash-decode kernel (K3, one launch per
+# layer); False takes the split route, K10 then K11 (K14 then K15 over a
+# page pool). Read at each call, as the JAX package's knob of this name.
+FLASH_FUSED_APPEND = True
+
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# (q, k_new, v_new, cache_k, cache_v, k_scale, v_scale, slopes, pos, out,
-#  pos_scalar, layer, L, B, KV, G, S, D, scale, q_bf16, cache_kind,
+# (q, k_new, v_new, cache_k, cache_v, k_scale, v_scale, slopes, pos, table,
+#  out, pos_scalar, layer, B, KV, G, P, PS, MAXP, D, scale, q_bf16,
+#  cache_kind, scale_bf16)
+FUSED_DECODE_ARGS = [_P] * 11 + [_I] * 9 + [_F] + [_I] * 3
+# The same without k_new and v_new.
+FLASH_DECODE_ARGS = [_P] * 9 + [_I] * 9 + [_F] + [_I] * 3
+# (k_new, v_new, cache_k, cache_v, k_scale, v_scale, pos, table,
+#  pos_scalar, layer, B, KV, P, PS, MAXP, D, new_bf16, cache_kind,
 #  scale_bf16)
+KV_APPEND_ARGS = [_P] * 8 + [_I] * 11
 K3 = CudaKernel(
-    "K3", "decode_attention.cu", "fused_decode_append",
-    [_P] * 10 + [_I] * 8 + [_F] + [_I] * 3,
+    "K3", "decode_attention.cu", "fused_decode_append", FUSED_DECODE_ARGS,
     replaces="sleekit_tpu/ops/attention.py:704 fused_decode_append_pallas")
+K10 = CudaKernel(
+    "K10", "kv_append.cu", "kv_append", KV_APPEND_ARGS,
+    replaces="sleekit_tpu/ops/attention.py:189 kv_append_pallas")
+K11 = CudaKernel(
+    "K11", "decode_attention.cu", "flash_decode", FLASH_DECODE_ARGS,
+    replaces="sleekit_tpu/ops/attention.py:903 flash_decode_pallas")
 # (q, k, v, slopes, out, B, T, H, KV, D, scale, is_bf16)
 K4 = CudaKernel(
     "K4", "prefill_attention.cu", "flash_prefill",
@@ -186,6 +209,131 @@ def _check(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
+def _pos_arg(pos, B: int, dev):
+    """(pointer, scalar) of ``pos`` for a kernel: a (B,) int32 tensor on
+    the device, or an int."""
+    if isinstance(pos, torch.Tensor):
+        _check(pos.dtype == torch.int32 and pos.shape == (B,)
+               and pos.device == dev and pos.is_contiguous(),
+               "tensor pos must be a contiguous (B,) int32 on q's device")
+        return pos.data_ptr(), 0
+    return 0, int(pos)
+
+
+def _geometry(cache_k, cache_v, k_scale, v_scale, page_table, B: int, dev):
+    """Checks the cache (and table) a decode kernel reads and returns
+    ``(rows, cache_kind, scale_bf16, table_ptr)`` with ``rows`` =
+    (P, PS, MAXP): a slot cache (L, B, KV, S, D) is the pool with P = B,
+    PS = S and one page per row, addressed without a table."""
+    L, P, KV, PS, D = cache_k.shape
+    for t in (cache_k, cache_v):
+        _check(t.is_contiguous() and t.device == dev,
+               "the caches must be contiguous on q's device")
+    _check(cache_k.dtype in _CACHE_KIND and cache_v.dtype == cache_k.dtype
+           and cache_v.shape == cache_k.shape,
+           "caches must be one int8/bf16/f32 dtype and shape")
+    quantized = k_scale is not None
+    _check(quantized == (cache_k.dtype == torch.int8),
+           "an int8 cache needs scale planes, and only it takes them")
+    scale_bf16 = 0
+    if quantized:
+        _check(k_scale.shape == (L, P, KV, PS)
+               and v_scale.shape == k_scale.shape
+               and k_scale.dtype in (torch.bfloat16, torch.float32)
+               and v_scale.dtype == k_scale.dtype
+               and k_scale.is_contiguous() and v_scale.is_contiguous()
+               and k_scale.device == dev and v_scale.device == dev,
+               "scale planes must be contiguous (L, P, KV, PS) bf16/f32 "
+               "beside the cache")
+        scale_bf16 = int(k_scale.dtype == torch.bfloat16)
+    if page_table is None:
+        _check(P == B, "a slot cache holds one row per batch row")
+        return (P, PS, 1), _CACHE_KIND[cache_k.dtype], scale_bf16, 0
+    # Table entries must be page ids in [0, P): checking them would cost
+    # the host a copy from the device at every call, so the caller (the
+    # Engine) keeps them so.
+    _check(page_table.dtype == torch.int32 and page_table.ndim == 2
+           and page_table.shape[0] == B and page_table.is_contiguous()
+           and page_table.device == dev,
+           "page_table must be a contiguous (B, MAXP) int32 on q's device")
+    return ((P, PS, page_table.shape[1]), _CACHE_KIND[cache_k.dtype],
+            scale_bf16, page_table.data_ptr())
+
+
+def launch_decode(kernel: CudaKernel, q, k_new, v_new, cache_k, cache_v,
+                  pos, layer: int, scale: float, alibi_slopes, k_scale,
+                  v_scale, page_table=None):
+    """Launches a kernel of ``csrc/decode_attention.cu`` after checking its
+    arguments: the fused append + decode (K3, K5) when ``k_new`` is given,
+    else flash decode (K11, K15). Returns out (B, H, D)."""
+    B, H, D = q.shape
+    L, _, KV = cache_k.shape[:3]
+    dev = q.device
+    _check(q.dtype in (torch.bfloat16, torch.float32) and q.is_contiguous()
+           and H % KV == 0 and cache_k.shape[-1] == D,
+           "q must be a contiguous (B, H, D) bf16/f32 with H % KV == 0")
+    _check(D <= 256, "head_dim must be <= 256")
+    if k_new is not None:
+        for t in (k_new, v_new):
+            _check(t.dtype == q.dtype and t.shape == (B, KV, D)
+                   and t.is_contiguous() and t.device == dev,
+                   "k_new/v_new must be contiguous (B, KV, D) in q's dtype "
+                   "on its device")
+    _check(0 <= layer < L, f"layer {layer} out of range")
+    (P, PS, MAXP), kind, scale_bf16, table = _geometry(
+        cache_k, cache_v, k_scale, v_scale, page_table, B, dev)
+    if alibi_slopes is not None:
+        _check(alibi_slopes.dtype == torch.float32
+               and alibi_slopes.shape == (H,) and alibi_slopes.device == dev
+               and alibi_slopes.is_contiguous(),
+               "alibi_slopes must be a contiguous f32 (H,) on q's device")
+    pos_ptr, pos_scalar = _pos_arg(pos, B, dev)
+    out = torch.empty((B, H, D), dtype=q.dtype, device=dev)
+    ptrs = [q.data_ptr()]
+    if k_new is not None:
+        ptrs += [k_new.data_ptr(), v_new.data_ptr()]
+    ptrs += [cache_k.data_ptr(), cache_v.data_ptr(),
+             k_scale.data_ptr() if k_scale is not None else 0,
+             v_scale.data_ptr() if v_scale is not None else 0,
+             0 if alibi_slopes is None else alibi_slopes.data_ptr(),
+             pos_ptr, table, out.data_ptr()]
+    kernel(*ptrs, pos_scalar, layer, B, KV, H // KV, P, PS, MAXP, D,
+           float(scale), int(q.dtype == torch.bfloat16), kind, scale_bf16)
+    return out
+
+
+def launch_append(kernel: CudaKernel, k_new, v_new, cache_k, cache_v, pos,
+                  layer: int, k_scale, v_scale, page_table=None) -> None:
+    """Launches ``csrc/kv_append.cu`` (K10, K14) after checking its
+    arguments."""
+    B, KV, D = k_new.shape
+    L = cache_k.shape[0]
+    dev = k_new.device
+    for t in (k_new, v_new):
+        _check(t.dtype in (torch.bfloat16, torch.float32)
+               and t.dtype == k_new.dtype and t.shape == (B, KV, D)
+               and t.is_contiguous() and t.device == dev,
+               "k_new/v_new must be contiguous (B, KV, D) bf16/f32 of one "
+               "dtype and device")
+    _check(cache_k.shape[2] == KV and cache_k.shape[4] == D,
+           "the cache must be (L, P, KV, PS, D) of k_new's KV and D")
+    _check(0 <= layer < L, f"layer {layer} out of range")
+    (P, PS, MAXP), kind, scale_bf16, table = _geometry(
+        cache_k, cache_v, k_scale, v_scale, page_table, B, dev)
+    pos_ptr, pos_scalar = _pos_arg(pos, B, dev)
+    kernel(k_new.data_ptr(), v_new.data_ptr(), cache_k.data_ptr(),
+           cache_v.data_ptr(), k_scale.data_ptr() if k_scale is not None
+           else 0, v_scale.data_ptr() if v_scale is not None else 0,
+           pos_ptr, table, pos_scalar, layer, B, KV, P, PS, MAXP, D,
+           int(k_new.dtype == torch.bfloat16), kind, scale_bf16)
+
+
+def _updated(cache_k, cache_v, k_scale, v_scale):
+    if k_scale is None:
+        return cache_k, cache_v
+    return cache_k, cache_v, k_scale, v_scale
+
+
 def fused_decode_append(q, k_new, v_new, cache_k, cache_v, pos, layer: int,
                         scale: float, alibi_slopes=None, k_scale=None,
                         v_scale=None):
@@ -199,59 +347,99 @@ def fused_decode_append(q, k_new, v_new, cache_k, cache_v, pos, layer: int,
         return fused_decode_append_plain(q, k_new, v_new, cache_k, cache_v,
                                          pos, layer, scale, alibi_slopes,
                                          k_scale, v_scale)
+    out = launch_decode(K3, q, k_new, v_new, cache_k, cache_v, pos, layer,
+                        scale, alibi_slopes, k_scale, v_scale)
+    return (out, *_updated(cache_k, cache_v, k_scale, v_scale))
+
+
+# ---- the split route: K10 append, K11 flash decode -------------------------
+
+
+# The append's arithmetic is the oracle's: quantize (int8 caches), then
+# write the row; kernel K10 writes the same bytes.
+kv_append_plain = kv_append_ref
+
+
+def kv_append(k_new, v_new, cache_k, cache_v, pos, layer: int,
+              k_scale=None, v_scale=None):
+    """Kernel K10: write k_new/v_new (B, KV, D) into the (L, B, KV, S, D)
+    cache at ``pos`` (an int or a (B,) int32 tensor; clamped to S-1) of
+    ``layer`` IN PLACE, int8 caches quantized with a per-(token, head)
+    scale. Returns the caches (the argument tensors). A CUDA tensor
+    launches the kernel; a CPU tensor takes :func:`kv_append_plain`."""
+    if not k_new.is_cuda:
+        return kv_append_plain(k_new, v_new, cache_k, cache_v, pos, layer,
+                               k_scale, v_scale)
+    launch_append(K10, k_new, v_new, cache_k, cache_v, pos, layer, k_scale,
+                  v_scale)
+    return _updated(cache_k, cache_v, k_scale, v_scale)
+
+
+def flash_decode_plain(q, cache_k, cache_v, pos, layer: int, scale: float,
+                       alibi_slopes=None, k_scale=None, v_scale=None):
+    """Plain PyTorch version of kernel K11 (the kernel's arithmetic): the
+    cached rows s <= pos, q and K/V in the compute dtype (bf16 for bf16 q)
+    with f32 products and the key scales applied to the logits, and p
+    (times the value scales) rounded to that dtype before p @ V."""
     L, B, KV, S, D = cache_k.shape
     H = q.shape[1]
-    dev = q.device
-    _check(q.dtype in (torch.bfloat16, torch.float32) and q.shape == (B, H, D)
-           and H % KV == 0, "q must be (B, H, D) bf16/f32 with H % KV == 0")
-    _check(D <= 256, "head_dim must be <= 256")
-    for t in (q, k_new, v_new, cache_k, cache_v):
-        _check(t.is_contiguous() and t.device == dev,
-               "q, k_new, v_new and the caches must be contiguous on one "
-               "device")
-    for t in (k_new, v_new):
-        _check(t.dtype == q.dtype and t.shape == (B, KV, D),
-               "k_new/v_new must be (B, KV, D) in q's dtype")
-    _check(cache_k.dtype in _CACHE_KIND and cache_v.dtype == cache_k.dtype
-           and cache_v.shape == cache_k.shape,
-           "caches must be one int8/bf16/f32 dtype and shape")
-    _check(0 <= layer < L, f"layer {layer} out of range")
-    quantized = k_scale is not None
-    _check(quantized == (cache_k.dtype == torch.int8),
-           "an int8 cache needs scale planes, and only it takes them")
-    scale_bf16 = 0
-    if quantized:
-        _check(k_scale.shape == (L, B, KV, S) and v_scale.shape == k_scale.shape
-               and k_scale.dtype in (torch.bfloat16, torch.float32)
-               and v_scale.dtype == k_scale.dtype
-               and k_scale.is_contiguous() and v_scale.is_contiguous()
-               and k_scale.device == dev and v_scale.device == dev,
-               "scale planes must be contiguous (L, B, KV, S) bf16/f32")
-        scale_bf16 = int(k_scale.dtype == torch.bfloat16)
+    G = H // KV
+    cdt = torch.bfloat16 if q.dtype == torch.bfloat16 else torch.float32
+    p = _pos_vec(pos, B, S, q.device)
+
+    def rnd(t):
+        return t.to(cdt).float()
+
+    qf = rnd(q).reshape(B, KV, G, D)
+    logits = torch.einsum("bkgd,bksd->bkgs", qf, rnd(cache_k[layer])) * scale
+    if k_scale is not None:
+        logits = logits * k_scale[layer].float()[:, :, None, :]
+    col = torch.arange(S, device=q.device)
     if alibi_slopes is not None:
-        _check(alibi_slopes.dtype == torch.float32
-               and alibi_slopes.shape == (H,) and alibi_slopes.device == dev
-               and alibi_slopes.is_contiguous(),
-               "alibi_slopes must be a contiguous f32 (H,) on q's device")
-    pos_ptr, pos_scalar = 0, 0
-    if isinstance(pos, torch.Tensor):
-        _check(pos.dtype == torch.int32 and pos.shape == (B,)
-               and pos.device == dev and pos.is_contiguous(),
-               "tensor pos must be a contiguous (B,) int32 on q's device")
-        pos_ptr = pos.data_ptr()
-    else:
-        pos_scalar = int(pos)
-    out = torch.empty((B, H, D), dtype=q.dtype, device=dev)
-    K3(q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), cache_k.data_ptr(),
-       cache_v.data_ptr(), k_scale.data_ptr() if quantized else 0,
-       v_scale.data_ptr() if quantized else 0,
-       0 if alibi_slopes is None else alibi_slopes.data_ptr(), pos_ptr,
-       out.data_ptr(), pos_scalar, layer, L, B, KV, H // KV, S, D,
-       float(scale), int(q.dtype == torch.bfloat16),
-       _CACHE_KIND[cache_k.dtype], scale_bf16)
-    if quantized:
-        return out, cache_k, cache_v, k_scale, v_scale
-    return out, cache_k, cache_v
+        slopes = alibi_slopes.float().reshape(KV, G)
+        dist = (col[None, :] - p[:, None]).float()
+        logits = logits + slopes[None, :, :, None] * dist[:, None, None, :]
+    logits = torch.where((col[None, :] <= p[:, None])[:, None, None, :],
+                         logits, -math.inf)
+    pe = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    l_sum = pe.sum(dim=-1)
+    if v_scale is not None:
+        pe = pe * v_scale[layer].float()[:, :, None, :]
+    pv = torch.einsum("bkgs,bksd->bkgd", rnd(pe), rnd(cache_v[layer]))
+    return (pv / l_sum[..., None]).reshape(B, H, D).to(q.dtype)
+
+
+def flash_decode(q, cache_k, cache_v, pos, layer: int, scale: float,
+                 alibi_slopes=None, k_scale=None, v_scale=None,
+                 block_s: int = 256, kv_chunk: Optional[int] = None,
+                 mha_mode: Optional[str] = None,
+                 batch_fold: Optional[bool] = None):
+    """Kernel K11: masked decode attention of q (B, H, D) over the cache
+    rows s <= pos (inclusive; an int or a (B,) int32 tensor, clamped to
+    S-1) of ``layer``, GQA (head h reads KV head h // G), ALiBi slopes (H,)
+    f32 or None, int8 caches with their scale planes. Returns (B, H, D) in
+    q's dtype.
+
+    ``block_s`` and ``kv_chunk`` are the TPU kernel's block sizes; the
+    CUDA kernel has its own (one block per KV head and batch row, 128-row
+    chunks), so every value of them gives the same answer. ``mha_mode=
+    'ew'`` (at G = 1) and ``batch_fold=True`` select kernels K12 and K13,
+    which raise until they are ported. A CUDA tensor launches the kernel;
+    a CPU tensor takes :func:`flash_decode_plain`."""
+    del block_s, kv_chunk
+    if mha_mode == "ew" and q.shape[1] == cache_k.shape[2]:
+        raise NotImplementedError(
+            "mha_mode='ew' (kernel K12) is not ported yet (ROADMAP queue 1, "
+            "item 14)")
+    if batch_fold:
+        raise NotImplementedError(
+            "batch_fold=True (kernel K13) is not ported yet (ROADMAP queue "
+            "1, item 14)")
+    if not q.is_cuda:
+        return flash_decode_plain(q, cache_k, cache_v, pos, layer, scale,
+                                  alibi_slopes, k_scale, v_scale)
+    return launch_decode(K11, q, None, None, cache_k, cache_v, pos, layer,
+                         scale, alibi_slopes, k_scale, v_scale)
 
 
 def decode_attention(q, k_new, v_new, cache_k, cache_v, pos, layer: int,
@@ -261,15 +449,25 @@ def decode_attention(q, k_new, v_new, cache_k, cache_v, pos, layer: int,
     """Append the new token's K/V and attend over the cache (one decode
     step of one layer). The caches are updated IN PLACE and returned:
     ``(out (B, H, D), cache_k, cache_v[, k_scale, v_scale])``.
-    ``use_kernel`` (default: q is on CUDA) launches K3, else its plain
-    version runs."""
+    With :data:`FLASH_FUSED_APPEND` one kernel does both (K3), else the
+    append (K10) and the flash decode (K11) run in turn. ``use_kernel``
+    (default: q is on CUDA) launches the kernels, else their plain
+    versions run."""
     if scale is None:
         scale = 1.0 / math.sqrt(cache_k.shape[-1])
     if use_kernel is None:
         use_kernel = q.is_cuda
-    fn = fused_decode_append if use_kernel else fused_decode_append_plain
-    return fn(q, k_new, v_new, cache_k, cache_v, pos, layer, scale,
-              alibi_slopes, k_scale=k_scale, v_scale=v_scale)
+    if FLASH_FUSED_APPEND:
+        fn = fused_decode_append if use_kernel else fused_decode_append_plain
+        return fn(q, k_new, v_new, cache_k, cache_v, pos, layer, scale,
+                  alibi_slopes, k_scale=k_scale, v_scale=v_scale)
+    append, attend = ((kv_append, flash_decode) if use_kernel
+                      else (kv_append_plain, flash_decode_plain))
+    caches = append(k_new, v_new, cache_k, cache_v, pos, layer, k_scale,
+                    v_scale)
+    out = attend(q, cache_k, cache_v, pos, layer, scale, alibi_slopes,
+                 k_scale, v_scale)
+    return (out, *caches)
 
 
 # ---- K4: causal flash prefill -----------------------------------------------

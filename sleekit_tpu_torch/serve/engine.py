@@ -1,12 +1,16 @@
-"""Continuous-batching serving engine, slot mode (port of
-``sleekit_tpu/serve/engine.py``).
+"""Continuous-batching serving engine (port of
+``sleekit_tpu/serve/engine.py``), single replica.
 
 A fixed pool of ``max_slots`` sequences shares one stacked KV cache that
-prefill and decode update IN PLACE; prompts prefill in power-of-two length
-buckets (one batched prefill per bucket) and their KV rows are spliced into
-the pool; each step decodes every slot, with a scalar position when all
-active slots agree (one uniform position per kernel) and a (B,) vector
-otherwise. Greedy steps run ``fused_steps`` tokens per host round trip.
+prefill and decode update IN PLACE: in slot mode a (L, max_slots, KV,
+max_seq_len, D) cache, in paged mode a page pool (L, total_pages, KV,
+page_size, D) with a page table, from which each admitted request takes
+the pages its prompt and budget need. Prompts prefill in power-of-two
+length buckets (one batched prefill per bucket) and their KV rows are
+spliced into the slot or copied page by page into the pool; each step
+decodes every slot, with a scalar position when all active slots agree (one
+uniform position per kernel) and a (B,) vector otherwise. Greedy steps run
+``fused_steps`` tokens per host round trip.
 """
 
 from __future__ import annotations
@@ -21,7 +25,12 @@ from sleekit_tpu_torch.device import resolve_device
 from sleekit_tpu_torch.models.eval import (
     decode_scan, decode_scan_sampled, sample_tokens, sample_tokens_topkp)
 from sleekit_tpu_torch.models.transformer import (
-    TransformerConfig, decode_step, init_kv_cache, prefill)
+    TransformerConfig, decode_step, init_kv_cache, init_paged_kv_cache,
+    prefill)
+
+# The JAX kernels' append window (rows): a page size must be a multiple of
+# it there, and the port accepts the same configurations.
+_APPEND_WIN = 8
 
 
 @dataclasses.dataclass
@@ -59,26 +68,47 @@ def _splice_cache(slot_cache, pool_cache, row: int, slot: int) -> None:
         pool[:, slot, :, :t] = src.to(pool.dtype)
 
 
+def _splice_pages(slot_cache, pool_cache, row: int, pages: List[int],
+                  page_size: int) -> None:
+    """Copy prefill row ``row`` of ``slot_cache`` (all layers) page by page
+    into the pool: logical page j into physical page ``pages[j]``, in
+    place. A page past the prefill's T positions is zero-filled, as if T
+    were padded up to a multiple of the page size."""
+    for key, pool in pool_cache.items():
+        if key == "page_table":
+            continue
+        src = slot_cache[key][:, row]              # (L, KV, T[, D])
+        t = src.shape[2]
+        for j, page in enumerate(pages):
+            n = max(0, min(page_size, t - j * page_size))
+            pool[:, page, :, :n] = src[:, :, j * page_size:j * page_size + n]
+            pool[:, page, :, n:] = 0
+
+
 class Engine:
     """Continuous-batching generation engine over (packed) params.
 
-    The KV pool ``self.cache`` is updated in place by every prefill splice
+    The KV cache ``self.cache`` is updated in place by every prefill splice
     and decode step. ``use_kernel`` (default: ``device`` is CUDA) launches
     the CUDA kernels; ``use_kernel=False`` runs their plain PyTorch
     versions on the same device (the counterpart of the JAX package's
     ``use_pallas``).
+
+    ``paged=True`` keeps the cache in a page pool of ``total_pages`` pages
+    of ``page_size`` rows (default: half the slot cache's rows, at least
+    one max-length sequence and the trash page). Page 0 is the trash page:
+    every inactive slot's table row points at it, so its garbage decode
+    appends touch no live page. Admission is FIFO and waits while the pool
+    cannot hold the head request's prompt and budget.
     """
 
     def __init__(self, cfg: TransformerConfig, params, max_slots: int = 8,
                  max_seq_len: int = 512, cache_dtype=torch.float32,
                  seed: int = 0, fused_steps: int = 8, paged: bool = False,
+                 page_size: int = 64, total_pages: Optional[int] = None,
                  mesh=None, device="cuda",
                  use_kernel: Optional[bool] = None):
         self.device = resolve_device(device)
-        if paged:
-            raise NotImplementedError(
-                "paged mode is not ported yet (ROADMAP queue 1, item 12: "
-                "paged KV)")
         if mesh is not None:
             raise NotImplementedError(
                 "mesh serving is not ported yet (ROADMAP queue 1, item 15: "
@@ -88,10 +118,33 @@ class Engine:
         self.max_slots = max_slots
         self.max_seq_len = max_seq_len
         self.cache_dtype = cache_dtype
+        self.paged = paged
         self.use_kernel = (self.device.type == "cuda" if use_kernel is None
                            else use_kernel)
-        self.cache = init_kv_cache(cfg, max_slots, max_seq_len, cache_dtype,
-                                   device=self.device)
+        if paged:
+            if page_size <= 0 or page_size % _APPEND_WIN:
+                raise ValueError(f"page_size {page_size} must be a positive "
+                                 f"multiple of {_APPEND_WIN}")
+            if max_seq_len % page_size:
+                raise ValueError(f"max_seq_len {max_seq_len} must be a "
+                                 f"multiple of page_size {page_size}")
+            self.page_size = page_size
+            self.max_pages = max_seq_len // page_size
+            self.total_pages = total_pages or max(
+                self.max_pages + 1, max_slots * self.max_pages // 2)
+            if self.total_pages < self.max_pages + 1:
+                raise ValueError(
+                    f"total_pages {self.total_pages} cannot hold one "
+                    f"max-length sequence ({self.max_pages} pages) and the "
+                    f"trash page")
+            self.cache = init_paged_kv_cache(
+                cfg, self.total_pages, page_size, max_slots, self.max_pages,
+                cache_dtype, device=self.device)
+            self._free_pages: List[int] = list(range(1, self.total_pages))
+            self._slot_pages: Dict[int, List[int]] = {}
+        else:
+            self.cache = init_kv_cache(cfg, max_slots, max_seq_len,
+                                       cache_dtype, device=self.device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         # When every active slot has >= fused_steps budget left and the
@@ -154,6 +207,9 @@ class Engine:
 
     # ---- internals --------------------------------------------------------
 
+    def _pages_needed(self, req: Request) -> int:
+        return -(-(len(req.prompt) + req.max_new_tokens) // self.page_size)
+
     def _slot_pos_arg(self, active):
         """An int when every active slot sits at one position (inactive
         slots then write garbage there, harmless: their rows are
@@ -199,12 +255,23 @@ class Engine:
 
     def _admit(self) -> None:
         """Admit queued requests into free slots: one batched prefill per
-        length bucket, rows padded to a power of two."""
+        length bucket, rows padded to a power of two. In paged mode a
+        request first takes its pages and writes its table row; the head of
+        the queue waits while the pool is short (FIFO)."""
         free = [i for i in range(self.max_slots) if self.slot_req[i] is None]
         admitted = []
         for slot in free:
             if not self.queue:
                 break
+            if self.paged:
+                needed = self._pages_needed(self.queue[0])
+                if needed > len(self._free_pages):
+                    break
+                pages = [self._free_pages.pop() for _ in range(needed)]
+                self._slot_pages[slot] = pages
+                row = torch.zeros(self.max_pages, dtype=torch.int32)
+                row[:needed] = torch.as_tensor(pages, dtype=torch.int32)
+                self.cache["page_table"][slot] = row.to(self.device)
             admitted.append((slot, self.queue.pop(0)))
         if not admitted:
             return
@@ -240,7 +307,13 @@ class Engine:
                 firsts = sample_tokens(last_logits, temps, self.generator)
             firsts = firsts.cpu().numpy()
             for r, (slot, req) in enumerate(items):
-                _splice_cache(tmp_cache, self.cache, r, slot)
+                if self.paged:
+                    n_pages = -(-len(req.prompt) // self.page_size)
+                    _splice_pages(tmp_cache, self.cache, r,
+                                  self._slot_pages[slot][:n_pages],
+                                  self.page_size)
+                else:
+                    _splice_cache(tmp_cache, self.cache, r, slot)
                 nxt = int(firsts[r])
                 prompt = np.asarray(req.prompt, np.int32)
                 self.slot_req[slot] = req
@@ -269,6 +342,10 @@ class Engine:
             self.slot_req[slot] = None
             self.slot_tokens[slot] = []
             self.slot_new[slot] = []
+            if self.paged and slot in self._slot_pages:
+                # Return the pages; park the slot on the trash page.
+                self._free_pages.extend(self._slot_pages.pop(slot))
+                self.cache["page_table"][slot] = 0
 
     def step(self) -> None:
         """One engine iteration: admit new requests, one decode step for

@@ -12,7 +12,7 @@ import torch
 from sleekit_tpu.ops import attention as jattn
 from sleekit_tpu_torch.ops import attention as tattn
 
-from tests._torch_port_util import f32, t
+from tests._torch_port_util import bf16_close, f32, t
 
 
 def _setup(G, quant, dtype, L=3, B=4, KV=2, S=32, D=64, seed=0,
@@ -189,3 +189,131 @@ def test_quant_rows_bit_identical():
     tq, ts = tattn._quant_rows(torch.from_numpy(x))
     np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
     np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+
+
+# ---- the split route: K10 append and K11 flash decode -----------------------
+
+
+@pytest.mark.parametrize("cache", ["f32", "bf16", "int8", "int8-f32-scales"])
+@pytest.mark.parametrize("pos_kind", ["scalar", "ragged"])
+def test_kv_append_plain_matches_jax_kernel(cache, pos_kind):
+    """K10's plain version (the wrapper on CPU tensors) writes the bytes of
+    kv_append_pallas (interpret): the uniform path for a scalar pos, the
+    per-row grid for a ragged one, clamped beyond S-1; with f32 scale
+    planes, those of the XLA oracle (mirrors
+    tests/test_attention.py:32,249,360)."""
+    quant = cache.startswith("int8")
+    sdt = "f32" if cache == "int8-f32-scales" else "bf16"
+    ck, cv, ks, vs, kn, vn, _ = _setup(1, quant, "bf16" if cache == "bf16"
+                                       else "f32", seed=3, scale_dtype=sdt)
+    S = ck.shape[3]
+    pos = (np.int32(13) if pos_kind == "scalar"
+           else np.asarray([0, S - 1, S + 4, 21], np.int32))
+    jargs = (jnp.asarray(kn), jnp.asarray(vn), jnp.asarray(ck),
+             jnp.asarray(cv), jnp.asarray(pos), jnp.int32(1))
+    jscales = dict(k_scale=None if ks is None else jnp.asarray(ks),
+                   v_scale=None if vs is None else jnp.asarray(vs))
+    if cache == "int8-f32-scales":
+        # Jitted on the CPU, XLA turns the kernel's max|x| / 127 into a
+        # product with 1/127, one f32 step off the division in some rows
+        # (ROADMAP queue 3); the division is the XLA oracle's, run op by
+        # op, and the port's.
+        want = jattn.kv_append_xla(*jargs, **jscales)
+    else:
+        want = jattn.kv_append_pallas(*jargs, **jscales, interpret=True)
+    targs = _torch(ck, cv, ks, vs)
+    got = tattn.kv_append(t(kn), t(vn), targs[0], targs[1],
+                          int(pos) if pos_kind == "scalar"
+                          else torch.from_numpy(pos), 1,
+                          k_scale=targs[2], v_scale=targs[3])
+    assert len(got) == len(want) and got[0] is targs[0]
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(f32(g), f32(w))
+
+
+@pytest.mark.parametrize("dtype,G", [("f32", 1), ("f32", 4), ("bf16", 4)])
+@pytest.mark.parametrize("alibi", [False, True])
+@pytest.mark.parametrize("quant", [False, True])
+def test_flash_decode_plain_matches_jax_kernel(G, alibi, quant, dtype):
+    """K11's plain version == flash_decode_pallas (interpret) over s <= pos
+    with multi-block online softmax (block_s 16) and a chunked KV grid:
+    1e-5 in f32, the bf16 tolerance (rtol 2^-6, atol 1e-2*max|ref|) in bf16
+    (p rounds to bf16 at other maxima). The port takes the TPU schedule
+    arguments and gives one answer for every value (mirrors
+    tests/test_attention.py:48,211,223,249)."""
+    ck, cv, ks, vs, _, _, q = _setup(G, quant, dtype, KV=4, seed=20 + G,
+                                     scale_dtype=dtype)
+    S = ck.shape[3]
+    pos = np.asarray([0, S - 1, S + 5, 11], np.int32)
+    H = q.shape[1]
+    slopes = np.linspace(0.05, 0.9, H).astype(np.float32) if alibi else None
+    scale = 1.0 / np.sqrt(ck.shape[-1])
+    want = jattn.flash_decode_pallas(
+        jnp.asarray(q), jnp.asarray(ck), jnp.asarray(cv), jnp.asarray(pos),
+        jnp.int32(2), scale,
+        alibi_slopes=None if slopes is None else jnp.asarray(slopes),
+        k_scale=None if ks is None else jnp.asarray(ks),
+        v_scale=None if vs is None else jnp.asarray(vs), block_s=16,
+        kv_chunk=2, interpret=True)
+    targs = _torch(ck, cv, ks, vs)
+    outs = [tattn.flash_decode(
+        t(q), targs[0], targs[1], torch.from_numpy(pos), 2, scale,
+        None if slopes is None else t(slopes), targs[2], targs[3],
+        block_s=bs, kv_chunk=kc) for bs, kc in ((256, None), (8, 1))]
+    np.testing.assert_array_equal(f32(outs[0]), f32(outs[1]))
+    if dtype == "f32":
+        np.testing.assert_allclose(f32(outs[0]), f32(want), rtol=1e-5,
+                                   atol=1e-5)
+    else:
+        bf16_close(outs[0], want, "K11 bf16")
+
+
+def test_flash_decode_unported_schedules_raise():
+    """mha_mode='ew' at G = 1 (K12) and batch_fold (K13) name their ROADMAP
+    item; 'ew' at G > 1 is the one-big-dot kernel in JAX, and runs."""
+    ck, cv, _, _, _, _, q = _setup(1, False, "f32")
+    args = (t(q), t(ck), t(cv), 3, 0, 0.125)
+    with pytest.raises(NotImplementedError, match="K12.*item 14"):
+        tattn.flash_decode(*args, mha_mode="ew")
+    with pytest.raises(NotImplementedError, match="K13.*item 14"):
+        tattn.flash_decode(*args, batch_fold=True)
+    _, _, _, _, _, _, q4 = _setup(4, False, "f32")
+    tattn.flash_decode(t(q4), t(ck), t(cv), 3, 0, 0.125, mha_mode="ew")
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("alibi", [False, True])
+def test_decode_attention_split_route_matches_fused(monkeypatch, quant,
+                                                    alibi):
+    """decode_attention with FLASH_FUSED_APPEND off (K10 then K11) writes
+    the fused route's (K3's) cache bytes and returns its output within
+    1e-5 in f32, and JAX's split route (kv_append_pallas +
+    flash_decode_pallas, interpret) within 1e-5 (bf16 scale planes, the
+    serving default)."""
+    ck, cv, ks, vs, kn, vn, q = _setup(2, quant, "f32", seed=8,
+                                       scale_dtype="bf16")
+    pos = np.asarray([5, 31, 0, 17], np.int32)
+    slopes = (np.linspace(0.05, 0.9, q.shape[1]).astype(np.float32)
+              if alibi else None)
+    tslopes = None if slopes is None else t(slopes)
+    results = {}
+    for fused in (True, False):
+        monkeypatch.setattr(tattn, "FLASH_FUSED_APPEND", fused)
+        targs = _torch(ck, cv, ks, vs)
+        results[fused] = tattn.decode_attention(
+            t(q), t(kn), t(vn), targs[0], targs[1], torch.from_numpy(pos), 1,
+            alibi_slopes=tslopes, k_scale=targs[2], v_scale=targs[3])
+    monkeypatch.setattr(jattn, "FLASH_FUSED_APPEND", False)
+    want = jattn.decode_attention(
+        jnp.asarray(q), jnp.asarray(kn), jnp.asarray(vn), jnp.asarray(ck),
+        jnp.asarray(cv), jnp.asarray(pos), jnp.int32(1),
+        alibi_slopes=None if slopes is None else jnp.asarray(slopes),
+        k_scale=None if ks is None else jnp.asarray(ks),
+        v_scale=None if vs is None else jnp.asarray(vs), interpret=True)
+    split, fused = results[False], results[True]
+    for ref in (fused[0], want[0]):
+        np.testing.assert_allclose(f32(split[0]), f32(ref), rtol=1e-5,
+                                   atol=1e-5)
+    for a, b, w in zip(split[1:], fused[1:], want[1:]):
+        np.testing.assert_array_equal(f32(a), f32(b))
+        np.testing.assert_array_equal(f32(a), f32(w))

@@ -134,3 +134,174 @@ def test_k4_matches_plain(dev, G, dtype, T):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     else:
         _bf16_close(got, want)
+
+
+def _cache(g, shape, cache):
+    """Random K and V caches of ``shape`` (L, P, KV, rows, D) and their
+    scale planes (bf16; None unless int8)."""
+    from sleekit_tpu_torch.ops.attention import _quant_rows
+
+    k = torch.randn(*shape, generator=g)
+    v = torch.randn(*shape, generator=g)
+    if cache == "int8":
+        k, ks = _quant_rows(k)
+        v, vs = _quant_rows(v)
+        return [k, v, ks[..., 0].bfloat16(), vs[..., 0].bfloat16()]
+    dt = torch.bfloat16 if cache == "bf16" else torch.float32
+    return [k.to(dt), v.to(dt), None, None]
+
+
+def _on(dev, a):
+    return None if a is None else a.to(dev)
+
+
+@pytest.mark.parametrize("cache", ["int8", "bf16", "f32"])
+@pytest.mark.parametrize("ragged", [False, True])
+@pytest.mark.parametrize("paged", [False, True])
+def test_kv_append_matches_plain(dev, cache, ragged, paged):
+    """K10 (slot cache) and K14 (page pool, through a table of distinct
+    pages in random order) write the plain version's bytes."""
+    from sleekit_tpu_torch.ops import attention as at
+    from sleekit_tpu_torch.ops import paged_attention as pa
+
+    g = torch.Generator().manual_seed(3)
+    L, B, KV, D, PS, MAXP = 2, 3, 2, 64, 64, 4
+    P = B * MAXP + 1 if paged else B
+    planes = _cache(g, (L, P, KV, PS if paged else 300, D), cache)
+    dt = torch.float32 if cache == "f32" else torch.bfloat16
+    kn = torch.randn(B, KV, D, generator=g).to(dt)
+    vn = torch.randn(B, KV, D, generator=g).to(dt)
+    pos = torch.tensor([0, 137, 1000], dtype=torch.int32) if ragged else 200
+    tpos = _on(dev, pos) if ragged else pos
+    got = [_on(dev, p) for p in planes]
+    want = [None if p is None else p.clone() for p in planes]
+    if paged:
+        table = (1 + torch.randperm(P - 1, generator=g)).to(torch.int32)
+        table = table.reshape(B, MAXP)
+        kernel = pa.K14
+        before = kernel.launches
+        pa.paged_kv_append(kn.to(dev), vn.to(dev), got[0], got[1],
+                           table.to(dev), tpos, 1, got[2], got[3])
+        pa.paged_kv_append_plain(kn, vn, want[0], want[1], table, pos, 1,
+                                 want[2], want[3])
+    else:
+        kernel = at.K10
+        before = kernel.launches
+        at.kv_append(kn.to(dev), vn.to(dev), got[0], got[1], tpos, 1,
+                     got[2], got[3])
+        at.kv_append_plain(kn, vn, want[0], want[1], pos, 1, want[2],
+                           want[3])
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    for a, b in zip(got, want):
+        if b is not None:
+            assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("cache", ["int8", "bf16", "f32"])
+@pytest.mark.parametrize("ragged", [False, True])
+@pytest.mark.parametrize("paged", [False, True])
+def test_flash_decode_matches_plain(dev, G, cache, ragged, paged):
+    """K11 (slot cache) and K15 (page pool) against their plain versions:
+    rows s <= pos, ALiBi, GQA; bf16 q within the bf16 tolerance, f32 q
+    (f32 cache) within 1e-5."""
+    from sleekit_tpu_torch.ops import attention as at
+    from sleekit_tpu_torch.ops import paged_attention as pa
+
+    g = torch.Generator().manual_seed(G)
+    L, B, KV, D, PS, MAXP = 2, 3, 2, 64, 64, 5
+    P = B * MAXP + 1 if paged else B
+    planes = _cache(g, (L, P, KV, PS if paged else 300, D), cache)
+    dt = torch.float32 if cache == "f32" else torch.bfloat16
+    q = torch.randn(B, KV * G, D, generator=g).to(dt)
+    pos = torch.tensor([0, 137, 1000], dtype=torch.int32) if ragged else 200
+    slopes = torch.linspace(0.05, 0.9, KV * G)
+    scale = 1 / math.sqrt(D)
+    dplanes = [_on(dev, p) for p in planes]
+    tpos = _on(dev, pos) if ragged else pos
+    if paged:
+        table = (1 + torch.randperm(P - 1, generator=g)).to(torch.int32)
+        table = table.reshape(B, MAXP)
+        got = pa.paged_flash_decode(q.to(dev), dplanes[0], dplanes[1],
+                                    table.to(dev), tpos, 1, scale,
+                                    slopes.to(dev), dplanes[2], dplanes[3])
+        want = pa.paged_flash_decode_plain(q, planes[0], planes[1], table,
+                                           pos, 1, scale, slopes, planes[2],
+                                           planes[3])
+    else:
+        got = at.flash_decode(q.to(dev), dplanes[0], dplanes[1], tpos, 1,
+                              scale, slopes.to(dev), dplanes[2], dplanes[3])
+        want = at.flash_decode_plain(q, planes[0], planes[1], pos, 1, scale,
+                                     slopes, planes[2], planes[3])
+    torch.cuda.synchronize()
+    if dt == torch.float32:
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    else:
+        _bf16_close(got, want)
+
+
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("cache", ["int8", "bf16", "f32"])
+@pytest.mark.parametrize("ragged", [False, True])
+def test_k5_matches_plain_and_k3(dev, G, cache, ragged):
+    """K5 against its plain version (output within the bf16 tolerance,
+    written bytes equal), and against K3 on the same logical rows: output
+    and written bytes bit-identical."""
+    from sleekit_tpu_torch.ops import attention as at
+    from sleekit_tpu_torch.ops import paged_attention as pa
+
+    g = torch.Generator().manual_seed(10 + G)
+    L, B, KV, D, PS, MAXP = 2, 3, 2, 64, 64, 5
+    S = PS * MAXP
+    slot = _cache(g, (L, B, KV, S, D), cache)
+    dt = torch.float32 if cache == "f32" else torch.bfloat16
+    q = torch.randn(B, KV * G, D, generator=g).to(dt)
+    kn = torch.randn(B, KV, D, generator=g).to(dt)
+    vn = torch.randn(B, KV, D, generator=g).to(dt)
+    pos = (torch.tensor([0, PS, S + 3], dtype=torch.int32) if ragged
+           else PS - 1)
+    slopes = torch.linspace(0.05, 0.9, KV * G)
+    scale = 1 / math.sqrt(D)
+    # Row b's logical page j lives in physical page table[b, j], out of
+    # order; page 0 stays unused.
+    table = (1 + torch.randperm(B * MAXP, generator=g)).to(torch.int32)
+    table = table.reshape(B, MAXP)
+
+    def to_pool(x):
+        if x is None:
+            return None
+        pages = x.reshape(L, B, KV, MAXP, PS, *x.shape[4:]).transpose(2, 3)
+        pages = pages.reshape(L, B * MAXP, KV, PS, *x.shape[4:])
+        pool = torch.zeros((L, B * MAXP + 1) + pages.shape[2:],
+                           dtype=x.dtype)
+        pool[:, table.reshape(-1).long()] = pages
+        return pool
+
+    pool = [to_pool(x) for x in slot]
+    want = pa.paged_fused_decode_append_plain(
+        q, kn, vn, *[None if p is None else p.clone() for p in pool[:2]],
+        table, pos, 1, scale, slopes,
+        *[None if p is None else p.clone() for p in pool[2:]])
+    dpool = [_on(dev, p) for p in pool]
+    dslot = [_on(dev, p) for p in slot]
+    tpos = _on(dev, pos) if ragged else pos
+    before = pa.K5.launches
+    got = pa.paged_fused_decode_append(
+        q.to(dev), kn.to(dev), vn.to(dev), dpool[0], dpool[1],
+        table.to(dev), tpos, 1, scale, slopes.to(dev), dpool[2], dpool[3])
+    k3 = at.fused_decode_append(q.to(dev), kn.to(dev), vn.to(dev), dslot[0],
+                                dslot[1], tpos, 1, scale, slopes.to(dev),
+                                dslot[2], dslot[3])
+    torch.cuda.synchronize()
+    assert pa.K5.launches == before + 1
+    if dt == torch.float32:
+        torch.testing.assert_close(got[0].cpu(), want[0], rtol=1e-5,
+                                   atol=1e-5)
+    else:
+        _bf16_close(got[0], want[0])
+    for a, b in zip(got[1:], want[1:]):
+        assert torch.equal(a.cpu(), b)
+    assert torch.equal(got[0], k3[0])
+    for a, b in zip(got[1:], k3[1:]):
+        assert torch.equal(a.cpu(), to_pool(b.cpu()))

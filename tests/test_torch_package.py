@@ -42,7 +42,8 @@ def test_entry_points_raise_without_cuda():
         pytest.skip("a CUDA device is present: the entry points run there")
     from sleekit_tpu_torch.convert import params_from_numpy
     from sleekit_tpu_torch.models.fake_quant import random_packed_params
-    from sleekit_tpu_torch.models.transformer import init_kv_cache
+    from sleekit_tpu_torch.models.transformer import (
+        init_kv_cache, init_paged_kv_cache)
     from sleekit_tpu_torch.models.zoo import tiny_test
     from sleekit_tpu_torch.serve.engine import Engine
 
@@ -55,20 +56,30 @@ def test_entry_points_raise_without_cuda():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         init_kv_cache(cfg, 1, 16)
     with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_paged_kv_cache(cfg, 3, 8, 1, 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Engine(cfg, params, paged=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         params_from_numpy(cfg, {"layers": []})
     Engine(cfg, params, device="cpu")
+    Engine(cfg, params, device="cpu", paged=True)
 
 
-@pytest.mark.parametrize("kwargs,item", [(dict(paged=True), "item 12"),
-                                         (dict(mesh=object()), "item 15")])
-def test_unported_engine_modes_name_their_roadmap_item(kwargs, item):
+@pytest.mark.parametrize("kwargs,error,match", [
+    (dict(paged=True, page_size=4), ValueError, "page_size 4"),
+    (dict(paged=True, page_size=48), ValueError, "multiple of page_size 48"),
+    (dict(mesh=object()), NotImplementedError, "item 15")])
+def test_unported_engine_modes_name_their_roadmap_item(kwargs, error, match):
+    """Mesh serving is not ported and names its ROADMAP item; a page size
+    the JAX kernels refuse (not a multiple of their 8-row append window,
+    or not dividing max_seq_len 512) is refused at construction."""
     from sleekit_tpu_torch.models.fake_quant import random_packed_params
     from sleekit_tpu_torch.models.zoo import tiny_test
     from sleekit_tpu_torch.serve.engine import Engine
 
     cfg = tiny_test()
     params, _ = random_packed_params(cfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(error, match=match):
         Engine(cfg, params, device="cpu", **kwargs)
 
 
@@ -77,10 +88,12 @@ def test_kernel_sources_and_build_paths():
     it replaces; the build output goes to the git-ignored _build dir, and
     a source's library name changes with its text."""
     from sleekit_tpu_torch import kernels
-    from sleekit_tpu_torch.ops import attention, dequant_matmul  # noqa: F401
+    from sleekit_tpu_torch.ops import (  # noqa: F401
+        attention, dequant_matmul, paged_attention)
 
     names = {k.name: k for k in kernels.KERNELS}
-    assert set(names) == {"K1", "K2", "K3", "K4"}
+    assert set(names) == {"K1", "K2", "K3", "K4", "K5", "K10", "K11", "K14",
+                          "K15"}
     for k in names.values():
         assert (kernels.CSRC / k.source).exists()
         assert k.replaces.startswith("sleekit_tpu/ops/")
