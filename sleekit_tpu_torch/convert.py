@@ -9,7 +9,8 @@ leaves carry a leading layer axis. The port keeps a per-layer list; the
 packed words of a stacked tree stay one contiguous (L, kw, N) tensor, and
 each layer's ``PackedLinear`` holds the zero-copy view ``packed[l]``.
 
-bf16 arrays (numpy dtype name ``bfloat16``) are carried bit for bit.
+bf16 arrays (numpy dtype name ``bfloat16``, or the 2-byte void ``|V2``
+that an ``.npz`` file makes of them) are carried bit for bit.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ _PACKED_FIELDS = {"packed", "scale", "lut", "in_features", "out_features",
 
 def _tensor(a, device) -> torch.Tensor:
     a = np.asarray(a)
-    if a.dtype.name == "bfloat16":
+    if a.dtype.name == "bfloat16" or a.dtype == np.dtype("V2"):
         bits = np.ascontiguousarray(a).view(np.uint16).view(np.int16)
         return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(device)
     return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
@@ -85,16 +86,28 @@ def _layer_view(node, layer: int):
     return node[layer]
 
 
+def _leading_axis(node) -> int:
+    """The layer count of a stacked subtree: its first leaf's leading
+    axis."""
+    if _is_packed(node):
+        return int(np.shape(node["packed"])[0])
+    if isinstance(node, dict):
+        return _leading_axis(next(iter(node.values())))
+    return int(np.shape(node)[0])
+
+
 def params_from_numpy(cfg, tree, device="cuda"):
     """The port's params for ``cfg`` from a numpy tree of the JAX package's
-    params (per-layer list or stacked layers)."""
+    params (per-layer list or stacked layers; a stacked tree's L comes
+    from the leaves when ``cfg`` is None). A tree without ``layers`` is
+    converted leaf by leaf."""
     dev = resolve_device(device)
     out = {k: _convert(v, dev) for k, v in tree.items() if k != "layers"}
-    layers = tree["layers"]
+    layers = tree.get("layers")
     if isinstance(layers, dict):
+        n = cfg.n_layers if cfg is not None else _leading_axis(layers)
         stacked = _device_tree(layers, dev)
-        out["layers"] = [_layer_view(stacked, i)
-                         for i in range(cfg.n_layers)]
-    else:
+        out["layers"] = [_layer_view(stacked, i) for i in range(n)]
+    elif layers is not None:
         out["layers"] = [_convert(layer, dev) for layer in layers]
     return out

@@ -1,12 +1,16 @@
-// Kernels K1 and K2 of the port: fused prologue + dequantize + matmul +
-// epilogue over packed weights.
+// Kernels K1, K6, K7 and K2 of the port: fused prologue + dequantize +
+// matmul + epilogue over packed weights.
 //
 // Replaces:
 //   K1  sleekit_tpu/ops/dequant_matmul.py  _pallas_pair_impl / _pair_kernel
 //       ('pair' layout, 1..7-bit indices, two bf16 mantissas per int32 word)
+//   K6  the same, p3x=True ('pair3x': per 512 K rows, 32 words of 4-bit
+//       fields, then one 'pair3' tile)
+//   K7  the same, pair3=True ('pair3': per 256 K rows, 16 words of 2-bit
+//       low planes and 8 words of 1-bit high planes, idx = lo + 4*hi)
 //   K2  sleekit_tpu/ops/dequant_matmul.py  _pallas_int8_impl
 //       ('int8' layout, signed bytes idx-128, N padded at pack time)
-// Both compute
+// All compute
 //   out = [res +] (a * (pre(x) @ W) + b * rowsum(pre(x))) * scale + bias
 // with pre = none | layernorm | rmsnorm (statistics over the valid K) |
 // relu | gelu (tanh) | silu_glu ([gate | up] halves of x), pre(x) rounded
@@ -25,6 +29,18 @@
 // fold a*acc + b*rowsum cancels catastrophically when x has a large mean
 // (after relu, rowsum ~ 2000 against a result ~ 7 at OPT-1.3B's fc2), and
 // the f32 rounding of acc then flips about one bf16 output in ten.
+// K6 and K7 are K1's body under another tile rule (the template parameter
+// P): the same prologue, 512-row chunks and epilogue, 32 K rows per thread
+// per chunk, one FMA per K row. A pair3 index keeps its 2 low bits in low
+// word p (rows j*32 + 2p + h) and its high bit in high word p % 8, plane
+// 2j + p/8 (the same rows), so the thread of K slice p loads both words
+// and ORs the two parts into one bf16 mantissa, C = 1 + idx/8; pair3x's
+// 4-bit fields give 4 + idx/4 as the TPU kernel builds them. Each value
+// goes into the product minus its midpoint (2*(C - 1.4375) and
+// 4 + idx/4 - 4.875, both idx/4 - 0.875, exact), so both layouts fold
+// a = 4*step and b = zero + 3.5*step. The TPU kernel's pair3x epilogue
+// instead subtracts a section-weighted rowsum from a*acc, two large,
+// nearly equal terms.
 // Each block owns 16 columns at decode (M <= 8; 64 at prefill M, and for
 // K2) and one M tile of 8 or 16 rows; its 256 threads split K 16 ways and
 // sum the slices through shared memory at the end. pre(x) of the block's
@@ -202,27 +218,145 @@ __device__ void epilogue(const Args& g, int m0, int n0, int n_out,
   }
 }
 
-// Pair-layout geometry: HP planes per 16-bit half, PG word rows per tile,
-// BK K rows per tile, TPC tiles per shared-memory chunk.
+// Tile rules: PG word rows per tile, BK K rows per tile, TPC tiles per
+// shared-memory chunk, WPT word rows per thread per chunk, row(i, ks) the
+// chunk row of a thread's i-th word. 'pair' has HP planes per 16-bit half.
+enum TileKind { TILE_PAIR = 0, TILE_PAIR3 = 1, TILE_PAIR3X = 2 };
+
 template <int NB>
 struct Pair {
+  static constexpr int KIND = TILE_PAIR;
+  static constexpr int NBITS = NB;
   static constexpr int HP = 16 / NB;
   static constexpr int PG = (HP % 2) ? 64 : 32;
   static constexpr int BK = 2 * PG * HP;
   static constexpr int TPC = BK >= 512 ? 1 : 512 / BK;
   static constexpr int CW = TPC * PG;   // word rows per chunk
   static constexpr int CK = TPC * BK;   // K rows per chunk
+  static constexpr int WPT = CW / KSPLIT;
+  static __device__ __forceinline__ int row(int i, int ks) {
+    return ks + i * KSPLIT;
+  }
 };
 
-// Word rows kw0 + ks + i*KSPLIT (i < WPT) of NV columns from n; 0 past
+// 'pair3': 24 word rows per 256-row tile, two tiles a chunk; per tile, low
+// word ks and high word ks % 8.
+struct Pair3 {
+  static constexpr int KIND = TILE_PAIR3;
+  static constexpr int NBITS = 3;
+  static constexpr int PG = 24, BK = 256, TPC = 2;
+  static constexpr int CW = TPC * PG, CK = TPC * BK, WPT = 4;
+  static __device__ __forceinline__ int row(int i, int ks) {
+    return (i / 2) * PG + (i % 2 ? 16 + (ks & 7) : ks);
+  }
+};
+
+// 'pair3x': 56 word rows per 512-row group, one group a chunk; 4-bit words
+// ks and ks + 16, low word 32 + ks, high word 48 + ks % 8.
+struct Pair3x {
+  static constexpr int KIND = TILE_PAIR3X;
+  static constexpr int NBITS = 3;
+  static constexpr int PG = 56, BK = 512, TPC = 1;
+  static constexpr int CW = TPC * PG, CK = TPC * BK, WPT = 4;
+  static __device__ __forceinline__ int row(int i, int ks) {
+    return i == 0 ? ks : i == 1 ? ks + 16 : i == 2 ? 32 + ks : 48 + (ks & 7);
+  }
+};
+
+// acc[m][v] += x rows (xl, xl + BM) times (lo, hi), the two K rows of a
+// plane.
+template <int BM, int NV>
+__device__ __forceinline__ void fma_rows(float (&acc)[BM][NV], const float* xl,
+                                         const float (&lo)[NV],
+                                         const float (&hi)[NV]) {
+#pragma unroll
+  for (int m = 0; m < BM; m += 4) {
+    const float4 a = *reinterpret_cast<const float4*>(xl + m);
+    const float4 b = *reinterpret_cast<const float4*>(xl + BM + m);
+    const float av[4] = {a.x, a.y, a.z, a.w};
+    const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+#pragma unroll
+      for (int v = 0; v < NV; ++v)
+        acc[m + e][v] += av[e] * lo[v] + bv[e] * hi[v];
+  }
+}
+
+// A pair3x 4-bit word p whose rows 2p, 2p + 1 are at xt: plane j holds
+// rows j*64 + 2p + h; the field ORs under exponent 129, 4 + idx/4.
+template <int BM, int NV>
+__device__ __forceinline__ void p4_word(float (&acc)[BM][NV],
+                                        const uint32_t (&w)[NV],
+                                        const float* xt) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int s = 3 - 4 * j;
+    float lo[NV], hi[NV];
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      uint32_t u = s >= 0 ? (w[v] << s) : (w[v] >> (-s));
+      u = (u & 0x00780078u) | 0x40804080u;
+      lo[v] = __uint_as_float(u << 16) - 4.875f;
+      hi[v] = __uint_as_float(u & 0xFFFF0000u) - 4.875f;
+    }
+    fma_rows<BM, NV>(acc, xt + j * 64 * BM, lo, hi);
+  }
+}
+
+// Slice ks's rows of a pair3 tile whose row 0 is at xt: low word ks
+// (plane j: rows j*32 + 2ks + h, 2 bits) and high word ks % 8, plane
+// 2j + ks/8 (the same rows, 1 bit). The low field goes to mantissa bits
+// 4-5 and the high bit to bit 6: C = 1 + idx/8.
+template <int BM, int NV>
+__device__ __forceinline__ void pair3_rows(float (&acc)[BM][NV],
+                                           const uint32_t (&wl)[NV],
+                                           const uint32_t (&wh)[NV],
+                                           const float* xt, int ks) {
+  uint32_t h[NV];
+#pragma unroll
+  for (int v = 0; v < NV; ++v) h[v] = wh[v] >> (ks >> 3);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int sl = 4 - 2 * j, sh = 6 - 2 * j;
+    float lo[NV], hi[NV];
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      const uint32_t a = sl >= 0 ? (wl[v] << sl) : (wl[v] >> (-sl));
+      const uint32_t b = sh >= 0 ? (h[v] << sh) : (h[v] >> (-sh));
+      const uint32_t u = (a & 0x00300030u) | (b & 0x00400040u) | 0x3F803F80u;
+      lo[v] = (__uint_as_float(u << 16) - 1.4375f) * 2.0f;
+      hi[v] = (__uint_as_float(u & 0xFFFF0000u) - 1.4375f) * 2.0f;
+    }
+    fma_rows<BM, NV>(acc, xt + (j * 32 + 2 * ks) * BM, lo, hi);
+  }
+}
+
+// One chunk of a 3-bit layout: 32 K rows of slice ks (cw word rows; a
+// pair3 chunk at the end of K may hold one tile only).
+template <class P, int BM, int NV>
+__device__ __forceinline__ void pair3_chunk(float (&acc)[BM][NV],
+                                            const uint32_t (&w)[4][NV],
+                                            const float* xs, int ks, int cw) {
+  if constexpr (P::KIND == TILE_PAIR3X) {
+    p4_word<BM, NV>(acc, w[0], xs + 2 * ks * BM);
+    p4_word<BM, NV>(acc, w[1], xs + 2 * (ks + 16) * BM);
+    pair3_rows<BM, NV>(acc, w[2], w[3], xs + 256 * BM, ks);
+  } else {
+    pair3_rows<BM, NV>(acc, w[0], w[1], xs, ks);
+    if (cw > P::PG) pair3_rows<BM, NV>(acc, w[2], w[3], xs + P::BK * BM, ks);
+  }
+}
+
+// Word rows kw0 + P::row(i, ks) (i < WPT) of NV columns from n; 0 past
 // the matrix.
-template <int WPT, int NV>
+template <class P, int WPT, int NV>
 __device__ __forceinline__ void load_words(uint32_t (&w)[WPT][NV],
                                            const int* words, int kw0, int kw,
                                            int N, int n, int ks) {
 #pragma unroll
   for (int i = 0; i < WPT; ++i) {
-    const int row = kw0 + ks + i * KSPLIT;
+    const int row = kw0 + P::row(i, ks);
     const int* wp = words + (size_t)row * N + n;
     if (n < N && row < kw) {
       if constexpr (NV == 4) {
@@ -243,10 +377,10 @@ __device__ __forceinline__ void load_words(uint32_t (&w)[WPT][NV],
 // feeds four columns; needs N % 4 == 0).
 // Decode tiles (BM = 8) ask for two blocks per SM (at most 128 registers
 // a thread); the prefill tiles need more registers than that.
-template <int NB, int BM, int NV>
+template <class P, int BM, int NV>
 __global__ void __launch_bounds__(THREADS, BM == 8 ? 2 : 1)
     pair_kernel(Args g) {
-  using P = Pair<NB>;
+  constexpr int NB = P::NBITS;
   extern __shared__ float4 smem4[];
   float* xs = reinterpret_cast<float*>(smem4);
   __shared__ float mu[BM], rstd[BM], rs[BM];
@@ -270,12 +404,12 @@ __global__ void __launch_bounds__(THREADS, BM == 8 ? 2 : 1)
 #pragma unroll
     for (int v = 0; v < NV; ++v) acc[m][v] = 0.0f;
 
-  constexpr int WPT = P::CW / KSPLIT;  // word rows per thread per chunk
+  constexpr int WPT = P::WPT;  // word rows per thread per chunk
   // The words of the next chunk are loaded while this one is built and
   // consumed (two register buffers), so their device-memory latency hides
   // behind the chunk's shared-memory work.
   uint32_t wn[WPT][NV];
-  load_words<WPT, NV>(wn, words, 0, g.kw, g.N, n, ks);
+  load_words<P, WPT, NV>(wn, words, 0, g.kw, g.N, n, ks);
   for (int kw0 = 0; kw0 < g.kw; kw0 += P::CW) {
     const int cw = min(P::CW, g.kw - kw0);
     uint32_t wb[WPT][NV];
@@ -284,45 +418,49 @@ __global__ void __launch_bounds__(THREADS, BM == 8 ? 2 : 1)
 #pragma unroll
       for (int v = 0; v < NV; ++v) wb[i][v] = wn[i][v];
     if (kw0 + P::CW < g.kw)
-      load_words<WPT, NV>(wn, words, kw0 + P::CW, g.kw, g.N, n, ks);
+      load_words<P, WPT, NV>(wn, words, kw0 + P::CW, g.kw, g.N, n, ks);
     __syncthreads();  // the previous chunk is consumed
     fill_chunk<BM>(g, m0, kw0 / P::PG * P::BK, cw / P::PG * P::BK, xs, mu,
                    rstd, rs);
     __syncthreads();
     if (n >= g.N) continue;
+    if constexpr (P::KIND != TILE_PAIR) {
+      pair3_chunk<P, BM, NV>(acc, wb, xs, ks, cw);
+    } else {
 #pragma unroll
-    for (int i = 0; i < WPT; ++i) {
-      const int r = ks + i * KSPLIT;
-      if (r >= cw) break;
-      uint32_t w[NV];  // by value: a pointer would put wb in local memory
+      for (int i = 0; i < WPT; ++i) {
+        const int r = ks + i * KSPLIT;
+        if (r >= cw) break;
+        uint32_t w[NV];  // by value: a pointer would put wb in local memory
 #pragma unroll
-      for (int v = 0; v < NV; ++v) w[v] = wb[i][v];
-      const int t = r / P::PG, p = r - t * P::PG;
-      const float* xt = xs + (t * P::BK + 2 * p) * BM;
+        for (int v = 0; v < NV; ++v) w[v] = wb[i][v];
+        const int t = r / P::PG, p = r - t * P::PG;
+        const float* xt = xs + (t * P::BK + 2 * p) * BM;
 #pragma unroll
-      for (int j = 0; j < P::HP; ++j) {
-        const int s = 7 - NB - NB * j;  // shift of plane j into the mantissa
-        float lo[NV], hi[NV];
+        for (int j = 0; j < P::HP; ++j) {
+          const int s = 7 - NB - NB * j;  // shift of plane j into the mantissa
+          float lo[NV], hi[NV];
 #pragma unroll
-        for (int v = 0; v < NV; ++v) {
-          uint32_t u = s >= 0 ? (w[v] << s) : (w[v] >> (-s));
-          u = (u & mask) | 0x3F803F80u;
-          // C - 1.5 of K rows 2p and 2p+1 (exact in f32)
-          lo[v] = __uint_as_float(u << 16) - 1.5f;
-          hi[v] = __uint_as_float(u & 0xFFFF0000u) - 1.5f;
-        }
-        const float* xl = xt + j * 2 * P::PG * BM;
+          for (int v = 0; v < NV; ++v) {
+            uint32_t u = s >= 0 ? (w[v] << s) : (w[v] >> (-s));
+            u = (u & mask) | 0x3F803F80u;
+            // C - 1.5 of K rows 2p and 2p+1 (exact in f32)
+            lo[v] = __uint_as_float(u << 16) - 1.5f;
+            hi[v] = __uint_as_float(u & 0xFFFF0000u) - 1.5f;
+          }
+          const float* xl = xt + j * 2 * P::PG * BM;
 #pragma unroll
-        for (int m = 0; m < BM; m += 4) {
-          const float4 a = *reinterpret_cast<const float4*>(xl + m);
-          const float4 b = *reinterpret_cast<const float4*>(xl + BM + m);
-          const float av[4] = {a.x, a.y, a.z, a.w};
-          const float bv[4] = {b.x, b.y, b.z, b.w};
+          for (int m = 0; m < BM; m += 4) {
+            const float4 a = *reinterpret_cast<const float4*>(xl + m);
+            const float4 b = *reinterpret_cast<const float4*>(xl + BM + m);
+            const float av[4] = {a.x, a.y, a.z, a.w};
+            const float bv[4] = {b.x, b.y, b.z, b.w};
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
+            for (int e = 0; e < 4; ++e)
 #pragma unroll
-            for (int v = 0; v < NV; ++v)
-              acc[m + e][v] += av[e] * lo[v] + bv[e] * hi[v];
+              for (int v = 0; v < NV; ++v)
+                acc[m + e][v] += av[e] * lo[v] + bv[e] * hi[v];
+          }
         }
       }
     }
@@ -402,24 +540,36 @@ __global__ void __launch_bounds__(THREADS, BM == 8 ? 2 : 1)
   epilogue<BM, BN * 4>(g, m0, n0, g.N, acc, xs, rs);
 }
 
-template <int NB, int BM, int NV>
+template <class P, int BM, int NV>
 int launch_pair(const Args& g, cudaStream_t stream) {
-  using P = Pair<NB>;
   constexpr int red = KSPLIT * BM * BN * NV;
   const int bytes = 4 * (P::CK * BM > red ? P::CK * BM : red);
   static bool raised = false;
-  cudaError_t err = allow_smem(pair_kernel<NB, BM, NV>, bytes, &raised);
+  cudaError_t err = allow_smem(pair_kernel<P, BM, NV>, bytes, &raised);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((g.N + BN * NV - 1) / (BN * NV), (g.M + BM - 1) / BM);
-  pair_kernel<NB, BM, NV><<<grid, THREADS, bytes, stream>>>(g);
+  pair_kernel<P, BM, NV><<<grid, THREADS, bytes, stream>>>(g);
   return (int)cudaGetLastError();
 }
 
-template <int NB>
+template <class P>
 int launch_pair_m(const Args& g, cudaStream_t stream) {
-  if (g.M <= 8) return launch_pair<NB, 8, 1>(g, stream);
-  if (g.N % 4 == 0) return launch_pair<NB, 16, 4>(g, stream);
-  return launch_pair<NB, 16, 1>(g, stream);
+  if (g.M <= 8) return launch_pair<P, 8, 1>(g, stream);
+  if (g.N % 4 == 0) return launch_pair<P, 16, 4>(g, stream);
+  return launch_pair<P, 16, 1>(g, stream);
+}
+
+template <class P>
+int pair3_entry(const void* x, const void* words, const void* scale,
+                const void* bias, const void* ln_s, const void* ln_b,
+                int ln_bf16, const void* res, void* out, int M, int N, int K,
+                int x_cols, int kw, int pre, float a, float b, float eps,
+                void* stream) {
+  Args g{static_cast<const bf16*>(x), words,
+         static_cast<const float*>(scale), static_cast<const float*>(bias),
+         ln_s, ln_b, ln_bf16, static_cast<const bf16*>(res),
+         static_cast<bf16*>(out), M, N, K, x_cols, kw, N, pre, a, b, eps};
+  return launch_pair_m<P>(g, static_cast<cudaStream_t>(stream));
 }
 
 template <int BM>
@@ -453,15 +603,39 @@ extern "C" int pair_matmul(const void* x, const void* words,
          static_cast<bf16*>(out), M, N, K, x_cols, kw, N, pre, a, b, eps};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (nbits) {
-    case 1: return launch_pair_m<1>(g, s);
-    case 2: return launch_pair_m<2>(g, s);
-    case 3: return launch_pair_m<3>(g, s);
-    case 4: return launch_pair_m<4>(g, s);
-    case 5: return launch_pair_m<5>(g, s);
-    case 6: return launch_pair_m<6>(g, s);
-    case 7: return launch_pair_m<7>(g, s);
+    case 1: return launch_pair_m<Pair<1>>(g, s);
+    case 2: return launch_pair_m<Pair<2>>(g, s);
+    case 3: return launch_pair_m<Pair<3>>(g, s);
+    case 4: return launch_pair_m<Pair<4>>(g, s);
+    case 5: return launch_pair_m<Pair<5>>(g, s);
+    case 6: return launch_pair_m<Pair<6>>(g, s);
+    case 7: return launch_pair_m<Pair<7>>(g, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// K6 ('pair3x', K % 512 == 0) and K7 ('pair3'): arguments as K1 without
+// nbits; a = 4*step and b = zero + 3.5*step, the rowsum coefficient of the
+// centred weight idx/4 - 0.875.
+extern "C" int pair3x_matmul(const void* x, const void* words,
+                             const void* scale, const void* bias,
+                             const void* ln_s, const void* ln_b, int ln_bf16,
+                             const void* res, void* out, int M, int N, int K,
+                             int x_cols, int kw, int pre, float a, float b,
+                             float eps, void* stream) {
+  return pair3_entry<Pair3x>(x, words, scale, bias, ln_s, ln_b, ln_bf16, res,
+                             out, M, N, K, x_cols, kw, pre, a, b, eps,
+                             stream);
+}
+
+extern "C" int pair3_matmul(const void* x, const void* words,
+                            const void* scale, const void* bias,
+                            const void* ln_s, const void* ln_b, int ln_bf16,
+                            const void* res, void* out, int M, int N, int K,
+                            int x_cols, int kw, int pre, float a, float b,
+                            float eps, void* stream) {
+  return pair3_entry<Pair3>(x, words, scale, bias, ln_s, ln_b, ln_bf16, res,
+                            out, M, N, K, x_cols, kw, pre, a, b, eps, stream);
 }
 
 // K2. x (M, K) bf16; w8 (Kp, Np) int8, Kp >= K, Np % 4 == 0; out (M, N)

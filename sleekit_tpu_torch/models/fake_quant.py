@@ -1,13 +1,15 @@
 """Random packed models for smoke runs and measurements (port of
 ``random_packed_params``/``_fast_packed_linear`` from
-``sleekit_tpu/models/fake_quant.py``, 'pair' layout).
+``sleekit_tpu/models/fake_quant.py``; layouts 'pair', 'pair3', 'pair3x'
+and 'plane').
 
 Every quantizable linear is built straight from numpy random bits on the
 host: uniform random words ARE uniform random indices for power-of-two
-widths, so no dense kernel is ever materialized and no pack step runs.
-Only the packed result goes to the device. The seed is a numpy integer
-seed; the JAX package derives its numpy seed from a JAX key, which the
-port cannot reproduce.
+codebooks, so no dense kernel is ever materialized and no pack step runs.
+Only the packed result goes to the device. A codebook whose size is not a
+power of two gets a real pack of random indices instead. The seed is a
+numpy integer seed; the JAX package derives its numpy seed from a JAX
+key, which the port cannot reproduce.
 """
 
 from __future__ import annotations
@@ -20,28 +22,48 @@ from sleekit_tpu_torch.device import resolve_device
 from sleekit_tpu_torch.models.transformer import (
     TransformerConfig, fuse_qkv_params, init_params)
 from sleekit_tpu_torch.ops.pack import (
-    PackedLinear, affine_from_lut, bits_for_codebook, pair_group,
-    pair_planes)
+    PAIR3_TILE, PAIR3_WORDS, PAIR3X_GROUP, PAIR3X_P4_WORDS, PAIR3X_WORDS,
+    PLANE_GROUP, PackedLinear, affine_from_lut, bits_for_codebook,
+    pack_indices, pair_group, pair_planes, vals_per_word)
 
 
 def _fast_packed_linear(rng: np.random.Generator, in_features: int,
                         out_features: int, codebook, bias: bool,
                         device: torch.device,
                         layout: str = "pair") -> PackedLinear:
-    """Random 'pair' PackedLinear from random words; K rounds up to the
-    pair tile."""
-    if layout != "pair":
-        raise NotImplementedError(
-            f"random {layout!r} weights are not ported yet (ROADMAP queue 1, "
-            "item 13: the other serving layouts)")
+    """Random PackedLinear from random words; K rounds up to the layout's
+    tile. 'pair3x' needs K % 512 == 0 and falls back to 'pair3'
+    otherwise, as in the JAX package."""
     nbits = bits_for_codebook(len(codebook))
-    if len(codebook) != 2 ** nbits:
-        raise NotImplementedError(
-            "random packed weights need a power-of-two codebook")
-    hp, pg = pair_planes(nbits), pair_group(nbits)
-    kw = -(-in_features // (2 * pg * hp)) * pg
-    words = rng.integers(-2 ** 31, 2 ** 31, (kw, out_features),
-                         dtype=np.int64).astype(np.int32)
+    if layout in ("pair3", "pair3x") and nbits != 3:
+        raise ValueError(f"layout {layout!r} takes a 3-bit codebook")
+    if layout == "pair3x" and in_features % PAIR3X_GROUP:
+        layout = "pair3"
+    if layout == "pair3x":
+        kw = in_features // PAIR3X_GROUP * PAIR3X_WORDS
+    elif layout == "pair3":
+        kw = -(-in_features // PAIR3_TILE) * PAIR3_WORDS
+    elif layout == "pair":
+        hp, pg = pair_planes(nbits), pair_group(nbits)
+        kw = -(-in_features // (2 * pg * hp)) * pg
+    elif layout == "plane":
+        kw = -(-in_features // (PLANE_GROUP * vals_per_word(nbits))
+               ) * PLANE_GROUP
+    else:
+        raise ValueError(f"random {layout!r} weights: use 'pair', 'pair3', "
+                         "'pair3x' or 'plane'")
+    if len(codebook) == 2 ** nbits:
+        words = rng.integers(-2 ** 31, 2 ** 31, (kw, out_features),
+                             dtype=np.int64).astype(np.int32)
+        if layout == "pair3x":
+            # The 4-bit fields hold 3-bit indices: their top bit is 0.
+            groups = words.reshape(-1, PAIR3X_WORDS, out_features)
+            groups[:, :PAIR3X_P4_WORDS] &= 0x77777777
+    else:
+        # Random bits would make out-of-range indices.
+        idx = rng.integers(0, len(codebook), (in_features, out_features))
+        words = pack_indices(torch.from_numpy(idx), nbits,
+                             layout=layout).numpy()
     scale = (0.02 * (1.0 + 0.1 * rng.random(out_features))).astype(np.float32)
     lut = codebook.values
     return PackedLinear(

@@ -8,23 +8,35 @@ packed words streamed from device memory and decoded on chip.
 * Kernel K1, :func:`pair_matmul` - the 'pair' layout
   (``_pallas_pair_impl``/``_pair_kernel``), CUDA in
   ``csrc/dequant_matmul.cu``.
+* Kernels K6 and K7, :func:`pair3_matmul` (``layout='pair3x'`` or
+  ``'pair3'``) - the 3-bit 'pair3x' and 'pair3' layouts (``_pair_kernel``
+  with ``p3x`` / ``pair3``), K1's body under their own tile rules, same
+  source.
 * Kernel K2, :func:`int8_matmul` - the 'int8' layout
   (``_pallas_int8_impl``), same source.
+* Kernels K8 and K9, :func:`plane_lut_matmul` and
+  :func:`plane_affine_matmul` - the 'plane' layout (``_pallas_impl``:
+  ``_kernel`` over a table, ``_mantissa_kernel`` over an affine grid),
+  one body in ``csrc/plane_matmul.cu``.
 
-Both kernels fuse the prologue (layernorm/rmsnorm masked to the valid K,
-relu, gelu, silu_glu) and the epilogue ``(a*acc + b*rowsum)*scale + bias
-[+ residual]``. Their plain versions (:func:`pair_matmul_plain`,
-:func:`int8_matmul_plain`) repeat the kernels' own arithmetic: ``pre(x)``
-in f32 rounded to bf16, ``rowsum`` over that bf16 ``pre(x)``, f32
-accumulation. K1 decodes ``C = 1 + idx/2^nbits`` (exact in bf16) as the
-TPU kernel does, but accumulates over ``C - 1.5`` and folds ``b + 1.5a``
-into the rowsum term: over C itself the fold cancels catastrophically
-when x has a large mean (after relu), and its f32 rounding flips about
-one bf16 output in ten. The int8 layout is centred already.
+K1, K2, K6 and K7 fuse the prologue (layernorm/rmsnorm masked to the
+valid K, relu, gelu, silu_glu) and the epilogue ``(a*acc + b*rowsum)*scale
++ bias [+ residual]``; K8 and K9 have no prologue, as in the JAX package.
+Their plain versions (``*_plain``) repeat the kernels' own arithmetic:
+``pre(x)`` in f32 rounded to bf16, ``rowsum`` over that bf16 ``pre(x)``,
+f32 accumulation. K1 decodes ``C = 1 + idx/2^nbits`` (exact in bf16) as
+the TPU kernel does, but accumulates over ``C - 1.5`` and folds ``b +
+1.5a`` into the rowsum term: over C itself the fold cancels
+catastrophically when x has a large mean (after relu), and its f32
+rounding flips about one bf16 output in ten. K6, K7 and K9 centre the same
+way (``_CENTRE``); the int8 layout is centred already, and K8's table is
+not folded.
 
 The JAX package chunks prefill-size M through its kernel
 (``PREFILL_CHUNK_M``, a TPU VMEM limit); the CUDA kernels tile M
-themselves, so the port has no chunking.
+themselves, so the port has no chunking. ``LUT_POLY`` and ``PAIR_TUNE``
+are the TPU kernels' schedules of the same functions; the port accepts
+and ignores them.
 """
 
 from __future__ import annotations
@@ -36,7 +48,14 @@ import torch
 import torch.nn.functional as F
 
 from sleekit_tpu_torch.kernels import CudaKernel
-from sleekit_tpu_torch.ops.pack import PackedLinear, unpack_indices
+from sleekit_tpu_torch.ops.pack import (
+    PAIR3_TILE, PAIR3_WORDS, PAIR3X_GROUP, PAIR3X_WORDS, PLANE_GROUP,
+    PackedLinear, unpack_indices, vals_per_word)
+
+# TPU schedules (``sleekit_tpu/ops/dequant_matmul.py:479, 498``): read by
+# nothing here, every setting gives the same answer.
+LUT_POLY = False
+PAIR_TUNE = {"kb": 0, "split": False, "dim_sem": False, "bn": 0, "p3m": 2}
 
 _PRE = {None: 0, "layernorm": 1, "rmsnorm": 2, "relu": 3, "gelu": 4,
         "silu_glu": 5}
@@ -48,12 +67,44 @@ K1 = CudaKernel(
     "K1", "dequant_matmul.cu", "pair_matmul",
     [_P] * 6 + [_I] + [_P] * 2 + [_I] * 7 + [_F] * 3,
     replaces="sleekit_tpu/ops/dequant_matmul.py:515 _pallas_pair_impl")
+# (x, words, scale, bias, ln_scale, ln_bias, ln_bf16, residual, out,
+#  M, N, K, x_cols, kw, pre, a, b, eps)
+K6 = CudaKernel(
+    "K6", "dequant_matmul.cu", "pair3x_matmul",
+    [_P] * 6 + [_I] + [_P] * 2 + [_I] * 6 + [_F] * 3,
+    replaces="sleekit_tpu/ops/dequant_matmul.py:515 _pallas_pair_impl "
+             "(p3x=True)")
+K7 = CudaKernel(
+    "K7", "dequant_matmul.cu", "pair3_matmul",
+    [_P] * 6 + [_I] + [_P] * 2 + [_I] * 6 + [_F] * 3,
+    replaces="sleekit_tpu/ops/dequant_matmul.py:515 _pallas_pair_impl "
+             "(pair3=True)")
 # (x, w8, scale, bias, ln_scale, ln_bias, ln_bf16, residual, out,
 #  M, N_out, K, Kp, Np, pre, a, b, eps)
 K2 = CudaKernel(
     "K2", "dequant_matmul.cu", "int8_matmul",
     [_P] * 6 + [_I] + [_P] * 2 + [_I] * 6 + [_F] * 3,
     replaces="sleekit_tpu/ops/dequant_matmul.py:664 _pallas_int8_impl")
+# (x, words, scale, bias, lut, out, M, N, K, kw, nbits, ksize, step, zero)
+K8 = CudaKernel(
+    "K8", "plane_matmul.cu", "plane_lut_matmul",
+    [_P] * 6 + [_I] * 6 + [_F] * 2,
+    replaces="sleekit_tpu/ops/dequant_matmul.py:771 _pallas_impl "
+             "(_kernel, table)")
+# (x, words, scale, bias, out, M, N, K, kw, nbits, a, b)
+K9 = CudaKernel(
+    "K9", "plane_matmul.cu", "plane_affine_matmul",
+    [_P] * 5 + [_I] * 5 + [_F] * 2,
+    replaces="sleekit_tpu/ops/dequant_matmul.py:771 _pallas_impl "
+             "(_mantissa_kernel)")
+
+# Offset of each layout's centred weight: the kernels accumulate over the
+# decoded weight minus this midpoint of its range (exact in f32), so the
+# rowsum coefficient grows by a times it. 'pair'/'plane' decode C = 1 +
+# idx/2^nbits (midpoint 1.5); the JAX 'pair3' kernel c_lo + 2*c_hi = 3 +
+# idx/4 and its 'pair3x' kernel, after its section-weighted rowsum, idx/4
+# (both centred on idx/4 - 0.875).
+_CENTRE = {"pair": 1.5, "plane": 1.5, "pair3": 3.875, "pair3x": 0.875}
 
 
 def dequant_matmul_ref(x: torch.Tensor, w: PackedLinear) -> torch.Tensor:
@@ -71,17 +122,24 @@ def _int8_affine(w: PackedLinear):
 
 
 def _pair_affine(w: PackedLinear):
-    """(a, b) of out = (a*acc + b*rowsum)*scale + bias for 'pair', where
-    acc = x @ C and C = 1 + idx/2^nbits."""
+    """(a, b) of out = (a*acc + b*rowsum)*scale + bias as the JAX package
+    folds it: for 'pair' and 'plane' acc = x @ C, C = 1 + idx/2^nbits;
+    for 'pair3' acc = x@c_lo + 2x@c_hi (c_lo = 1 + lo/4, c_hi = 1 + hi/2);
+    for 'pair3x' acc = x @ idx/4 (after the section-weighted rowsum)."""
     step, zero = w.affine
+    if w.layout == "pair3":
+        return 4.0 * step, zero - 12.0 * step
+    if w.layout == "pair3x":
+        return 4.0 * step, zero
     a = step * float(2 ** w.nbits)
     return a, zero - a
 
 
-def _centred(a_aff: float, b_aff: float) -> float:
-    """The rowsum coefficient when acc = x @ (C - 1.5), in double, once
-    rounded to f32 by the caller (b + 1.5a is small: zero + step/2)."""
-    return b_aff + 1.5 * a_aff
+def _centred(a_aff: float, b_aff: float, layout: str = "pair") -> float:
+    """The rowsum coefficient when acc runs over the centred weight, in
+    double, once rounded to f32 by the caller (zero + step/2 for 'pair',
+    zero + 3.5*step for the 3-bit layouts: small)."""
+    return b_aff + _CENTRE[layout] * a_aff
 
 
 # ---- plain versions of K1 / K2 --------------------------------------------
@@ -130,6 +188,58 @@ def pair_matmul_plain(x, packed, scale, bias, *, nbits, k, a_aff, b_aff,
     c = idx.float() / float(2 ** nbits) - 0.5        # C - 1.5, exact
     return _epilogue_plain(xp.float() @ c, xp, a_aff, _centred(a_aff, b_aff),
                            scale, bias, residual)
+
+
+def pair3_matmul_plain(x, packed, scale, bias, *, k, a_aff, b_aff,
+                       pre=None, ln_scale=None, ln_bias=None, eps=1e-5,
+                       residual=None, layout="pair3"):
+    """Plain PyTorch version of kernels K7 ('pair3') and K6 ('pair3x'):
+    both accumulate over idx/4 - 0.875 (the kernels' 2*(C - 1.4375) with
+    C = 1 + idx/8 built from a pair3 index's low and high words, and
+    pair3x's 4-bit field 4 + idx/4 minus 4.875; exact)."""
+    xp = _prologue_plain(x, pre, ln_scale, ln_bias, eps, k)
+    idx = unpack_indices(packed, 3, k, layout=layout)
+    c = idx.float() / 4.0 - 0.875
+    return _epilogue_plain(xp.float() @ c, xp, a_aff,
+                           _centred(a_aff, b_aff, layout), scale, bias,
+                           residual)
+
+
+def _k8_table(lut, nbits, affine):
+    """K8's value of each of the 2^nbits indices, rounded to bf16 (held
+    as f32): ``lut`` and 0 past its end, or for an affine codebook
+    ``idx*step + zero`` in f32."""
+    size = 2 ** nbits
+    if affine is not None:
+        step, zero = (torch.tensor(v, dtype=torch.float32) for v in affine)
+        vals = torch.arange(size, dtype=torch.float32) * step + zero
+    else:
+        vals = torch.zeros(size, dtype=torch.float32)
+        vals[:lut.shape[0]] = lut.detach().float().cpu()
+    return vals.to(torch.bfloat16).float()
+
+
+def plane_lut_matmul_plain(x, packed, scale, bias, lut, *, nbits, k,
+                           affine=None):
+    """Plain PyTorch version of kernel K8: ``bf16((x @ table[idx]) * scale
+    + bias)`` over 'plane' words, f32 accumulation (:func:`_k8_table`)."""
+    idx = unpack_indices(packed, nbits, k, layout="plane").long()
+    table = _k8_table(lut, nbits, affine).to(x.device)
+    out = (x.float() @ table[idx]) * scale
+    if bias is not None:
+        out = out + bias.float()
+    return out.to(torch.bfloat16)
+
+
+def plane_affine_matmul_plain(x, packed, scale, bias, *, nbits, k, a_aff,
+                              b_aff):
+    """Plain PyTorch version of kernel K9: K1's fold over 'plane' words
+    (``C - 1.5`` with ``C = 1 + idx/2^nbits``), no prologue."""
+    idx = unpack_indices(packed, nbits, k, layout="plane")
+    c = idx.float() / float(2 ** nbits) - 0.5        # C - 1.5, exact
+    return _epilogue_plain(x.float() @ c, x, a_aff,
+                           _centred(a_aff, b_aff, "plane"), scale, bias,
+                           None)
 
 
 def int8_matmul_plain(x, packed, scale, bias, *, k, out_n, a_aff, b_aff,
@@ -219,6 +329,100 @@ def pair_matmul(x, packed, scale, bias, *, nbits, k, a_aff, b_aff,
     return out
 
 
+def pair3_matmul(x, packed, scale, bias, *, k, a_aff, b_aff, pre=None,
+                 ln_scale=None, ln_bias=None, eps=1e-5, residual=None,
+                 layout="pair3"):
+    """Kernels K7 ('pair3', 256-row tiles of 24 words) and K6 ('pair3x',
+    512-row groups of 56 words, K % 512 == 0): K1's prologue and epilogue
+    with the JAX package's (a, b) of the layout. A CUDA tensor launches the
+    kernel; a CPU tensor takes :func:`pair3_matmul_plain`."""
+    if not x.is_cuda:
+        return pair3_matmul_plain(
+            x, packed, scale, bias, k=k, a_aff=a_aff, b_aff=b_aff, pre=pre,
+            ln_scale=ln_scale, ln_bias=ln_bias, eps=eps, residual=residual,
+            layout=layout)
+    _check(layout in ("pair3", "pair3x"), f"not a 3-bit layout: {layout!r}")
+    kernel, pg, bk = ((K6, PAIR3X_WORDS, PAIR3X_GROUP) if layout == "pair3x"
+                      else (K7, PAIR3_WORDS, PAIR3_TILE))
+    kw, n = packed.shape
+    _check(packed.dtype == torch.int32 and packed.is_contiguous()
+           and packed.device == x.device,
+           "packed must be contiguous int32 words on x's device")
+    _check(kw % pg == 0 and kw // pg * bk >= k,
+           f"packed has {kw} word rows, not whole {layout} tiles covering "
+           f"K={k}")
+    _check(layout == "pair3" or kw // pg * bk == k,
+           f"pair3x requires K % {PAIR3X_GROUP} == 0 and one group per 512 "
+           f"rows (K={k}, {kw} word rows); use layout='pair3'")
+    ln_bf16 = _check_common(x, k, scale, bias, pre, ln_scale, ln_bias,
+                            residual, n)
+    m = x.shape[0]
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    kernel(x.data_ptr(), packed.data_ptr(), scale.data_ptr(), _ptr(bias),
+           _ptr(ln_scale), _ptr(ln_bias), ln_bf16, _ptr(residual),
+           out.data_ptr(), m, n, k, x.shape[1], kw, _PRE[pre], float(a_aff),
+           _centred(a_aff, b_aff, layout), float(eps))
+    return out
+
+
+def _check_plane(x, packed, scale, bias, nbits, k):
+    kw, n = packed.shape
+    _check(packed.dtype == torch.int32 and packed.is_contiguous()
+           and packed.device == x.device,
+           "packed must be contiguous int32 words on x's device")
+    vpw = vals_per_word(nbits)
+    _check(kw % PLANE_GROUP == 0 and kw * vpw >= k,
+           f"packed has {kw} word rows, not whole plane tiles covering "
+           f"K={k}")
+    _check_common(x, k, scale, bias, None, None, None, None, n)
+    return kw, n
+
+
+def plane_lut_matmul(x, packed, scale, bias, lut, *, nbits, k,
+                     affine=None):
+    """Kernel K8: ``bf16((x @ bf16(v[idx])) * scale + bias)`` over 'plane'
+    words, with v the codebook ``lut`` (any size up to 2^nbits, any order)
+    or, for an affine codebook (8 bits), ``idx*step + zero``. A CUDA tensor
+    launches the kernel; a CPU tensor takes
+    :func:`plane_lut_matmul_plain`."""
+    if not x.is_cuda:
+        return plane_lut_matmul_plain(x, packed, scale, bias, lut,
+                                      nbits=nbits, k=k, affine=affine)
+    kw, n = _check_plane(x, packed, scale, bias, nbits, k)
+    if affine is None:
+        _check(lut.dtype == torch.float32 and lut.is_contiguous()
+               and lut.device == x.device and lut.dim() == 1
+               and 1 <= lut.shape[0] <= 2 ** nbits,
+               f"lut must be a contiguous f32 vector of at most 2^{nbits} "
+               "values on x's device")
+    step, zero = affine if affine is not None else (0.0, 0.0)
+    m = x.shape[0]
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    K8(x.data_ptr(), packed.data_ptr(), scale.data_ptr(), _ptr(bias),
+       0 if affine is not None else lut.data_ptr(), out.data_ptr(), m, n, k,
+       kw, nbits, 0 if affine is not None else lut.shape[0], float(step),
+       float(zero))
+    return out
+
+
+def plane_affine_matmul(x, packed, scale, bias, *, nbits, k, a_aff, b_aff):
+    """Kernel K9: ``bf16((a*(x @ C) + b*rowsum(x))*scale + bias)`` over
+    'plane' words, ``C = 1 + idx/2^nbits`` (nbits <= 7). A CUDA tensor
+    launches the kernel; a CPU tensor takes
+    :func:`plane_affine_matmul_plain`."""
+    if not x.is_cuda:
+        return plane_affine_matmul_plain(x, packed, scale, bias, nbits=nbits,
+                                         k=k, a_aff=a_aff, b_aff=b_aff)
+    _check(nbits <= 7, "the mantissa kernel takes at most 7-bit indices")
+    kw, n = _check_plane(x, packed, scale, bias, nbits, k)
+    m = x.shape[0]
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    K9(x.data_ptr(), packed.data_ptr(), scale.data_ptr(), _ptr(bias),
+       out.data_ptr(), m, n, k, kw, nbits, float(a_aff),
+       _centred(a_aff, b_aff, "plane"))
+    return out
+
+
 def int8_matmul(x, packed, scale, bias, *, k, out_n, a_aff, b_aff,
                 pre=None, ln_scale=None, ln_bias=None, eps=1e-5,
                 residual=None):
@@ -253,11 +457,11 @@ def int8_matmul(x, packed, scale, bias, *, k, out_n, a_aff, b_aff,
 
 
 def can_fuse_glue(x: torch.Tensor, w: PackedLinear) -> bool:
-    """Whether K1/K2 take this matmul (and so its prologue/residual
+    """Whether K1/K2/K6/K7 take this matmul (and so its prologue/residual
     fusion): bf16 activations (f32 keeps full precision on the reference
     path, as in the JAX package), an affine codebook, and the pair
-    (<= 7 bits) or int8 layout."""
-    ok_pair = w.layout == "pair" and w.nbits <= 7
+    (<= 7 bits), pair3, pair3x or int8 layout."""
+    ok_pair = w.layout in ("pair", "pair3", "pair3x") and w.nbits <= 7
     ok_int8 = w.layout == "int8" and w.nbits == 8
     return ((ok_pair or ok_int8) and w.affine is not None
             and x.dtype == torch.bfloat16 and w.k_splits == 1)
@@ -265,7 +469,7 @@ def can_fuse_glue(x: torch.Tensor, w: PackedLinear) -> bool:
 
 def _kernel_matmul(x, w, use_kernel, pre=None, ln_scale=None, ln_bias=None,
                    eps=1e-5, residual=None):
-    """K1/K2 (``use_kernel``) or their plain versions."""
+    """K1/K2/K6/K7 (``use_kernel``) or their plain versions."""
     kw = dict(pre=pre, ln_scale=ln_scale, ln_bias=ln_bias, eps=eps,
               residual=residual)
     if w.layout == "int8":
@@ -274,20 +478,41 @@ def _kernel_matmul(x, w, use_kernel, pre=None, ln_scale=None, ln_bias=None,
         return fn(x, w.packed, w.scale, w.bias, k=w.in_features,
                   out_n=w.out_features, a_aff=a, b_aff=b, **kw)
     a, b = _pair_affine(w)
+    if w.layout in ("pair3", "pair3x"):
+        fn = pair3_matmul if use_kernel else pair3_matmul_plain
+        return fn(x, w.packed, w.scale, w.bias, k=w.in_features, a_aff=a,
+                  b_aff=b, layout=w.layout, **kw)
     fn = pair_matmul if use_kernel else pair_matmul_plain
     return fn(x, w.packed, w.scale, w.bias, nbits=w.nbits, k=w.in_features,
               a_aff=a, b_aff=b, **kw)
 
 
+def _plane_matmul(x, w, use_kernel):
+    """'plane' weights with bf16 x: K9 for an affine codebook of at most 7
+    bits, K8 for a table or 8 bits (or their plain versions)."""
+    if w.affine is not None and w.nbits <= 7:
+        a, b = _pair_affine(w)
+        fn = plane_affine_matmul if use_kernel else plane_affine_matmul_plain
+        return fn(x, w.packed, w.scale, w.bias, nbits=w.nbits,
+                  k=w.in_features, a_aff=a, b_aff=b)
+    fn = plane_lut_matmul if use_kernel else plane_lut_matmul_plain
+    return fn(x, w.packed, w.scale, w.bias, w.lut, nbits=w.nbits,
+              k=w.in_features, affine=w.affine)
+
+
 def quantized_matmul(x: torch.Tensor, w: PackedLinear,
                      use_kernel: Optional[bool] = None) -> torch.Tensor:
-    """y = x @ deq(w) + bias. Matmuls K1/K2 take run the kernel when
-    ``use_kernel`` (default: x is on CUDA), else its plain version; the
-    rest run the reference."""
+    """y = x @ deq(w) + bias. Matmuls that a kernel takes (bf16 x over the
+    pair, pair3, pair3x and int8 layouts with an affine codebook, or over
+    'plane') run it when ``use_kernel`` (default: x is on CUDA), else its
+    plain version; the rest run the reference."""
     if use_kernel is None:
         use_kernel = x.is_cuda
     if can_fuse_glue(x, w):
         return _kernel_matmul(x.contiguous(), w, use_kernel)
+    if (w.layout == "plane" and x.dtype == torch.bfloat16
+            and w.k_splits == 1):
+        return _plane_matmul(x.contiguous(), w, use_kernel)
     return dequant_matmul_ref(x, w)
 
 
@@ -299,10 +524,10 @@ def fused_quantized_matmul(x: torch.Tensor, w: PackedLinear, *,
                            residual: Optional[torch.Tensor] = None,
                            use_kernel: Optional[bool] = None
                            ) -> torch.Tensor:
-    """``y = [residual +] pre(x) @ deq(w) + bias``: one K1/K2 launch (or
-    its plain version, see :func:`quantized_matmul`) where the kernels
+    """``y = [residual +] pre(x) @ deq(w) + bias``: one K1/K2/K6/K7 launch
+    (or its plain version, see :func:`quantized_matmul`) where the kernels
     take the matmul; otherwise the same math composed from PyTorch ops
-    (the oracle)."""
+    around :func:`quantized_matmul`."""
     if use_kernel is None:
         use_kernel = x.is_cuda
     if can_fuse_glue(x, w):

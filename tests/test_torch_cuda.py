@@ -305,3 +305,82 @@ def test_k5_matches_plain_and_k3(dev, G, cache, ragged):
     assert torch.equal(got[0], k3[0])
     for a, b in zip(got[1:], k3[1:]):
         assert torch.equal(a.cpu(), to_pool(b.cpu()))
+
+
+@pytest.mark.parametrize("layout,K", [("pair3", 400), ("pair3", 1792),
+                                      ("pair3x", 1536)])
+@pytest.mark.parametrize("pre", [None, "layernorm", "relu", "silu_glu"])
+@pytest.mark.parametrize("m", [1, 8, 1024])
+@pytest.mark.parametrize("N", [200, 198])
+def test_k6_k7_match_plain(dev, layout, K, pre, m, N):
+    """K7 ('pair3', K not a multiple of its 256-row tile at 400) and K6
+    ('pair3x') against their plain version, with a prologue and a
+    residual, N not a multiple of the 16- or 64-column block."""
+    from sleekit_tpu_torch.ops import dequant_matmul as dm
+    from sleekit_tpu_torch.ops.pack import pack_indices
+
+    g = torch.Generator().manual_seed(K + N)
+    idx = torch.randint(0, 8, (K, N), generator=g)
+    packed = pack_indices(idx, 3, layout=layout).to(dev)
+    x = torch.randn(m, 2 * K if pre == "silu_glu" else K, generator=g).to(
+        dev, torch.bfloat16)
+    kw = dict(k=K, a_aff=0.25, b_aff=-1.0, pre=pre, layout=layout,
+              ln_scale=torch.rand(K, generator=g).to(dev) + 0.5,
+              ln_bias=torch.randn(K, generator=g).to(dev) * 0.1,
+              residual=torch.randn(m, N, generator=g).to(dev, torch.bfloat16))
+    scale = torch.rand(N, generator=g).to(dev) + 0.5
+    bias = torch.randn(N, generator=g).to(dev)
+    kernel = dm.K6 if layout == "pair3x" else dm.K7
+    before = kernel.launches
+    got = dm.pair3_matmul(x, packed, scale, bias, **kw)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    _bf16_close(got, dm.pair3_matmul_plain(x, packed, scale, bias, **kw))
+
+
+@pytest.mark.parametrize("codebook", ["nf4", "table3", "table8", "affine8",
+                                      "uniform3", "uniform4"])
+@pytest.mark.parametrize("m", [1, 8, 1024])
+@pytest.mark.parametrize("N", [200, 198])
+def test_k8_k9_match_plain(dev, codebook, m, N):
+    """K8 (tables: NF4, a k = 3 table at 2 bits, an unsorted 8-entry
+    table; and the 8-bit affine grid) and K9 (uniform 3 and 4 bits) on
+    'plane' words against their plain versions, K (700) not a multiple of
+    any plane tile, N not a multiple of the block."""
+    from sleekit_tpu_torch.codebooks import Codebook
+    from sleekit_tpu_torch.ops import dequant_matmul as dm
+    from sleekit_tpu_torch.ops.pack import bits_for_codebook, pack_indices
+
+    g = torch.Generator().manual_seed(N)
+    K = 700
+    lut = {"nf4": Codebook.nf4().values,
+           "table3": torch.tensor([-1.0, 0.1, 1.0]),
+           "table8": torch.tensor([0.3, -1.0, 0.7, 0.05, -0.4, 1.0, -0.1,
+                                   0.5]),
+           "affine8": torch.linspace(-1, 1, 256),
+           "uniform3": torch.linspace(-1, 1, 8),
+           "uniform4": torch.linspace(-1, 1, 16)}[codebook]
+    nbits = bits_for_codebook(lut.numel())
+    packed = pack_indices(torch.randint(0, lut.numel(), (K, N), generator=g),
+                          nbits, layout="plane").to(dev)
+    x = torch.randn(m, K, generator=g).to(dev, torch.bfloat16)
+    scale = torch.rand(N, generator=g).to(dev) + 0.5
+    bias = torch.randn(N, generator=g).to(dev)
+    if codebook.startswith("uniform"):
+        kernel, fn, plain = dm.K9, dm.plane_affine_matmul, \
+            dm.plane_affine_matmul_plain
+        step = 2.0 / (lut.numel() - 1)
+        kw = dict(nbits=nbits, k=K, a_aff=step * 2 ** nbits,
+                  b_aff=-1.0 - step * 2 ** nbits)
+    else:
+        kernel, fn, plain = dm.K8, dm.plane_lut_matmul, \
+            dm.plane_lut_matmul_plain
+        kw = dict(nbits=nbits, k=K,
+                  affine=(2.0 / 255, -1.0) if codebook == "affine8" else None)
+        lut = lut.to(dev)
+    args = (x, packed, scale, bias) + (() if kernel is dm.K9 else (lut,))
+    before = kernel.launches
+    got = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    _bf16_close(got, plain(*args, **kw))

@@ -1,15 +1,17 @@
 """The packed format is a shared contract: the port's words are
-bit-identical to the JAX package's (mirrors tests/test_ops.py:152,234)."""
+bit-identical to the JAX package's (mirrors tests/test_ops.py:26,152,234,
+273,285,445)."""
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
 
+from sleekit_tpu.codebooks import Codebook as JCodebook
 from sleekit_tpu.codebooks import UniformCodebook as JUniform
 from sleekit_tpu.ops import pack as jpack
 from sleekit_tpu.scaling import compute_non_saturating_scaling as j_nonsat
-from sleekit_tpu_torch.codebooks import UniformCodebook
+from sleekit_tpu_torch.codebooks import Codebook, UniformCodebook
 from sleekit_tpu_torch.ops import pack as tpack
 from sleekit_tpu_torch.scaling import compute_non_saturating_scaling
 
@@ -52,11 +54,80 @@ def test_int8_words_bit_identical_and_padded():
     np.testing.assert_array_equal(back[:, :300].numpy(), idx)
 
 
+@pytest.mark.parametrize("layout,nbits,ks", [
+    ("plane", 1, (77, 1024, 1100)), ("plane", 2, (77, 512, 600)),
+    ("plane", 3, (77, 320, 700)), ("plane", 4, (77, 256, 300)),
+    ("plane", 8, (77, 128, 200)), ("pair3", 3, (256, 300, 768)),
+    ("pair3x", 3, (512, 1536))])
+def test_plane_pair3_pair3x_words_bit_identical(layout, nbits, ks):
+    """'plane' at 1-8 bits (10 fields a word at 3 bits), 'pair3' and
+    'pair3x': the JAX package's words, at K on and off the tile; unpack
+    inverts them."""
+    rng = np.random.RandomState(nbits + len(layout))
+    for k in ks:
+        idx = rng.randint(0, 2 ** nbits, (k, 37))
+        want = np.asarray(jpack.pack_indices(jnp.asarray(idx), nbits,
+                                             layout=layout))
+        got = tpack.pack_indices(torch.from_numpy(idx), nbits, layout=layout)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want)
+        back = tpack.unpack_indices(got, nbits, k, layout=layout)
+        np.testing.assert_array_equal(back.numpy(), idx)
+
+
 @pytest.mark.parametrize("layout", ["plane", "pair3", "pair3x"])
 def test_unported_layouts_name_their_roadmap_item(layout):
+    """The three layouts pack now; what stays unported around them, the
+    tensor-parallel row-shard format (k_splits > 1), names its ROADMAP
+    item. pair3x refuses K % 512 != 0 and names pair3; the 3-bit layouts
+    refuse other widths."""
+    w = tpack.PackedLinear(
+        packed=tpack.pack_indices(torch.zeros((512, 8), dtype=torch.int64),
+                                  3, layout=layout),
+        scale=torch.ones(8), lut=torch.linspace(-1, 1, 8), bias=None,
+        in_features=512, out_features=8, nbits=3, layout=layout, k_splits=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpack.pack_indices(torch.zeros((512, 8), dtype=torch.int64), 3,
-                           layout=layout)
+        w.dequantize()
+    if layout == "pair3x":
+        with pytest.raises(ValueError, match="pair3'"):
+            tpack.pack_indices(torch.zeros((768, 8), dtype=torch.int64), 3,
+                               layout=layout)
+    elif layout == "pair3":
+        with pytest.raises(ValueError, match="3-bit"):
+            tpack.pack_indices(torch.zeros((256, 8), dtype=torch.int64), 4,
+                               layout=layout)
+
+
+@pytest.mark.parametrize("codebook,in_f,layout", [
+    ("uniform3", 1024, "pair3x"), ("uniform3", 768, "pair3"),
+    ("nf4", 96, "plane"), ("table3", 300, "plane")])
+def test_pack_quantized_auto_layouts_match_jax(codebook, in_f, layout):
+    """pack_quantized's 'auto' choice at 3 bits (pair3x when K % 512 == 0,
+    else pair3) and for table codebooks (plane): JAX's layout, words,
+    metadata, dequantized matrix and memory_bytes; pair3x stores 0.875x
+    the int4 pair bytes."""
+    rng = np.random.RandomState(len(codebook) + in_f)
+    jcb, cb = {"uniform3": (JUniform(8, -1.0, 1.0),
+                            UniformCodebook(8, -1.0, 1.0)),
+               "nf4": (JCodebook.nf4(), Codebook.nf4()),
+               "table3": (JCodebook.create([-1.0, 0.2, 1.0]),
+                          Codebook.create([-1.0, 0.2, 1.0]))}[codebook]
+    w = rng.randn(16, in_f).astype(np.float32)
+    scale = (0.5 + rng.rand(16)).astype(np.float32)
+    q = np.asarray(jcb(jnp.asarray(w / scale[:, None]))) * scale[:, None]
+    want = jpack.pack_quantized(jnp.asarray(q), jnp.asarray(scale), jcb)
+    got = tpack.pack_quantized(t(q), t(scale), cb)
+    assert got.layout == want.layout == layout
+    assert (got.nbits, got.affine, got.vpw) == (want.nbits, want.affine,
+                                                want.vpw)
+    np.testing.assert_array_equal(got.packed.numpy(), np.asarray(want.packed))
+    np.testing.assert_array_equal(got.dequantize().numpy(),
+                                  np.asarray(want.dequantize()))
+    assert got.memory_bytes() == want.memory_bytes()
+    if layout == "pair3x":
+        p4 = tpack.pack_indices(torch.zeros((in_f, 16), dtype=torch.int64),
+                                4, layout="pair")
+        assert got.packed.numel() == 0.875 * p4.numel()
 
 
 @pytest.mark.parametrize("nbits", [4, 8])

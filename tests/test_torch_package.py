@@ -21,7 +21,9 @@ def test_port_imports_no_jax_and_no_sleekit_tpu():
     imports jax into this one)."""
     names = sorted(m.name for m in pkgutil.walk_packages(
         sleekit_tpu_torch.__path__, "sleekit_tpu_torch."))
-    assert "sleekit_tpu_torch.serve.engine" in names
+    assert {"sleekit_tpu_torch.serve.engine",
+            "sleekit_tpu_torch.serve.checkpoint",
+            "sleekit_tpu_torch.codebooks"} <= set(names)
     code = (
         "import importlib, json, sys\n"
         f"for n in {names!r}: importlib.import_module(n)\n"
@@ -35,7 +37,7 @@ def test_port_imports_no_jax_and_no_sleekit_tpu():
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
-def test_entry_points_raise_without_cuda():
+def test_entry_points_raise_without_cuda(tmp_path):
     """Without a CUDA device, the entry points raise unless the caller
     passes device='cpu'."""
     if torch.cuda.is_available():
@@ -45,10 +47,16 @@ def test_entry_points_raise_without_cuda():
     from sleekit_tpu_torch.models.transformer import (
         init_kv_cache, init_paged_kv_cache)
     from sleekit_tpu_torch.models.zoo import tiny_test
+    from sleekit_tpu_torch.serve.checkpoint import (
+        load_packed_params, save_packed_params)
     from sleekit_tpu_torch.serve.engine import Engine
 
     cfg = tiny_test()
     params, _ = random_packed_params(cfg, 0, device="cpu")
+    save_packed_params(str(tmp_path), params)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_packed_params(str(tmp_path))
+    load_packed_params(str(tmp_path), device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Engine(cfg, params)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -92,8 +100,10 @@ def test_kernel_sources_and_build_paths():
         attention, dequant_matmul, paged_attention)
 
     names = {k.name: k for k in kernels.KERNELS}
-    assert set(names) == {"K1", "K2", "K3", "K4", "K5", "K10", "K11", "K14",
-                          "K15"}
+    assert set(names) == {"K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8",
+                          "K9", "K10", "K11", "K14", "K15"}
+    assert {k.source for k in names.values()} == {
+        p.name for p in kernels.CSRC.glob("*.cu")}
     for k in names.values():
         assert (kernels.CSRC / k.source).exists()
         assert k.replaces.startswith("sleekit_tpu/ops/")
