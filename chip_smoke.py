@@ -2,15 +2,17 @@
 
     python3 chip_smoke.py
 
-1. builds the port's CUDA kernels (K1-K11, K14, K15) from
-   ``sleekit_tpu_torch/csrc``, one nvcc per source, all at once;
+1. builds the port's CUDA kernels (K1-K15) from ``sleekit_tpu_torch/csrc``,
+   one nvcc per source, all at once;
 2. holds each kernel against its plain PyTorch version on the card at the
    shapes OPT-1.3B serving gives it, and times the kernel, the plain
    version and, where one exists, one PyTorch library call computing the
    same function (a yardstick the port never calls) with CUDA events. The
    page-pool kernels (K5, K14, K15) run over a strided, out-of-order table
    of distinct 64-row pages; K5 is held bit for bit to K3 on the same
-   logical rows;
+   logical rows, and K13 (the batch-folded flash decode) to K11; K12 (the
+   f32 elementwise flash decode) is held within one bf16 step of its plain
+   version, a bound that K11's bf16 numerics are shown to miss;
 3. serves 8 greedy requests of 32 new tokens through the port's slot
    Engine with OPT-1.3B at full width and depth (random int4 'pair'
    weights from a seed, fused q|k|v, int8 head, int8 KV cache with bf16
@@ -24,9 +26,13 @@
    17-page pool blocks admission and recycles pages; decode through a
    pool holding the slot cache's rows gives the slot cache's logits, bit
    for bit, and is timed as in 3;
-5. takes one decode step on the split route (FLASH_FUSED_APPEND off) over
-   the slot cache (24 K10 + 24 K11) and over the pool (24 K14 + 24 K15),
-   within the bf16 tolerance of the fused route's logits;
+5. takes one decode step on each split route (FLASH_FUSED_APPEND off)
+   over the slot cache - 24 K10 + 24 K11; with FLASH_MHA_MODE 'ew' 24 K12;
+   with FLASH_BATCH_FOLD 24 K13; with both, K12 - and over the pool (24
+   K14 + 24 K15), within the bf16 tolerance of the fused route's logits
+   through one layer and a relative L2 of 2^-6 through 24, each step timed
+   as a CUDA graph; then serves the prompts of 3 (16 new tokens) through
+   the slot Engine on the 'ew' split route (24 K10 + 24 K12 a step);
 6. holds K6 ('pair3x'), K7 ('pair3'), K8 (NF4 'plane') and K9 (uniform
    int4 'plane') against their plain versions on the four projections of
    an OPT-1.3B layer at M = 8 and M = 1024, timed as in 2;
@@ -42,7 +48,15 @@
    repacks the int4 model's indices as 'plane' (uniform codebook): its
    prefill logits against the 'pair' model's, its layers one by one, and
    decode steps with 96 K9 each;
-8. prints the kernels line, the card's name and power limit, and, last,
+8. runs the decode-side benches at OPT-1.3B, briefly: ``attn_bench`` under
+   each flash-decode schedule (K11, K12, K13), ``profile_decode``'s split
+   of the int4 'pair' step at positions 272-287 (the last 16 rows of a
+   288-row cache, inside the ctx 256-288 at which 3 times decode; with a ``torch.profiler`` trace written under the
+   git-ignored ``traces/profile_decode``; its residual must be positive)
+   and its attn_only variant on the 'ew' and batch-folded split routes,
+   and ``kernel_bench`` on the four decode shapes; their result lines go
+   to stdout;
+9. prints the kernels line, the card's name and power limit, and, last,
    the result line.
 
 Any failure raises; there is no CPU branch and no fallback. It needs a
@@ -51,6 +65,7 @@ CUDA device and exits non-zero without one.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -63,10 +78,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
 
 from sleekit_tpu_torch import kernels  # noqa: E402
 from sleekit_tpu_torch.codebooks import Codebook, UniformCodebook  # noqa: E402
+from sleekit_tpu_torch.experiments import (  # noqa: E402
+    attn_bench, kernel_bench, profile_decode)
 from sleekit_tpu_torch.models.eval import decode_scan  # noqa: E402
 from sleekit_tpu_torch.models.fake_quant import random_packed_params  # noqa: E402
 from sleekit_tpu_torch.models.quantize import pack_lm_head  # noqa: E402
@@ -77,13 +95,15 @@ from sleekit_tpu_torch.models.zoo import opt_1b3  # noqa: E402
 from sleekit_tpu_torch.ops import attention as attn  # noqa: E402
 from sleekit_tpu_torch.ops import dequant_matmul as dm  # noqa: E402
 from sleekit_tpu_torch.ops import paged_attention as paged  # noqa: E402
-from sleekit_tpu_torch.ops.attention import K3, K4, K10, K11  # noqa: E402
+from sleekit_tpu_torch.ops.attention import (  # noqa: E402
+    K3, K4, K10, K11, K12, K13)
 from sleekit_tpu_torch.ops.dequant_matmul import (  # noqa: E402
     K1, K2, K6, K7, K8, K9)
 from sleekit_tpu_torch.ops.pack import (  # noqa: E402
     PackedLinear, pack_indices, unpack_indices)
 from sleekit_tpu_torch.ops.paged_attention import K5, K14, K15  # noqa: E402
 from sleekit_tpu_torch.serve.engine import Engine, Request  # noqa: E402
+from sleekit_tpu_torch.utils.profiling import cuda_ms  # noqa: E402
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): device memory rate
 # and the bf16 tensor-core rate.
@@ -94,37 +114,6 @@ L2_BYTES = 50 * 2 ** 20
 
 def log(*a):
     print(*a, flush=True)
-
-
-def cuda_ms(fn, n_args: int, iters: int = 20, warmup: int = 3,
-            graph: bool = True) -> float:
-    """Mean time of ``fn(i)`` over ``iters`` calls, i cycling over
-    ``n_args`` argument sets (so weights larger in total than L2 arrive
-    cold, as they do layer after layer), between CUDA events. With
-    ``graph`` the calls are captured in a CUDA graph and replayed, so the
-    time is the device's alone, free of Python launch overhead; without
-    it (the plain versions, which copy host scalars) it is eager."""
-    for i in range(warmup):
-        fn(i % n_args)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    if graph:
-        g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
-            for i in range(iters):
-                fn(i % n_args)
-        g.replay()
-        torch.cuda.synchronize()
-        start.record()
-        g.replay()
-    else:
-        start.record()
-        for i in range(iters):
-            fn(i % n_args)
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def copies_for(nbytes: int) -> int:
@@ -147,6 +136,15 @@ def bf16_check(got, ref, what):
                              f"the bf16 tolerance (rtol 2^-6, atol "
                              f"{1e-2 * ref.abs().max().item():.4g})")
     return err.max().item()
+
+
+def ulp_misses(got, ref):
+    """Elements more than one bf16 step (rtol 2^-7) plus 2^-14 max|ref|
+    away: the bound for two f32 computations of one function, each
+    rounded to bf16 once, at the end."""
+    got, ref = got.float(), ref.float()
+    tol = 2 ** -7 * ref.abs() + 2 ** -14 * ref.abs().max()
+    return int(((got - ref).abs() > tol).sum().item())
 
 
 # ---- phase 2: each kernel at the slice's shapes -----------------------------
@@ -432,11 +430,17 @@ def decode_bytes(p, H, D, fused: bool, paged: bool):
 
 def check_paged(dev, g, cfg):
     """The page-pool kernels K5, K14 and K15 and the split route's slot
-    kernels K10 and K11 at serving decode (OPT-1.3B: B 8, H = KV 32, D 64,
-    24 layers of int8 cache with bf16 scales, PS 64, MAXP 8, a strided
-    out-of-order table of distinct pages), scalar and ragged positions.
-    The pool holds the slot cache's rows page by page, so K5 is held to K3
-    on the same logical rows: output and written bytes equal."""
+    kernels K10, K11, K12 (mha_mode 'ew') and K13 (batch fold) at serving
+    decode (OPT-1.3B: B 8, H = KV 32, D 64, 24 layers of int8 cache with
+    bf16 scales, PS 64, MAXP 8, a strided out-of-order table of distinct
+    pages), scalar and ragged positions. The pool holds the slot cache's
+    rows page by page, so K5 is held to K3 on the same logical rows: output
+    and written bytes equal. K13 computes K11's function on another grid,
+    so its output equals K11's bit for bit. K12 keeps q, K, p and p @ V in
+    f32 and rounds only its output, as its plain version does, so it is
+    held within one bf16 step of it (``ulp_misses``); K11's output, with p
+    rounded to bf16, must miss that bound, or the check would not tell
+    K12's numerics from K11's."""
     L, B, H, D = cfg.n_layers, 8, cfg.n_heads, cfg.head_dim
     S = PS * MAXP
     gd = torch.Generator(device=dev).manual_seed(1)
@@ -454,7 +458,8 @@ def check_paged(dev, g, cfg):
     scale = 1.0 / math.sqrt(D)
     ragged = torch.tensor([17, 100, 200, 256, 300, 400, 511, 60],
                           dtype=torch.int32, device=dev)
-    cases = {name: [] for name in ("K5", "K10", "K11", "K14", "K15")}
+    cases = {name: [] for name in ("K5", "K10", "K11", "K12", "K13", "K14",
+                                   "K15")}
 
     def clone(planes):
         return [t.clone() for t in planes]
@@ -522,19 +527,45 @@ def check_paged(dev, g, cfg):
             f"logical rows")
         del got_p, ref_p, got_s, got, want, k3
 
-        # K15 and K11: flash decode over s <= pos.
+        # K15, K11, K12 and K13: flash decode over s <= pos.
+        outs = {}
         for name, planes, fn, plain, extra in (
                 ("K15", pool, paged.paged_flash_decode,
                  paged.paged_flash_decode_plain, (table,)),
                 ("K11", slot, attn.flash_decode, attn.flash_decode_plain,
-                 ())):
+                 ()),
+                ("K12", slot, lambda *a: attn.flash_decode(*a, mha_mode="ew"),
+                 attn.flash_decode_ew_plain, ()),
+                ("K13", slot,
+                 lambda *a: attn.flash_decode(*a, batch_fold=True),
+                 attn.flash_decode_plain, ())):
             def call(f, i, planes=planes, extra=extra):
                 return f(q, planes[0], planes[1], *extra, pos, i, scale,
                          None, planes[2], planes[3])
-            got = call(fn, L - 1)
+            before = counts()[name]
+            got = outs[name] = call(fn, L - 1)
             want = call(plain, L - 1)
             torch.cuda.synchronize()
+            if counts()[name] != before + 1:
+                raise AssertionError(f"{name} {label}: the kernel did not "
+                                     "launch")
             err = bf16_check(got, want, f"{name} {label}")
+            if name == "K12":
+                miss, k11_miss = ulp_misses(got, want), ulp_misses(
+                    outs["K11"], want)
+                if miss or not k11_miss:
+                    raise AssertionError(
+                        f"K12 {label}: {miss} elements over one bf16 step "
+                        f"of its plain version (K11's output: {k11_miss}, "
+                        "must be > 0)")
+                log(f"K12 {label}: within one bf16 step of its plain version"
+                    f" (rtol 2^-7, atol 2^-14 max|ref|); K11's output misses"
+                    f" that bound in {k11_miss} of {got.numel()} elements")
+            if name == "K13":
+                if not torch.equal(got, outs["K11"]):
+                    raise AssertionError(f"K13 {label}: output differs from "
+                                         "K11's")
+                log(f"K13 {label}: output equals K11's bit for bit")
             nbytes, rows = decode_bytes(p, H, D, False, name == "K15")
             record(name, label, err, cuda_ms(lambda i: call(fn, i), L),
                    cuda_ms(lambda i: call(plain, i), L, iters=5, warmup=1,
@@ -877,50 +908,72 @@ def run_paged_engine(dev, cfg, card: str, state):
                           paged_decode_step_graph_ms=dev_ms), pool
 
 
+@contextlib.contextmanager
+def split_route(**knobs):
+    """The split route (FLASH_FUSED_APPEND off) with the ``ops/attention``
+    knobs ``knobs`` set; every knob is restored at exit."""
+    knobs = dict(FLASH_FUSED_APPEND=False, **knobs)
+    old = {k: getattr(attn, k) for k in knobs}
+    for k, v in knobs.items():
+        setattr(attn, k, v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            setattr(attn, k, v)
+
+
+# The split routes: (label, cache, knobs, the append and decode kernels).
+# The page pool has no 'ew' or batch-folded schedule.
+SPLIT_ROUTES = (
+    ("slot", "slot", {}, ("K10", "K11")),
+    ("slot ew", "slot", {"FLASH_MHA_MODE": "ew"}, ("K10", "K12")),
+    ("slot bfold", "slot", {"FLASH_BATCH_FOLD": True}, ("K10", "K13")),
+    ("slot ew+bfold", "slot", {"FLASH_MHA_MODE": "ew",
+                               "FLASH_BATCH_FOLD": True}, ("K10", "K12")),
+    ("paged", "pool", {}, ("K14", "K15")))
+
+
 def run_split(dev, cfg, state, pool):
-    """One decode step on the split route (FLASH_FUSED_APPEND off) over
-    the slot cache and over the pool, each after the fused route's step
-    at the same position (every row active): 24 K10 + 24 K11, then 24 K14
-    + 24 K15. Through the first layer the logits agree with the fused
-    route's within the bf16 tolerance; through all 24, within a relative
-    L2 of 2^-6, for the reason the prefill check gives (the two sum the
-    new token in another order, and each wide product spreads one bf16
-    step). Then times one step on each route as a CUDA graph. Returns
-    (each split kernel's launches, the step times)."""
+    """One decode step on each split route (FLASH_FUSED_APPEND off) over
+    the slot cache and over the pool, each after the fused route's step at
+    the same position (every row active): 24 K10 + 24 K11, 24 K10 + 24 K12
+    ('ew'), 24 K10 + 24 K13 (batch fold), 'ew' again with both knobs set
+    ('ew' wins), then 24 K14 + 24 K15. Through the first layer the logits
+    agree with the fused route's within the bf16 tolerance; through all
+    24, within a relative L2 of 2^-6, for the reason the prefill check
+    gives (the two sum the new token in another order, K12 keeps p in f32,
+    and each wide product spreads one bf16 step). Then times one step on
+    each route as a CUDA graph. Returns (each split kernel's launches, the
+    step times)."""
     params = state["params"]
     tok = torch.zeros((8, 1), dtype=torch.int64, device=dev)
+    caches = {"slot": state["cache"], "pool": pool}
     launches, metrics = {}, {}
 
-    def both(n_layers, cache):
+    def both(n_layers, cache, knobs):
         c = dataclasses.replace(cfg, n_layers=n_layers)
         p = dict(params, layers=params["layers"][:n_layers])
         cache = {k: v if k == "page_table" else v[:n_layers]
                  for k, v in cache.items()}
         fused, _ = decode_step(c, p, tok, cache, 300, use_kernel=True)
-        attn.FLASH_FUSED_APPEND = False
-        try:
+        with split_route(**knobs):
             kernels.reset_launch_counts()
             split, _ = decode_step(c, p, tok, cache, 300, use_kernel=True)
             torch.cuda.synchronize()
             step = counts()
-        finally:
-            attn.FLASH_FUSED_APPEND = True
         return fused.float(), split.float(), step
 
-    def step_ms(cache, fused_route):
-        attn.FLASH_FUSED_APPEND = fused_route
-        try:
-            return cuda_ms(lambda i: decode_step(cfg, params, tok, cache, 300,
-                                                 use_kernel=True), 1, iters=4)
-        finally:
-            attn.FLASH_FUSED_APPEND = True
+    def step_ms(cache):
+        return cuda_ms(lambda i: decode_step(cfg, params, tok, cache, 300,
+                                             use_kernel=True), 1, iters=4)
 
-    for mode, cache, names in (("slot", state["cache"], ("K10", "K11")),
-                               ("paged", pool, ("K14", "K15"))):
-        fused, split, _ = both(1, cache)
+    for mode, which, knobs, names in SPLIT_ROUTES:
+        cache = caches[which]
+        fused, split, _ = both(1, cache, knobs)
         err1 = bf16_check(split, fused,
                           f"split route ({mode}) logits through layer 1")
-        fused, split, step = both(cfg.n_layers, cache)
+        fused, split, step = both(cfg.n_layers, cache, knobs)
         want = {"K1": 4 * cfg.n_layers, "K2": 1, names[0]: cfg.n_layers,
                 names[1]: cfg.n_layers}
         if {k: n for k, n in step.items() if n} != want:
@@ -930,21 +983,101 @@ def run_split(dev, cfg, state, pool):
         if not rel <= 2 ** -6 or not torch.isfinite(split).all():
             raise AssertionError(f"split route ({mode}): relative L2 "
                                  f"{rel:.4g} over 2^-6")
-        launches.update({n: step[n] for n in names})
+        launches.setdefault(names[0], step[names[0]])
+        launches.setdefault(names[1], step[names[1]])
         agree = (split.argmax(-1) == fused.argmax(-1)).float().mean().item()
         log(f"split route ({mode}): one decode step launches {want}; logits "
             f"vs the fused route's: layer 1 max |err| {err1:.4g} (bf16 "
             f"tolerance), {cfg.n_layers} layers relative L2 {rel:.4g} "
             f"(<= 2^-6), max |err| {(split - fused).abs().max().item():.4g}, "
             f"argmax agreement {agree:.4f}")
-        ms = {route: step_ms(cache, route == "fused")
-              for route in ("fused", "split")}
-        metrics.update({f"{mode}_{route}_step_graph_ms": t
-                        for route, t in ms.items()})
+        # Keys: slot_/paged_{fused,split}_step_graph_ms as before the knobs,
+        # then slot_ew_, slot_bfold_ and slot_ew_bfold_split_step_graph_ms.
+        key = mode.replace(" ", "_").replace("+", "_")
+        fused_key = f"{mode.split()[0]}_fused_step_graph_ms"
+        if fused_key not in metrics:
+            metrics[fused_key] = step_ms(cache)
+        with split_route(**knobs):
+            metrics[f"{key}_split_step_graph_ms"] = ms = step_ms(cache)
         log(f"split route ({mode}): one decode step at ctx 300 replayed as a "
-            f"CUDA graph: {ms['split']:.3f} ms, fused route {ms['fused']:.3f} "
-            f"ms")
+            f"CUDA graph: {ms:.3f} ms, fused route "
+            f"{metrics[fused_key]:.3f} ms")
     return launches, metrics
+
+
+def run_ew_engine(dev, cfg, state):
+    """The slot Engine on the 'ew' split route (K10 + K12) serves the
+    phase-3 prompts, 16 new tokens each: well formed completions, and one
+    decode step launching 96 K1, 1 K2, 24 K10 and 24 K12. Its tokens need
+    not equal the default route's (K12's f32 softmax is other arithmetic);
+    their agreement is measured. Returns metrics."""
+    params, prompts = state["params"], state["prompts"]
+    n_new = LAYOUT_NEW_TOKENS
+    with split_route(FLASH_MHA_MODE="ew"):
+        engine = Engine(cfg, params, max_slots=8, max_seq_len=512,
+                        cache_dtype=torch.int8, device=dev, use_kernel=True)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        comps = engine.run([Request(prompt=p, max_new_tokens=n_new)
+                            for p in prompts])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        run = {k: n for k, n in counts().items() if n}
+        kernels.reset_launch_counts()
+        tok = torch.zeros((8, 1), dtype=torch.int64, device=dev)
+        logits, _ = decode_step(cfg, params, tok, engine.cache, 300,
+                                use_kernel=True)
+        torch.cuda.synchronize()
+        step = {k: n for k, n in counts().items() if n}
+    if set(run) != {"K1", "K2", "K4", "K10", "K12"}:
+        raise AssertionError(f"ew Engine: the run launched {run}")
+    want = {"K1": 4 * cfg.n_layers, "K2": 1, "K10": cfg.n_layers,
+            "K12": cfg.n_layers}
+    if step != want or not torch.isfinite(logits).all():
+        raise AssertionError(f"ew Engine: one decode step launched {step}")
+    check_completions(comps, prompts, cfg, "ew Engine", n_new)
+    agree = float(np.mean([
+        np.mean(c.new_tokens == tokens[len(p):len(p) + n_new])
+        for c, p, tokens in zip(comps, prompts, state["tokens"])]))
+    log(f"ew Engine (split route, FLASH_MHA_MODE='ew'): 8 requests x {n_new} "
+        f"tokens in {run_s:.2f} s; launches {run}; one decode step launches "
+        f"{want}, no K3/K11; new-token agreement with the default route "
+        f"{agree:.4f} (not held: K12's f32 softmax is other arithmetic)")
+    return dict(ew_engine_run_s=run_s, ew_engine_token_agree=agree)
+
+
+def run_benches(cfg, trace_dir):
+    """The decode-side benches at OPT-1.3B, briefly: attn_bench under each
+    flash-decode schedule (K11, K12, K13), profile_decode's split of the
+    int4 'pair' step (trace into ``trace_dir``) and its attn_only variant
+    on the 'ew' and batch-folded split routes, at positions 272-287 (the
+    last 16 rows of a 288-row cache; phase 3 times decode at ctx 256-288),
+    and kernel_bench on the four decode shapes. The split's residual
+    (norms, embedding, glue) must be positive: a negative one means the
+    variants timed different work. Their result lines go to stdout.
+    Returns the results."""
+    out = {}
+    for mode, knobs in (("dot", {}), ("ew", {"FLASH_MHA_MODE": "ew"}),
+                        ("bfold", {"FLASH_BATCH_FOLD": True})):
+        with split_route(**knobs):
+            out[f"attn_bench_{mode}"] = attn_bench.main(
+                ["--model", "opt-1.3b", "--iters", "16"])
+    at_ctx = ["--model", "opt-1.3b", "--steps", "16", "--ctx", "288"]
+    out["profile_decode"] = profile = profile_decode.main(
+        at_ctx + ["--trace", trace_dir])
+    if not profile["ms_per_step"]["residual"] > 0:
+        raise AssertionError(f"profile_decode: residual "
+                             f"{profile['ms_per_step']['residual']:.3f} ms "
+                             "is not positive")
+    for mode, knobs in (("ew", {"FLASH_MHA_MODE": "ew"}),
+                        ("bfold", {"FLASH_BATCH_FOLD": True})):
+        with split_route(**knobs):
+            out[f"profile_decode_attn_only_{mode}"] = profile_decode.main(
+                at_ctx + ["--variants", "attn_only"])
+    out["kernel_bench"] = kernel_bench.main(["--iters", "64"])
+    log(f"benches (OPT-1.3B, {cfg.n_layers} layers): "
+        f"{json.dumps(out, default=str)}")
+    return out
 
 
 # ---- phase 7: the 3-bit and 'plane' layouts through the Engine (K6-K9) -----
@@ -1103,13 +1236,18 @@ def main():
     split_launches, split_metrics = run_split(dev, cfg, state, pool)
     launches.update(split_launches)
     engine.update(paged_metrics, **split_metrics)
+    engine.update(run_ew_engine(dev, cfg, state))
     cases.update(check_linears(dev, cfg, ["K6", "K7", "K8", "K9"]))
     layout_launches, layout_metrics = run_layouts(dev, cfg, smi, state)
     launches.update(layout_launches)
     engine.update(layout_metrics)
+    del state, pool
+    benches = run_benches(cfg, os.path.join(ROOT, "traces",
+                                            "profile_decode"))
 
     rows = []
-    for k in (K1, K2, K3, K4, K5, K6, K7, K8, K9, K10, K11, K14, K15):
+    for k in (K1, K2, K3, K4, K5, K6, K7, K8, K9, K10, K11, K12, K13, K14,
+              K15):
         cs = cases[k.name]
         # K1 and K6-K9 report one decode layer's four projections (M = 8);
         # the others their first case. Every case is listed under "cases".
@@ -1128,7 +1266,8 @@ def main():
             bound_ms=total("bound_ms"),
             bound_by=main_cs[0]["bound_by"], library_ms=total("library_ms"),
             cases=cs))
-    print(json.dumps({"kernels": rows, "engine": engine}))
+    print(json.dumps({"kernels": rows, "engine": engine,
+                      "benches": benches}))
     print(smi)
     # The run uses one card, whatever the machine holds.
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,7 @@
 """Random packed models for smoke runs and measurements (port of
-``random_packed_params``/``_fast_packed_linear`` from
-``sleekit_tpu/models/fake_quant.py``; layouts 'pair', 'pair3', 'pair3x'
-and 'plane').
+``random_packed_linear``, ``random_packed_params`` and
+``_fast_packed_linear`` from ``sleekit_tpu/models/fake_quant.py``; layouts
+'pair', 'pair3', 'pair3x' and 'plane').
 
 Every quantizable linear is built straight from numpy random bits on the
 host: uniform random words ARE uniform random indices for power-of-two
@@ -25,6 +25,25 @@ from sleekit_tpu_torch.ops.pack import (
     PAIR3_TILE, PAIR3_WORDS, PAIR3X_GROUP, PAIR3X_P4_WORDS, PAIR3X_WORDS,
     PLANE_GROUP, PackedLinear, affine_from_lut, bits_for_codebook,
     pack_indices, pair_group, pair_planes, vals_per_word)
+
+
+def random_packed_linear(seed: int, in_features: int, out_features: int,
+                         codebook, layout: str = "plane",
+                         device="cuda") -> PackedLinear:
+    """One PackedLinear of random codebook indices, packed on the host in
+    ``layout``, with scales 0.02 * (1 + 0.1 * U[0, 1)) and no bias."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    nbits = bits_for_codebook(len(codebook))
+    idx = rng.integers(0, len(codebook), (in_features, out_features))
+    packed = pack_indices(torch.from_numpy(idx), nbits, layout=layout)
+    scale = (0.02 * (1.0 + 0.1 * rng.random(out_features))).astype(np.float32)
+    lut = codebook.values
+    return PackedLinear(
+        packed=packed.to(dev), scale=torch.from_numpy(scale).to(dev),
+        lut=lut.to(dev), bias=None, in_features=in_features,
+        out_features=out_features, nbits=nbits, affine=affine_from_lut(lut),
+        layout=layout)
 
 
 def _fast_packed_linear(rng: np.random.Generator, in_features: int,

@@ -11,13 +11,16 @@ kernels take a layer index, so no per-layer slice is ever copied.
   over s <= pos (``fused_decode_append_pallas``).
 * The split route, taken when :data:`FLASH_FUSED_APPEND` is off: kernel
   K10, :func:`kv_append` - the append on its own (``kv_append_pallas``) -
-  then kernel K11, :func:`flash_decode` - flash decode over the cached
-  rows s <= pos (``flash_decode_pallas``).
+  then :func:`flash_decode` - flash decode over the cached rows s <= pos
+  (``flash_decode_pallas``) by the kernel that :data:`FLASH_MHA_MODE` and
+  :data:`FLASH_BATCH_FOLD` select: K11 (``_decode_kernel``), K12 (the
+  elementwise MHA numerics, ``_decode_kernel_ew``) or K13 (the batch
+  folded into each block, ``_decode_kernel_bfold``).
 * Kernel K4, :func:`flash_prefill` - causal flash attention with native
   GQA and ALiBi (``flash_prefill_pallas``), CUDA in
   ``csrc/prefill_attention.cu``.
 
-K3 and K11 are ``csrc/decode_attention.cu``, K10 ``csrc/kv_append.cu``;
+K3 and K11-K13 are ``csrc/decode_attention.cu``, K10 ``csrc/kv_append.cu``;
 the same entries serve the page pool (``ops/paged_attention.py``), with a
 page table in place of the slot rule. The JAX kernels return new cache
 arrays through ``input_output_aliases``; here the caches are updated IN
@@ -39,8 +42,19 @@ _SCALE_FLOOR = 1e-8
 
 # Fuse the KV append INTO the flash-decode kernel (K3, one launch per
 # layer); False takes the split route, K10 then K11 (K14 then K15 over a
-# page pool). Read at each call, as the JAX package's knob of this name.
+# page pool). Read at each call, as are the knobs below; each has the name
+# and default of the JAX package's knob. The JAX package's TPU schedule
+# knobs (FLASH_FOLD, FLASH_KV_CHUNK) have no counterpart: the CUDA kernels
+# keep one schedule.
 FLASH_FUSED_APPEND = True
+
+# The split route's flash decode: 'ew' at G = 1 takes K12 (f32
+# elementwise numerics), 'dot' K11; K12 wins over the batch fold.
+FLASH_MHA_MODE = "dot"
+
+# Fold the batch into each flash-decode block (K13); K11's answer, bit for
+# bit.
+FLASH_BATCH_FOLD = False
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # (q, k_new, v_new, cache_k, cache_v, k_scale, v_scale, slopes, pos, table,
@@ -61,6 +75,12 @@ K10 = CudaKernel(
     replaces="sleekit_tpu/ops/attention.py:189 kv_append_pallas")
 K11 = CudaKernel(
     "K11", "decode_attention.cu", "flash_decode", FLASH_DECODE_ARGS,
+    replaces="sleekit_tpu/ops/attention.py:903 flash_decode_pallas")
+K12 = CudaKernel(
+    "K12", "decode_attention.cu", "flash_decode_ew", FLASH_DECODE_ARGS,
+    replaces="sleekit_tpu/ops/attention.py:903 flash_decode_pallas")
+K13 = CudaKernel(
+    "K13", "decode_attention.cu", "flash_decode_bfold", FLASH_DECODE_ARGS,
     replaces="sleekit_tpu/ops/attention.py:903 flash_decode_pallas")
 # (q, k, v, slopes, out, B, T, H, KV, D, scale, is_bf16)
 K4 = CudaKernel(
@@ -265,7 +285,8 @@ def launch_decode(kernel: CudaKernel, q, k_new, v_new, cache_k, cache_v,
                   v_scale, page_table=None):
     """Launches a kernel of ``csrc/decode_attention.cu`` after checking its
     arguments: the fused append + decode (K3, K5) when ``k_new`` is given,
-    else flash decode (K11, K15). Returns out (B, H, D)."""
+    else flash decode (K11, K15; K12 at G = 1 and K13 over a slot cache).
+    Returns out (B, H, D)."""
     B, H, D = q.shape
     L, _, KV = cache_k.shape[:3]
     dev = q.device
@@ -409,36 +430,73 @@ def flash_decode_plain(q, cache_k, cache_v, pos, layer: int, scale: float,
     return (pv / l_sum[..., None]).reshape(B, H, D).to(q.dtype)
 
 
+def flash_decode_ew_plain(q, cache_k, cache_v, pos, layer: int,
+                          scale: float, alibi_slopes=None, k_scale=None,
+                          v_scale=None):
+    """Plain PyTorch version of kernel K12, MHA (G = 1) only: K11's
+    function with everything in f32 - q and K in f32, an int8 key's scale
+    applied to K before the dot, f32 logits, p not rounded and scaled by
+    the value scale, an f32 p @ V - and only the output cast to q's
+    dtype."""
+    L, B, KV, S, D = cache_k.shape
+    _check(q.shape[1] == KV, "mha_mode='ew' (K12) is MHA: H == KV")
+    p = _pos_vec(pos, B, S, q.device)
+    k = cache_k[layer].float()
+    if k_scale is not None:
+        k = k * k_scale[layer].float()[..., None]
+    logits = (q.float()[:, :, None, :] * k).sum(dim=-1) * scale  # (B,KV,S)
+    col = torch.arange(S, device=q.device)
+    if alibi_slopes is not None:
+        dist = (col[None, :] - p[:, None]).float()
+        logits = logits + alibi_slopes.float()[None, :, None] * dist[:, None]
+    logits = torch.where((col[None, :] <= p[:, None])[:, None, :], logits,
+                         -math.inf)
+    pe = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    l_sum = pe.sum(dim=-1)
+    if v_scale is not None:
+        pe = pe * v_scale[layer].float()
+    pv = (pe[..., None] * cache_v[layer].float()).sum(dim=2)    # (B, KV, D)
+    return (pv / l_sum[..., None]).to(q.dtype)
+
+
+def decode_route(q, cache_k, mha_mode: Optional[str] = None,
+                 batch_fold: Optional[bool] = None):
+    """The flash-decode kernel and its plain version for these arguments
+    and the knobs, with the JAX package's precedence: ``mha_mode`` (default
+    :data:`FLASH_MHA_MODE`) 'ew' takes K12 at G = 1 only, and wins over
+    ``batch_fold`` (default :data:`FLASH_BATCH_FOLD`), which takes K13;
+    otherwise K11. K13 folds the batch into each block and computes K11's
+    answer, so its plain version is K11's."""
+    mode = mha_mode or FLASH_MHA_MODE
+    if q.shape[1] == cache_k.shape[2] and mode == "ew":
+        return K12, flash_decode_ew_plain
+    if batch_fold if batch_fold is not None else FLASH_BATCH_FOLD:
+        return K13, flash_decode_plain
+    return K11, flash_decode_plain
+
+
 def flash_decode(q, cache_k, cache_v, pos, layer: int, scale: float,
                  alibi_slopes=None, k_scale=None, v_scale=None,
                  block_s: int = 256, kv_chunk: Optional[int] = None,
                  mha_mode: Optional[str] = None,
                  batch_fold: Optional[bool] = None):
-    """Kernel K11: masked decode attention of q (B, H, D) over the cache
-    rows s <= pos (inclusive; an int or a (B,) int32 tensor, clamped to
-    S-1) of ``layer``, GQA (head h reads KV head h // G), ALiBi slopes (H,)
-    f32 or None, int8 caches with their scale planes. Returns (B, H, D) in
-    q's dtype.
+    """Masked decode attention of q (B, H, D) over the cache rows s <= pos
+    (inclusive; an int or a (B,) int32 tensor, clamped to S-1) of
+    ``layer``, GQA (head h reads KV head h // G), ALiBi slopes (H,) f32 or
+    None, int8 caches with their scale planes. Returns (B, H, D) in q's
+    dtype. Kernel K11, or K12 / K13 as :func:`decode_route` selects.
 
     ``block_s`` and ``kv_chunk`` are the TPU kernel's block sizes; the
-    CUDA kernel has its own (one block per KV head and batch row, 128-row
-    chunks), so every value of them gives the same answer. ``mha_mode=
-    'ew'`` (at G = 1) and ``batch_fold=True`` select kernels K12 and K13,
-    which raise until they are ported. A CUDA tensor launches the kernel;
-    a CPU tensor takes :func:`flash_decode_plain`."""
+    CUDA kernels have their own (one group of 128 threads per KV head and
+    batch row, 128-row chunks), so every value of them gives the same
+    answer. A CUDA tensor launches the kernel; a CPU tensor takes its
+    plain version."""
     del block_s, kv_chunk
-    if mha_mode == "ew" and q.shape[1] == cache_k.shape[2]:
-        raise NotImplementedError(
-            "mha_mode='ew' (kernel K12) is not ported yet (ROADMAP queue 1, "
-            "item 14)")
-    if batch_fold:
-        raise NotImplementedError(
-            "batch_fold=True (kernel K13) is not ported yet (ROADMAP queue "
-            "1, item 14)")
+    kernel, plain = decode_route(q, cache_k, mha_mode, batch_fold)
     if not q.is_cuda:
-        return flash_decode_plain(q, cache_k, cache_v, pos, layer, scale,
-                                  alibi_slopes, k_scale, v_scale)
-    return launch_decode(K11, q, None, None, cache_k, cache_v, pos, layer,
+        return plain(q, cache_k, cache_v, pos, layer, scale, alibi_slopes,
+                     k_scale, v_scale)
+    return launch_decode(kernel, q, None, None, cache_k, cache_v, pos, layer,
                          scale, alibi_slopes, k_scale, v_scale)
 
 
@@ -450,9 +508,9 @@ def decode_attention(q, k_new, v_new, cache_k, cache_v, pos, layer: int,
     step of one layer). The caches are updated IN PLACE and returned:
     ``(out (B, H, D), cache_k, cache_v[, k_scale, v_scale])``.
     With :data:`FLASH_FUSED_APPEND` one kernel does both (K3), else the
-    append (K10) and the flash decode (K11) run in turn. ``use_kernel``
-    (default: q is on CUDA) launches the kernels, else their plain
-    versions run."""
+    append (K10) and the flash decode (K11, or K12 / K13 as the knobs
+    select, :func:`decode_route`) run in turn. ``use_kernel`` (default: q
+    is on CUDA) launches the kernels, else their plain versions run."""
     if scale is None:
         scale = 1.0 / math.sqrt(cache_k.shape[-1])
     if use_kernel is None:
@@ -462,7 +520,7 @@ def decode_attention(q, k_new, v_new, cache_k, cache_v, pos, layer: int,
         return fn(q, k_new, v_new, cache_k, cache_v, pos, layer, scale,
                   alibi_slopes, k_scale=k_scale, v_scale=v_scale)
     append, attend = ((kv_append, flash_decode) if use_kernel
-                      else (kv_append_plain, flash_decode_plain))
+                      else (kv_append_plain, decode_route(q, cache_k)[1]))
     caches = append(k_new, v_new, cache_k, cache_v, pos, layer, k_scale,
                     v_scale)
     out = attend(q, cache_k, cache_v, pos, layer, scale, alibi_slopes,

@@ -1,8 +1,10 @@
-"""Kernels K3 (fused append + flash decode) and K4 (causal flash prefill)
-of the port: their plain versions, which the wrappers take for CPU
-tensors, against the JAX Pallas kernels in interpret mode; the port's
-oracle against the XLA oracle (mirrors tests/test_attention.py:386,484,518,
-563)."""
+"""The port's attention kernels - K3 (fused append + flash decode), K4
+(causal flash prefill), and the split route's K10 (append) and K11-K13
+(flash decode and its elementwise and batch-folded schedules): their plain
+versions, which the wrappers take for CPU tensors, against the JAX Pallas
+kernels in interpret mode; the port's oracle against the XLA oracle; the
+schedule knobs' dispatch (mirrors tests/test_attention.py:64,334,386,484,
+518,563)."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -268,17 +270,175 @@ def test_flash_decode_plain_matches_jax_kernel(G, alibi, quant, dtype):
         bf16_close(outs[0], want, "K11 bf16")
 
 
-def test_flash_decode_unported_schedules_raise():
-    """mha_mode='ew' at G = 1 (K12) and batch_fold (K13) name their ROADMAP
-    item; 'ew' at G > 1 is the one-big-dot kernel in JAX, and runs."""
-    ck, cv, _, _, _, _, q = _setup(1, False, "f32")
-    args = (t(q), t(ck), t(cv), 3, 0, 0.125)
-    with pytest.raises(NotImplementedError, match="K12.*item 14"):
-        tattn.flash_decode(*args, mha_mode="ew")
-    with pytest.raises(NotImplementedError, match="K13.*item 14"):
-        tattn.flash_decode(*args, batch_fold=True)
-    _, _, _, _, _, _, q4 = _setup(4, False, "f32")
-    tattn.flash_decode(t(q4), t(ck), t(cv), 3, 0, 0.125, mha_mode="ew")
+@pytest.mark.parametrize("dtype,block_s", [("f32", 32), ("f32", 8),
+                                           ("bf16", 8)])
+@pytest.mark.parametrize("alibi", [False, True])
+@pytest.mark.parametrize("quant", [False, True])
+def test_flash_decode_ew_plain_matches_jax_kernel(dtype, block_s, alibi,
+                                                  quant):
+    """K12's plain version (mha_mode='ew' at G = 1) == flash_decode_pallas
+    (mha_mode='ew', interpret), multi-S-block online softmax: 1e-5 in f32;
+    with bf16 q (bf16 cache or bf16 scale planes) within one bf16 step,
+    since both keep everything in f32 and round only the output (mirrors
+    tests/test_attention.py:334)."""
+    ck, cv, ks, vs, _, _, q = _setup(1, quant, dtype, KV=8, seed=30,
+                                     scale_dtype=dtype)
+    S = ck.shape[3]
+    pos = np.asarray([0, S - 1, S + 5, 11], np.int32)
+    slopes = np.linspace(0.05, 0.9, 8).astype(np.float32) if alibi else None
+    scale = 1.0 / np.sqrt(ck.shape[-1])
+    want = jattn.flash_decode_pallas(
+        jnp.asarray(q), jnp.asarray(ck), jnp.asarray(cv), jnp.asarray(pos),
+        jnp.int32(1), scale,
+        alibi_slopes=None if slopes is None else jnp.asarray(slopes),
+        k_scale=None if ks is None else jnp.asarray(ks),
+        v_scale=None if vs is None else jnp.asarray(vs), block_s=block_s,
+        interpret=True, mha_mode="ew")
+    targs = _torch(ck, cv, ks, vs)
+    got = tattn.flash_decode(
+        t(q), targs[0], targs[1], torch.from_numpy(pos), 1, scale,
+        None if slopes is None else t(slopes), targs[2], targs[3],
+        block_s=block_s, mha_mode="ew")
+    assert got.dtype == t(q).dtype
+    if dtype == "f32":
+        np.testing.assert_allclose(f32(got), f32(want), rtol=1e-5, atol=1e-5)
+    else:
+        np.testing.assert_allclose(f32(got), f32(want), rtol=2 ** -7,
+                                   atol=1e-6)
+
+
+@pytest.mark.parametrize("G", [1, 3])
+@pytest.mark.parametrize("alibi", [False, True])
+@pytest.mark.parametrize("quant", [False, True])
+def test_flash_decode_bfold_plain_matches_jax_kernel(G, alibi, quant):
+    """K13's plain version (batch_fold, K11's) == flash_decode_pallas
+    (batch_fold, block_s 8, interpret) over GQA, ALiBi, int8 scales and
+    clamped ragged positions, 1e-5 in f32 (mirrors
+    tests/test_attention.py:64)."""
+    ck, cv, ks, vs, _, _, q = _setup(G, quant, "f32", seed=40 + G)
+    S = ck.shape[3]
+    pos = np.asarray([3, S - 1, S + 2, 20], np.int32)
+    H = q.shape[1]
+    slopes = np.linspace(0.05, 0.9, H).astype(np.float32) if alibi else None
+    scale = 1.0 / np.sqrt(ck.shape[-1])
+    want = jattn.flash_decode_pallas(
+        jnp.asarray(q), jnp.asarray(ck), jnp.asarray(cv), jnp.asarray(pos),
+        jnp.int32(2), scale,
+        alibi_slopes=None if slopes is None else jnp.asarray(slopes),
+        k_scale=None if ks is None else jnp.asarray(ks),
+        v_scale=None if vs is None else jnp.asarray(vs), block_s=8,
+        interpret=True, batch_fold=True)
+    targs = _torch(ck, cv, ks, vs)
+    got = tattn.flash_decode(
+        t(q), targs[0], targs[1], torch.from_numpy(pos), 2, scale,
+        None if slopes is None else t(slopes), targs[2], targs[3],
+        block_s=8, batch_fold=True)
+    np.testing.assert_allclose(f32(got), f32(want), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("knobs,G,want", [
+    ({}, 1, "K11"),
+    ({"FLASH_MHA_MODE": "ew"}, 1, "K12"),
+    ({"FLASH_MHA_MODE": "ew"}, 4, "K11"),
+    ({"FLASH_BATCH_FOLD": True}, 1, "K13"),
+    ({"FLASH_BATCH_FOLD": True}, 4, "K13"),
+    ({"FLASH_MHA_MODE": "ew", "FLASH_BATCH_FOLD": True}, 1, "K12"),
+    ({"FLASH_MHA_MODE": "ew", "FLASH_BATCH_FOLD": True}, 4, "K13")])
+def test_flash_decode_knob_dispatch(monkeypatch, knobs, G, want):
+    """The knobs select the flash-decode kernel as the JAX package does
+    (sleekit_tpu/ops/attention.py:971-973): 'ew' only at G = 1, where it
+    wins over the batch fold; explicit arguments win over the knobs. On
+    CPU tensors flash_decode takes the selected kernel's plain version
+    (bf16 q: K12's f32 numerics differ from K11's)."""
+    for name, value in knobs.items():
+        monkeypatch.setattr(tattn, name, value)
+    ck, cv, ks, vs, _, _, q = _setup(G, True, "bf16", seed=50 + G,
+                                     scale_dtype="bf16")
+    targs = _torch(ck, cv, ks, vs)
+    kernel, plain = tattn.decode_route(t(q), targs[0])
+    assert kernel.name == want
+    assert plain is (tattn.flash_decode_ew_plain if want == "K12"
+                     else tattn.flash_decode_plain)
+    args = (t(q), targs[0], targs[1], torch.tensor([0, 31, 9, 20],
+                                                   dtype=torch.int32), 1,
+            0.125, None, targs[2], targs[3])
+    assert torch.equal(tattn.flash_decode(*args), plain(*args))
+    if G == 1:
+        ew = tattn.flash_decode_ew_plain(*args)
+        assert torch.equal(ew, tattn.flash_decode(*args)) == (want == "K12")
+    assert tattn.decode_route(t(q), targs[0], "dot", False)[0] is tattn.K11
+
+
+def test_fused_route_ignores_schedule_knobs(monkeypatch):
+    """With FLASH_FUSED_APPEND on, decode_attention takes K3 whatever
+    FLASH_MHA_MODE and FLASH_BATCH_FOLD say, as in the JAX package
+    (sleekit_tpu/ops/attention.py:1272); the split route takes the
+    selected kernel's plain version."""
+    calls = []
+
+    def spy(name, fn):
+        def wrapped(*a, **kw):
+            calls.append(name)
+            return fn(*a, **kw)
+        monkeypatch.setattr(tattn, name, wrapped)
+
+    for name in ("flash_decode_ew_plain", "flash_decode_plain",
+                 "fused_decode_append_plain"):
+        spy(name, getattr(tattn, name))
+    monkeypatch.setattr(tattn, "FLASH_MHA_MODE", "ew")
+    monkeypatch.setattr(tattn, "FLASH_BATCH_FOLD", True)
+    ck, cv, ks, vs, kn, vn, q = _setup(1, True, "bf16", seed=9,
+                                       scale_dtype="bf16")
+    for fused, want in ((True, "fused_decode_append_plain"),
+                        (False, "flash_decode_ew_plain")):
+        monkeypatch.setattr(tattn, "FLASH_FUSED_APPEND", fused)
+        targs = _torch(ck, cv, ks, vs)
+        calls.clear()
+        tattn.decode_attention(t(q), t(kn), t(vn), targs[0], targs[1], 7, 0,
+                               k_scale=targs[2], v_scale=targs[3])
+        assert calls == [want]
+
+
+@pytest.mark.parametrize("family", ["opt", "llama"])
+@pytest.mark.parametrize("knobs", [{"FLASH_MHA_MODE": "ew"},
+                                   {"FLASH_BATCH_FOLD": True},
+                                   {"FLASH_MHA_MODE": "ew",
+                                    "FLASH_BATCH_FOLD": True}])
+def test_decode_step_split_route_knobs(monkeypatch, family, knobs):
+    """decode_step of a tiny bf16 int4 model (OPT: MHA, G = 1; Llama: GQA,
+    G = 2, where 'ew' falls back to K11) with an int8 KV cache on the
+    split route under each knob: its logits within the bf16 tolerance of
+    the default (fused) route's, and the first layer's cache bytes equal
+    (later layers' new K/V carry the attention's rounding)."""
+    from sleekit_tpu_torch.models import transformer as ttr
+    from sleekit_tpu_torch.models.fake_quant import random_packed_params
+    from sleekit_tpu_torch.models.quantize import pack_lm_head
+    from sleekit_tpu_torch.models.zoo import tiny_test
+
+    geo = {"opt": {}, "llama": dict(activation="silu_glu", norm="rmsnorm",
+                                    positional="rope", n_kv_heads=2,
+                                    tie_embeddings=False)}[family]
+    cfg = tiny_test(dtype=torch.bfloat16, **geo)
+    params, _ = random_packed_params(cfg, 3, fuse_qkv=True, device="cpu")
+    params = pack_lm_head(cfg, params, nbits=8)
+    tokens = torch.as_tensor(np.random.RandomState(4).randint(
+        0, cfg.vocab_size, (3, 20)))
+    cache = ttr.init_kv_cache(cfg, 3, 32, torch.int8, device="cpu")
+    ttr.prefill(cfg, params, tokens, cache)
+    nxt = tokens[:, -1:]
+    pos = torch.tensor([20, 20, 20], dtype=torch.int32)
+    results = []
+    for split in (False, True):
+        monkeypatch.setattr(tattn, "FLASH_FUSED_APPEND", not split)
+        for name, value in knobs.items():
+            monkeypatch.setattr(tattn, name, value if split else
+                                {"FLASH_MHA_MODE": "dot"}.get(name, False))
+        c = {k: v.clone() for k, v in cache.items()}
+        results.append(ttr.decode_step(cfg, params, nxt, c, pos)[0])
+        results.append(c)
+    bf16_close(results[2], results[0], f"{family} split route {knobs}")
+    for k in cache:
+        assert torch.equal(results[1][k][0], results[3][k][0])
 
 
 @pytest.mark.parametrize("quant", [False, True])

@@ -27,6 +27,15 @@ def _bf16_close(got, ref):
     torch.testing.assert_close(got, ref, rtol=2 ** -6, atol=tol)
 
 
+def _ulp_misses(got, ref):
+    """Elements of a bf16 ``got`` more than one bf16 step (rtol 2^-7) plus
+    2^-14 max|ref| away from ``ref``: the bound for two f32 computations
+    of one function, each rounded once to bf16 at the end."""
+    got, ref = got.float().cpu(), ref.float().cpu()
+    tol = 2 ** -7 * ref.abs() + 2 ** -14 * ref.abs().max()
+    return int(((got - ref).abs() > tol).sum())
+
+
 @pytest.mark.parametrize("nbits", [2, 4, 7])
 @pytest.mark.parametrize("pre", [None, "layernorm", "rmsnorm", "relu", "gelu",
                                  "silu_glu"])
@@ -384,3 +393,87 @@ def test_k8_k9_match_plain(dev, codebook, m, N):
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
     _bf16_close(got, plain(*args, **kw))
+
+
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("alibi", [False, True])
+@pytest.mark.parametrize("cache", ["int8", "bf16", "f32", "int8 f32 q"])
+@pytest.mark.parametrize("ragged", [False, True])
+def test_k12_k13_match_plain(dev, G, alibi, cache, ragged):
+    """K13 (batch fold; B = 10 rows over a block's 8 groups) against its
+    plain version (K11's) and K11 bit for bit; K12 (mha_mode='ew', G = 1)
+    against its plain version. f32 q (over an f32 or int8 cache) within
+    1e-5; bf16 q: K13 within the bf16 tolerance, K12 within one bf16 step
+    (K12 and its plain version keep everything in f32 and round only the
+    output), a bound K11's bf16 numerics miss."""
+    from sleekit_tpu_torch.ops import attention as at
+
+    g = torch.Generator().manual_seed(20 + G)
+    L, B, KV, S, D = 2, 10, 2, 300, 64
+    planes = _cache(g, (L, B, KV, S, D), cache.split()[0])
+    dt = torch.bfloat16 if cache in ("int8", "bf16") else torch.float32
+    q = torch.randn(B, KV * G, D, generator=g).to(dt)
+    pos = (torch.tensor([0, 137, 1000, 5, 128, 299, 64, 200, 1, 255],
+                        dtype=torch.int32) if ragged else 200)
+    slopes = torch.linspace(0.05, 0.9, KV * G) if alibi else None
+    scale = 1 / math.sqrt(D)
+    dplanes = [_on(dev, p) for p in planes]
+    tpos = _on(dev, pos) if ragged else pos
+    args = (q.to(dev), dplanes[0], dplanes[1], tpos, 1, scale,
+            _on(dev, slopes), dplanes[2], dplanes[3])
+    plain_args = (q, planes[0], planes[1], pos, 1, scale, slopes, planes[2],
+                  planes[3])
+    modes = [("bfold", at.K13, at.flash_decode_plain)]
+    if G == 1:
+        modes.append(("ew", at.K12, at.flash_decode_ew_plain))
+    k11 = at.flash_decode(*args)
+    for mode, kernel, plain in modes:
+        before = kernel.launches
+        got = at.flash_decode(*args, mha_mode=mode,
+                              batch_fold=mode == "bfold")
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        want = plain(*plain_args)
+        if dt == torch.float32:
+            torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+        elif mode == "ew":
+            assert _ulp_misses(got, want) == 0
+            assert _ulp_misses(k11, want) > 0
+        else:
+            _bf16_close(got, want)
+        if mode == "bfold":
+            assert torch.equal(got, k11)
+
+
+@pytest.mark.parametrize("mode", ["ew", "bfold"])
+def test_k12_k13_replay_in_cuda_graph(dev, mode):
+    """K12 and K13 launched through the split route's knobs are captured
+    in a CUDA graph with a device pos, and a replay after pos changes in
+    place gives the eager call's output at the new positions."""
+    from sleekit_tpu_torch.ops import attention as at
+
+    g = torch.Generator().manual_seed(7)
+    L, B, KV, S, D = 2, 8, 4, 512, 64
+    planes = [_on(dev, p) for p in _cache(g, (L, B, KV, S, D), "int8")]
+    q = torch.randn(B, KV, D, generator=g).to(dev, torch.bfloat16)
+    pos = torch.tensor([3, 100, 256, 511, 0, 40, 300, 129],
+                       dtype=torch.int32, device=dev)
+    kw = dict(mha_mode="ew") if mode == "ew" else dict(batch_fold=True)
+    kernel = at.K12 if mode == "ew" else at.K13
+
+    def call():
+        return at.flash_decode(q, planes[0], planes[1], pos, 1, 0.125, None,
+                               planes[2], planes[3], **kw)
+
+    call()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = kernel.launches
+    with torch.cuda.graph(graph):
+        out = call()
+    assert kernel.launches == before + 1
+    pos.copy_(torch.tensor([511, 7, 64, 300, 128, 1, 0, 450],
+                           dtype=torch.int32))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, call())

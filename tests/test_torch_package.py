@@ -43,6 +43,8 @@ def test_entry_points_raise_without_cuda(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the entry points run there")
     from sleekit_tpu_torch.convert import params_from_numpy
+    from sleekit_tpu_torch.experiments import (
+        attn_bench, kernel_bench, profile_decode)
     from sleekit_tpu_torch.models.fake_quant import random_packed_params
     from sleekit_tpu_torch.models.transformer import (
         init_kv_cache, init_paged_kv_cache)
@@ -69,6 +71,11 @@ def test_entry_points_raise_without_cuda(tmp_path):
         Engine(cfg, params, paged=True)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         params_from_numpy(cfg, {"layers": []})
+    for bench, argv in ((attn_bench, ["--model", "tiny"]),
+                        (profile_decode, ["--model", "tiny"]),
+                        (kernel_bench, ["--shapes", "64x64"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            bench.main(argv)
     Engine(cfg, params, device="cpu")
     Engine(cfg, params, device="cpu", paged=True)
 
@@ -92,16 +99,16 @@ def test_unported_engine_modes_name_their_roadmap_item(kwargs, error, match):
 
 
 def test_kernel_sources_and_build_paths():
-    """Every kernel names a CUDA source in the package and the TPU kernel
-    it replaces; the build output goes to the git-ignored _build dir, and
-    a source's library name changes with its text."""
+    """Every TPU kernel, K1 to K15, has a CUDA kernel that names its source
+    in the package and the TPU kernel it replaces; the build output goes to
+    the git-ignored _build dir, and a source's library name changes with
+    its text."""
     from sleekit_tpu_torch import kernels
     from sleekit_tpu_torch.ops import (  # noqa: F401
         attention, dequant_matmul, paged_attention)
 
     names = {k.name: k for k in kernels.KERNELS}
-    assert set(names) == {"K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8",
-                          "K9", "K10", "K11", "K14", "K15"}
+    assert set(names) == {f"K{i}" for i in range(1, 16)}
     assert {k.source for k in names.values()} == {
         p.name for p in kernels.CSRC.glob("*.cu")}
     for k in names.values():
