@@ -16,10 +16,12 @@
 3. serves 8 greedy requests of 32 new tokens through the port's slot
    Engine with OPT-1.3B at full width and depth (random int4 'pair'
    weights from a seed, fused q|k|v, int8 head, int8 KV cache with bf16
-   scales), checks that every kernel launched and the launches of one
-   decode step, checks the prefill logits against the kernels' plain
-   versions on the card (bf16 tolerance through the first layer, relative
-   L2 through all of them), and times batch-8 decode;
+   scales), with the time its prefills take, checks that every kernel
+   launched and the launches of one decode step, checks the prefill
+   logits against the kernels' plain versions on the card (bf16
+   tolerance through the first layer, relative L2 through all of them),
+   and times a full-depth prefill of the 256-bucket group (4 x 256) and
+   batch-8 decode;
 4. serves the same requests through the paged Engine (page pool of 64-row
    pages): run A on the default pool emits the slot Engine's tokens and
    launches 96 K1, 1 K2 and 24 K5 (no K3) per decode step; run B on a
@@ -35,7 +37,7 @@
    the slot Engine on the 'ew' split route (24 K10 + 24 K12 a step);
 6. holds K6 ('pair3x'), K7 ('pair3'), K8 (NF4 'plane') and K9 (uniform
    int4 'plane') against their plain versions on the four projections of
-   an OPT-1.3B layer at M = 8 and M = 1024, timed as in 2;
+   an OPT-1.3B layer at M = 8, 64 and 1024, timed as in 2 (K1 too, in 2);
 7. serves the same 8 prompts through the slot Engine with the int3
    'pair3x' model, the same indices repacked as 'pair3', and an NF4
    'plane' model, all at full width and depth (16 new tokens each): one
@@ -44,7 +46,8 @@
    drifts: its full depth is measured, and held on the same indices over
    its table minus its mean), and each of the 24 layers on the same input
    within the bf16 tolerance; the pair3
-   logits against the pair3x ones; batch-8 decode timed as in 3. Then
+   logits against the pair3x ones; prefill and batch-8 decode timed as
+   in 3. Then
    repacks the int4 model's indices as 'plane' (uniform codebook): its
    prefill logits against the 'pair' model's, its layers one by one, and
    decode steps with 96 K9 each;
@@ -54,8 +57,9 @@
    288-row cache, inside the ctx 256-288 at which 3 times decode; with a ``torch.profiler`` trace written under the
    git-ignored ``traces/profile_decode``; its residual must be positive)
    and its attn_only variant on the 'ew' and batch-folded split routes,
-   and ``kernel_bench`` on the four decode shapes; their result lines go
-   to stdout;
+   ``kernel_bench`` on the four decode shapes, and ``prefill_bench`` on
+   the int4 model's 256-bucket group (with a trace of one prefill under
+   ``traces/prefill``); their result lines go to stdout;
 9. prints the kernels line, the card's name and power limit, and, last,
    the result line.
 
@@ -84,7 +88,7 @@ sys.path.insert(0, ROOT)
 from sleekit_tpu_torch import kernels  # noqa: E402
 from sleekit_tpu_torch.codebooks import Codebook, UniformCodebook  # noqa: E402
 from sleekit_tpu_torch.experiments import (  # noqa: E402
-    attn_bench, kernel_bench, profile_decode)
+    attn_bench, kernel_bench, prefill_bench, profile_decode)
 from sleekit_tpu_torch.models.eval import decode_scan  # noqa: E402
 from sleekit_tpu_torch.models.fake_quant import random_packed_params  # noqa: E402
 from sleekit_tpu_torch.models.quantize import pack_lm_head  # noqa: E402
@@ -102,6 +106,7 @@ from sleekit_tpu_torch.ops.dequant_matmul import (  # noqa: E402
 from sleekit_tpu_torch.ops.pack import (  # noqa: E402
     PackedLinear, pack_indices, unpack_indices)
 from sleekit_tpu_torch.ops.paged_attention import K5, K14, K15  # noqa: E402
+from sleekit_tpu_torch.serve import engine as engine_mod  # noqa: E402
 from sleekit_tpu_torch.serve.engine import Engine, Request  # noqa: E402
 from sleekit_tpu_torch.utils.profiling import cuda_ms  # noqa: E402
 
@@ -178,7 +183,9 @@ def check_linears(dev, cfg, names):
     layer: K1 (int4 'pair'), K6 ('pair3x') and K7 ('pair3') with their
     prologues and residuals, K8 (the NF4 table) and K9 (the uniform int4
     grid) on 'plane' words with none (the model composes them), at decode
-    M = 8 and at the largest prefill M (4 rows of the 256 bucket).
+    M = 8, at M = 64 (the Engine's most common prefill: 4 rows of the
+    16 bucket, 1 row of the 64 bucket) and at the largest prefill M (4
+    rows of the 256 bucket).
     Yardstick: ``torch.matmul`` on a bf16 weight of the same shape."""
     gd = torch.Generator(device=dev).manual_seed(len(names))
     d, ff = cfg.d_model, cfg.d_ff
@@ -191,7 +198,7 @@ def check_linears(dev, cfg, names):
     for kern in names:
         layout = LINEAR_LAYOUTS[kern]
         cases[kern] = []
-        for m in (8, 1024):
+        for m in (8, 64, 1024):
             for name, K, N, pre, res in shapes:
                 if layout == "plane":
                     pre, res = None, False
@@ -625,26 +632,50 @@ def run_engine(dev, cfg, card: str):
     return launches, metrics, state
 
 
+@contextlib.contextmanager
+def timed_prefills(seconds):
+    """Every prefill the Engine runs inside the block, timed by the host
+    clock between synchronizations; their total goes to ``seconds[0]``."""
+    inner = engine_mod.prefill
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(*a, **kw)
+        torch.cuda.synchronize()
+        seconds[0] += time.perf_counter() - t0
+        return out
+    engine_mod.prefill = timed
+    try:
+        yield
+    finally:
+        engine_mod.prefill = inner
+
+
 def serve(dev, cfg, card, what, params, kernel, prompts, n_new, hold=True):
     """Serve the prompts (greedy, ``n_new`` tokens each) through the slot
-    Engine on ``params``, whose linears all run ``kernel``; check the
-    launches of the run and of one decode step through the public entry
-    point (exactly 4 per layer of ``kernel``: qkv, o, fc1, fc2; one K2
-    head; one K3 per layer), the prefill logits (kernels vs plain
-    versions; ``hold``: see check_prefill) and each layer, and time
+    Engine on ``params``, whose linears all run ``kernel``, with the time
+    its prefills take; check the launches of the run and of one decode
+    step through the public entry point (exactly 4 per layer of
+    ``kernel``: qkv, o, fc1, fc2; one K2 head; one K3 per layer), the
+    prefill logits (kernels vs plain versions; ``hold``: see
+    check_prefill) and each layer; time a full-depth prefill of the
+    256-bucket group (4 rows x 256, eager between CUDA events) and
     batch-8 decode. Returns (the run's launches, metrics, the kernels'
     full-depth prefill logits, the Engine, its completions)."""
     engine = Engine(cfg, params, max_slots=8, max_seq_len=512,
                     cache_dtype=torch.int8, device=dev, use_kernel=True)
     reqs = [Request(prompt=p, max_new_tokens=n_new) for p in prompts]
     kernels.reset_launch_counts()
+    prefill_s = [0.0]
     t0 = time.perf_counter()
-    comps = engine.run(reqs)
+    with timed_prefills(prefill_s):
+        comps = engine.run(reqs)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = {k: n for k, n in counts().items() if n}
-    log(f"{what} Engine: 8 requests x {n_new} tokens in {run_s:.2f} s; "
-        f"launches {launches}")
+    log(f"{what} Engine: 8 requests x {n_new} tokens in {run_s:.2f} s, of "
+        f"which its prefills {prefill_s[0]:.3f} s; launches {launches}")
     if set(launches) != {kernel.name, "K2", "K3", "K4"}:
         raise AssertionError(f"{what}: the Engine launched {launches}")
     check_completions(comps, prompts, cfg, f"{what} Engine", n_new)
@@ -665,9 +696,13 @@ def serve(dev, cfg, card, what, params, kernel, prompts, n_new, hold=True):
     err1, rel, agree, full = check_prefill(dev, cfg, params, toks,
                                            f"{what} ", hold)
     layers_err = check_layers(dev, cfg, params, toks, f"{what} ")
+    prefill_ms = prefill_bench.time_prefill(cfg, params, toks[0], reps=3)
+    log(f"{what} prefill of the 256-bucket group (4 x 256, {cfg.n_layers} "
+        f"layers, eager): {prefill_ms:.3f} ms ({card})")
     ms_step, dev_ms = time_decode(dev, cfg, params, engine.cache, card,
                                   f"{what} decode")
-    metrics = {"engine_run_s": run_s, "decode_ms_per_step": ms_step,
+    metrics = {"engine_run_s": run_s, "engine_prefill_s": prefill_s[0],
+               "prefill_ms": prefill_ms, "decode_ms_per_step": ms_step,
                "decode_tokens_per_s": 8e3 / ms_step,
                "decode_step_graph_ms": dev_ms,
                "prefill_layer1_max_err": err1, "prefill_full_rel_l2": rel,
@@ -1047,12 +1082,14 @@ def run_ew_engine(dev, cfg, state):
 
 
 def run_benches(cfg, trace_dir):
-    """The decode-side benches at OPT-1.3B, briefly: attn_bench under each
+    """The benches at OPT-1.3B, briefly: attn_bench under each
     flash-decode schedule (K11, K12, K13), profile_decode's split of the
-    int4 'pair' step (trace into ``trace_dir``) and its attn_only variant
-    on the 'ew' and batch-folded split routes, at positions 272-287 (the
-    last 16 rows of a 288-row cache; phase 3 times decode at ctx 256-288),
-    and kernel_bench on the four decode shapes. The split's residual
+    int4 'pair' step (trace into ``trace_dir``/profile_decode) and its
+    attn_only variant on the 'ew' and batch-folded split routes, at
+    positions 272-287 (the last 16 rows of a 288-row cache; phase 3 times
+    decode at ctx 256-288), kernel_bench on the four decode shapes, and
+    prefill_bench on the int4 'pair' model's 256-bucket group (4 x 256;
+    trace of one prefill into ``trace_dir``/prefill). The split's residual
     (norms, embedding, glue) must be positive: a negative one means the
     variants timed different work. Their result lines go to stdout.
     Returns the results."""
@@ -1064,7 +1101,7 @@ def run_benches(cfg, trace_dir):
                 ["--model", "opt-1.3b", "--iters", "16"])
     at_ctx = ["--model", "opt-1.3b", "--steps", "16", "--ctx", "288"]
     out["profile_decode"] = profile = profile_decode.main(
-        at_ctx + ["--trace", trace_dir])
+        at_ctx + ["--trace", os.path.join(trace_dir, "profile_decode")])
     if not profile["ms_per_step"]["residual"] > 0:
         raise AssertionError(f"profile_decode: residual "
                              f"{profile['ms_per_step']['residual']:.3f} ms "
@@ -1075,6 +1112,9 @@ def run_benches(cfg, trace_dir):
             out[f"profile_decode_attn_only_{mode}"] = profile_decode.main(
                 at_ctx + ["--variants", "attn_only"])
     out["kernel_bench"] = kernel_bench.main(["--iters", "64"])
+    out["prefill_bench"] = prefill_bench.main(
+        ["--model", "opt-1.3b", "--batch", "4", "--seq", "256", "--reps",
+         "3", "--trace", os.path.join(trace_dir, "prefill")])
     log(f"benches (OPT-1.3B, {cfg.n_layers} layers): "
         f"{json.dumps(out, default=str)}")
     return out
@@ -1242,8 +1282,7 @@ def main():
     launches.update(layout_launches)
     engine.update(layout_metrics)
     del state, pool
-    benches = run_benches(cfg, os.path.join(ROOT, "traces",
-                                            "profile_decode"))
+    benches = run_benches(cfg, os.path.join(ROOT, "traces"))
 
     rows = []
     for k in (K1, K2, K3, K4, K5, K6, K7, K8, K9, K10, K11, K12, K13, K14,

@@ -16,11 +16,25 @@
 // relu | gelu (tanh) | silu_glu ([gate | up] halves of x), pre(x) rounded
 // to bf16, rowsum over that bf16 pre(x), f32 accumulation, bf16 out.
 //
-// What bounds it on an H100: at decode (M = 8) the packed weight stream
+// What bounds it on an H100: at decode (M <= 8) the packed weight stream
 // (K*N*nbits/8 bytes; 8 MB for OPT-1.3B fc1) over device memory, a few
-// microseconds per projection; at prefill M the products on the CUDA cores.
+// microseconds per projection; at prefill M (M > 8) the products, 2*M*K*N
+// operations (26 GFLOP for OPT-1.3B qkv at M = 1024, 26 us at the bf16
+// tensor-core rate), which CUDA-core FMAs run some 15x slower than that.
 //
-// What the design does about it: every weight word is read once per
+// Two routes, one launch entry. M <= 8 runs pair_kernel<P, 8, 1> (below).
+// M > 8 runs two kernels on the same stream: prologue_kernel writes pre(x)
+// once per call, as bf16 into the scratch xp (M, K rounded up to 64, 0
+// past K) with its row sums in rs, and pair_mma_kernel multiplies it on
+// the tensor cores (mma.sync m16n8k16 bf16, f32 accumulation). A pair
+// word holds K rows 2p and 2p+1 of one column as two bf16 mantissas, the
+// layout of one .b32 register of an m16n8k16 B fragment, so B is built in
+// registers straight from the words (shift, mask, OR the exponent, one
+// exact bf16x2 FMA to centre it) and no dequantized tile exists in shared
+// memory. A and the words arrive by cp.async in a ring of three 64-row
+// stages; A fragments come from shared memory by ldmatrix.
+//
+// The decode route: every weight word is read once per
 // M tile, coalesced along N (16 consecutive columns per half-warp), and
 // decoded in registers - one shift, AND, OR per plane gives the bf16 bit
 // patterns C = 1 + idx/2^nbits of two K rows at once; the affine codebook
@@ -41,14 +55,14 @@
 // a = 4*step and b = zero + 3.5*step. The TPU kernel's pair3x epilogue
 // instead subtracts a section-weighted rowsum from a*acc, two large,
 // nearly equal terms.
-// Each block owns 16 columns at decode (M <= 8; 64 at prefill M, and for
-// K2) and one M tile of 8 or 16 rows; its 256 threads split K 16 ways and
+// Each decode block owns 16 columns (64 for K2) and one M tile of 8 rows
+// (16 for K2 at M > 8); its 256 threads split K 16 ways and
 // sum the slices through shared memory at the end. pre(x) of the block's
 // rows is built chunk by chunk in shared memory, row-minor, so one 16-byte
-// load serves four rows. This is the simple first version: CUDA-core FMAs,
-// no tensor cores, no TMA, no split-K across blocks (N = 2048 projections
-// fill 128 of 132 SMs at decode), and every block recomputes its rows'
-// norm statistics.
+// load serves four rows. The decode route is the simple first version:
+// CUDA-core FMAs, no split-K across blocks (N = 2048 projections fill 128
+// of 132 SMs), and every block recomputes its rows' norm statistics.
+// The tensor-core route uses mma.sync, not wgmma, and cp.async, not TMA.
 #include "common.cuh"
 
 namespace {
@@ -74,6 +88,8 @@ struct Args {
   bf16* out;
   int M, N, K, x_cols, kw, ld_w, pre;
   float a, b, eps;
+  bf16* xp;   // tensor-core route scratch: pre(x), (M, xp_cols(K))
+  float* rs;  // and its row sums, (M,)
 };
 
 __device__ __forceinline__ float gelu_tanh(float x) {
@@ -348,23 +364,18 @@ __device__ __forceinline__ void pair3_chunk(float (&acc)[BM][NV],
   }
 }
 
-// Word rows kw0 + P::row(i, ks) (i < WPT) of NV columns from n; 0 past
-// the matrix.
+// Word rows kw0 + P::row(i, ks) (i < WPT) of column n; 0 past the matrix.
 template <class P, int WPT, int NV>
 __device__ __forceinline__ void load_words(uint32_t (&w)[WPT][NV],
                                            const int* words, int kw0, int kw,
                                            int N, int n, int ks) {
+  static_assert(NV == 1, "the decode tiles take one column per thread");
 #pragma unroll
   for (int i = 0; i < WPT; ++i) {
     const int row = kw0 + P::row(i, ks);
     const int* wp = words + (size_t)row * N + n;
     if (n < N && row < kw) {
-      if constexpr (NV == 4) {
-        const int4 q = __ldg(reinterpret_cast<const int4*>(wp));
-        w[i][0] = q.x; w[i][1] = q.y; w[i][2] = q.z; w[i][3] = q.w;
-      } else {
-        w[i][0] = (uint32_t)__ldg(wp);
-      }
+      w[i][0] = (uint32_t)__ldg(wp);
     } else {
 #pragma unroll
       for (int v = 0; v < NV; ++v) w[i][v] = 0u;
@@ -372,11 +383,9 @@ __device__ __forceinline__ void load_words(uint32_t (&w)[WPT][NV],
   }
 }
 
-// NV consecutive columns per thread: 1 at decode (more blocks for the
-// weight stream), 4 at prefill M (each x value loaded from shared memory
-// feeds four columns; needs N % 4 == 0).
-// Decode tiles (BM = 8) ask for two blocks per SM (at most 128 registers
-// a thread); the prefill tiles need more registers than that.
+// The decode route (M <= 8): BM = 8 rows, NV = 1 column per thread (more
+// blocks for the weight stream), two blocks per SM (at most 128 registers
+// a thread).
 template <class P, int BM, int NV>
 __global__ void __launch_bounds__(THREADS, BM == 8 ? 2 : 1)
     pair_kernel(Args g) {
@@ -540,6 +549,424 @@ __global__ void __launch_bounds__(THREADS, BM == 8 ? 2 : 1)
   epilogue<BM, BN * 4>(g, m0, n0, g.N, acc, xs, rs);
 }
 
+// ---- the tensor-core route (M > 8) -----------------------------------------
+
+constexpr int MMA_KC = 64;      // K rows per pipeline stage
+constexpr int MMA_KW = 32;      // word rows per stage, at most
+constexpr int MMA_STAGES = 3;
+
+// Columns of the scratch xp: K rounded up to whole stages.
+__device__ __forceinline__ int xp_cols(int K) {
+  return (K + MMA_KC - 1) / MMA_KC * MMA_KC;
+}
+
+// W consecutive bf16 values from p (W = 8: one 16-byte load) as f32.
+template <int W>
+__device__ __forceinline__ void load_bf16(const bf16* p, float (&v)[W]) {
+  if constexpr (W == 8) {
+    const uint4 q = __ldg(reinterpret_cast<const uint4*>(p));
+    const uint32_t u[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      v[2 * i] = __uint_as_float(u[i] << 16);
+      v[2 * i + 1] = __uint_as_float(u[i] & 0xFFFF0000u);
+    }
+  } else {
+    v[0] = to_f(p[0]);
+  }
+}
+
+// W consecutive values of an f32 or bf16 parameter vector from k.
+template <int W>
+__device__ __forceinline__ void load_params(const void* p, int k, int is_bf16,
+                                            float (&v)[W]) {
+  if constexpr (W == 1) {
+    v[0] = load_param(p, k, is_bf16);
+  } else if (is_bf16) {
+    load_bf16<W>(static_cast<const bf16*>(p) + k, v);
+  } else {
+    const float4* f = reinterpret_cast<const float4*>(
+        static_cast<const float*>(p) + k);
+    const float4 a = __ldg(f), b = __ldg(f + 1);
+    const float t[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = t[e];
+  }
+}
+
+// pre(x) once per call: block m writes row m of g.xp as bf16 (0 past K)
+// and the row's sum into g.rs, W consecutive columns a thread at a time
+// (W = 8: 16-byte loads and stores, for K % 8 == 0 and aligned rows; else
+// W = 1), so every load of a row is in flight at once. The norm
+// statistics run over the valid K in two passes, as row_stats does.
+template <int W>
+__global__ void __launch_bounds__(THREADS) prologue_kernel(Args g) {
+  __shared__ float red[NWARPS];
+  const int tid = threadIdx.x, m = blockIdx.x;
+  const auto block_sum = [&](float v) {
+    v = warp_sum(v);
+    __syncthreads();  // red's previous sum has been read
+    if (tid % 32 == 0) red[tid / 32] = v;
+    __syncthreads();
+    float t = 0.0f;
+#pragma unroll
+    for (int w = 0; w < NWARPS; ++w) t += red[w];
+    return t;
+  };
+  const bool glu = g.pre == PRE_GLU;
+  const bool norm = g.pre == PRE_LN || g.pre == PRE_RMS;
+  const bf16* row = g.x + (size_t)m * g.x_cols;
+  float mu = 0.0f, rstd = 0.0f;
+  for (int pass = g.pre == PRE_LN ? 0 : 1; norm && pass < 2; ++pass) {
+    float s = 0.0f;
+#pragma unroll 4
+    for (int k = W * tid; k < g.K; k += W * THREADS) {
+      float v[W];
+      load_bf16<W>(row + k, v);
+#pragma unroll
+      for (int e = 0; e < W; ++e) {
+        const float d = v[e] - mu;
+        s += pass == 0 ? v[e] : d * d;
+      }
+    }
+    s = block_sum(s);
+    if (pass == 0) mu = s / (float)g.K;
+    else rstd = 1.0f / sqrtf(s / (float)g.K + g.eps);
+  }
+  const int kp = xp_cols(g.K);
+  bf16* dst = g.xp + (size_t)m * kp;
+  float part = 0.0f;
+#pragma unroll 4
+  for (int k = W * tid; k < kp; k += W * THREADS) {
+    float v[W], u[W], ls[W], lb[W], y[W];
+#pragma unroll
+    for (int e = 0; e < W; ++e) v[e] = u[e] = ls[e] = lb[e] = 0.0f;
+    if (k < g.K) {
+      load_bf16<W>(row + k, v);
+      if (glu) load_bf16<W>(row + g.K + k, u);
+      if (norm) load_params<W>(g.ln_s, k, g.ln_bf16, ls);
+      if (norm && g.ln_b) load_params<W>(g.ln_b, k, g.ln_bf16, lb);
+    }
+#pragma unroll
+    for (int e = 0; e < W; ++e) {
+      // exact in bf16: prologue() rounds, or x is bf16 already
+      y[e] = k + e < g.K ? prologue(g, v[e], u[e], ls[e], lb[e], mu, rstd)
+                         : 0.0f;
+      part += y[e];
+    }
+    if constexpr (W == 8) {
+      uint32_t q[4];
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        __nv_bfloat162 b2 = __floats2bfloat162_rn(y[2 * h], y[2 * h + 1]);
+        q[h] = *reinterpret_cast<uint32_t*>(&b2);
+      }
+      *reinterpret_cast<uint4*>(dst + k) = make_uint4(q[0], q[1], q[2], q[3]);
+    } else {
+      dst[k] = __float2bfloat16_rn(y[0]);
+    }
+  }
+  part = block_sum(part);
+  if (tid == 0) g.rs[m] = part;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 (or 4) bytes from global to shared memory, asynchronously; zeros when
+// !ok (src is then not read).
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp4(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// The A fragment of an m16k16 tile: lane l gives the address of row l % 16,
+// column 8 * (l / 16).
+__device__ __forceinline__ void ldsm_x4(uint32_t (&a)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// u's two bf16 halves times m plus c, as bf16x2 (exact for every use
+// here: the results are multiples of 2^-7 within +-7/8).
+__device__ __forceinline__ uint32_t bf2_fma(uint32_t u, float m, float c) {
+  __nv_bfloat162 v = *reinterpret_cast<__nv_bfloat162*>(&u);
+  v = __hfma2(v, __float2bfloat162_rn(m), __float2bfloat162_rn(c));
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// A pair3 B register: low word wl, plane j (2-bit fields) and high word
+// wh, plane i (1 bit), OR'd into the mantissa as C = 1 + idx/8, then
+// 2*(C - 1.4375) = idx/4 - 0.875.
+__device__ __forceinline__ uint32_t pair3_b(uint32_t wl, uint32_t wh, int j,
+                                            int i) {
+  const uint32_t u = (((wl >> (2 * j)) << 4) & 0x00300030u) |
+                     (((wh >> i) << 6) & 0x00400040u) | 0x3F803F80u;
+  return bf2_fma(u, 2.0f, -2.875f);
+}
+
+// Step S (0..15) of a pair3 tile: low plane S/2, word rows (S%2)*8 + t4
+// and + 4; high words 16 + t4 and 20 + t4 (their index p % 8), plane S.
+__device__ __forceinline__ void pair3_frag(const int* ws, int ld, int S,
+                                           int t4, uint32_t (&b)[2]) {
+  const int lo = (S & 1) * 8 + t4;
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    b[h] = pair3_b((uint32_t)ws[(lo + 4 * h) * ld],
+                   (uint32_t)ws[(16 + t4 + 4 * h) * ld], S >> 1, S);
+}
+
+// The word rows of 64-row chunk c (K rows 64c .. 64c + 63) under tile rule
+// P: (first, count), count <= MMA_KW. 'pair': a plane spans 2*PG K rows,
+// word row p holding rows 2p, 2p+1, so a chunk reads 32 word rows of its
+// tile (all of them when PG = 32, one half when PG = 64); 'pair3': all 24
+// words of its 256-row tile; 'pair3x': the 32 4-bit words or the 24 pair3
+// words of its 512-row group.
+template <class P>
+__device__ __forceinline__ int2 chunk_words(int c) {
+  if constexpr (P::KIND == TILE_PAIR) {
+    constexpr int CPT = P::BK / MMA_KC, HALVES = P::PG / 32;
+    return make_int2(c / CPT * P::PG + (c % CPT % HALVES) * 32, 32);
+  } else if constexpr (P::KIND == TILE_PAIR3) {
+    return make_int2((c >> 2) * P::PG, 24);
+  } else {
+    const bool p4 = (c & 7) < 4;
+    return make_int2((c >> 3) * P::PG + (p4 ? 0 : 32), p4 ? 32 : 24);
+  }
+}
+
+// Lane (g = l/4, t4 = l%4)'s B registers of k16 step s of chunk c, for the
+// column whose chunk words are ws[r * ld] (r from chunk_words' first):
+// register h holds K rows 8h + 2*t4 and + 1 of the step, the lower row in
+// the low half, which is one word's plane. PART selects a 'pair3x'
+// chunk's kind (0: its 4-bit fields, chunks c % 8 < 4; 1: its pair3 tile)
+// at compile time.
+template <class P, int PART>
+__device__ __forceinline__ void b_frag(const int* ws, int ld, int c, int s,
+                                       int t4, uint32_t (&b)[2]) {
+  if constexpr (P::KIND == TILE_PAIR) {
+    constexpr int NB = P::NBITS, HALVES = P::PG / 32;
+    constexpr uint32_t mlow = ((1u << NB) - 1u) << (7 - NB);
+    const int j = c % (P::BK / MMA_KC) / HALVES;  // the chunk's plane
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint32_t w = (uint32_t)ws[(8 * s + 4 * h + t4) * ld];
+      const uint32_t u = (((w >> (NB * j)) << (7 - NB)) & (mlow | mlow << 16))
+                         | 0x3F803F80u;
+      b[h] = bf2_fma(u, 1.0f, -1.5f);  // C - 1.5
+    }
+  } else if constexpr (P::KIND == TILE_PAIR3) {
+    pair3_frag(ws, ld, 4 * (c & 3) + s, t4, b);
+  } else if constexpr (PART == 0) {  // 4-bit fields, plane c % 8 (< 4)
+    const int j = c & 7;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint32_t w = (uint32_t)ws[(8 * s + 4 * h + t4) * ld];
+      const uint32_t u = (((w >> (4 * j)) << 3) & 0x00780078u) | 0x40804080u;
+      b[h] = bf2_fma(u, 1.0f, -4.875f);  // 4 + idx/4 - 4.875
+    }
+  } else {
+    pair3_frag(ws, ld, 4 * ((c & 7) - 4) + s, t4, b);
+  }
+}
+
+// A block of 8 warps, 2 along M and 4 along N, each warp WM m16 tiles by
+// WN n8 tiles. Shared rows are padded by 16 bytes so that ldmatrix's eight
+// rows and the four word rows of a B load fall on distinct banks.
+template <int WM, int WN>
+struct MmaTile {
+  static constexpr int BM = 2 * 16 * WM, BN = 4 * 8 * WN;
+  static constexpr int A_LD = MMA_KC + 8;  // bf16 per A row
+  static constexpr int W_LD = BN + 8;      // int32 per word row
+  static constexpr int A_BYTES = BM * A_LD * 2;
+  static constexpr int STAGE = A_BYTES + MMA_KW * W_LD * 4;
+  static constexpr int SMEM = MMA_STAGES * STAGE;
+};
+
+// The products of one 64-row chunk: sa at the warp's first A row (lane's
+// ldmatrix address), ws at its first column (lane's B column). SERIAL
+// keeps the k16 steps a loop, so their word loads are not all hoisted.
+template <class P, int PART, int WM, int WN, bool SERIAL>
+__device__ __forceinline__ void mma_chunk(float (&acc)[WM][WN][4],
+                                          const bf16* sa, const int* ws,
+                                          int c, int t4) {
+  using T = MmaTile<WM, WN>;
+#pragma unroll (SERIAL ? 1 : MMA_KC / 16)
+  for (int s = 0; s < MMA_KC / 16; ++s) {
+    uint32_t a[WM][4];
+#pragma unroll
+    for (int i = 0; i < WM; ++i) ldsm_x4(a[i], sa + i * 16 * T::A_LD + 16 * s);
+#pragma unroll
+    for (int j = 0; j < WN; ++j) {
+      uint32_t b[2];
+      b_frag<P, PART>(ws + 8 * j, T::W_LD, c, s, t4, b);
+#pragma unroll
+      for (int i = 0; i < WM; ++i) mma_bf16(acc[i][j], a[i], b);
+    }
+  }
+}
+
+// out[m0 .. m0+BM, n0 .. n0+BN] of the tensor-core route: the 64-row chunks
+// of xp and their word rows stream through a ring of MMA_STAGES stages.
+// MINB blocks per SM (2 caps the registers at 128 a thread).
+template <class P, int WM, int WN, int MINB>
+__global__ void __launch_bounds__(THREADS, MINB) pair_mma_kernel(Args g) {
+  using T = MmaTile<WM, WN>;
+  extern __shared__ float4 smem4[];
+  char* smem = reinterpret_cast<char*>(smem4);
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int wm = warp / 4, wn = warp % 4, t4 = lane % 4;
+  const int m0 = blockIdx.y * T::BM, n0 = blockIdx.x * T::BN;
+  const int kp = xp_cols(g.K), chunks = kp / MMA_KC;
+  const int* words = static_cast<const int*>(g.w);
+  // 16-byte word copies need 16-byte aligned rows.
+  const bool vec = g.N % 4 == 0 &&
+                   (reinterpret_cast<uintptr_t>(words) & 15) == 0;
+
+  auto load = [&](int c, int st) {
+    bf16* sa = reinterpret_cast<bf16*>(smem + st * T::STAGE);
+    int* sw = reinterpret_cast<int*>(smem + st * T::STAGE + T::A_BYTES);
+    for (int i = tid; i < T::BM * (MMA_KC / 8); i += THREADS) {
+      const int r = i / (MMA_KC / 8), q = i % (MMA_KC / 8);
+      const int m = min(m0 + r, g.M - 1);  // rows past M: never stored
+      cp16(sa + r * T::A_LD + 8 * q,
+           g.xp + (size_t)m * kp + c * MMA_KC + 8 * q, true);
+    }
+    const int2 cw = chunk_words<P>(c);
+    if (vec) {
+      for (int i = tid; i < cw.y * (T::BN / 4); i += THREADS) {
+        const int r = i / (T::BN / 4), n = 4 * (i % (T::BN / 4));
+        const bool ok = n0 + n < g.N && cw.x + r < g.kw;
+        cp16(sw + r * T::W_LD + n,
+             ok ? words + (size_t)(cw.x + r) * g.N + n0 + n : words, ok);
+      }
+    } else {
+      for (int i = tid; i < cw.y * T::BN; i += THREADS) {
+        const int r = i / T::BN, n = i % T::BN;
+        const bool ok = n0 + n < g.N && cw.x + r < g.kw;
+        cp4(sw + r * T::W_LD + n,
+            ok ? words + (size_t)(cw.x + r) * g.N + n0 + n : words, ok);
+      }
+    }
+  };
+
+  float acc[WM][WN][4];
+#pragma unroll
+  for (int i = 0; i < WM; ++i)
+#pragma unroll
+    for (int j = 0; j < WN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+
+#pragma unroll
+  for (int st = 0; st < MMA_STAGES - 1; ++st) {
+    if (st < chunks) load(st, st);
+    cp_commit();
+  }
+  for (int c = 0; c < chunks; ++c) {
+    cp_wait<MMA_STAGES - 2>();  // chunk c has arrived
+    __syncthreads();            // ... for every thread; chunk c-1 is consumed
+    if (c + MMA_STAGES - 1 < chunks)
+      load(c + MMA_STAGES - 1, (c + MMA_STAGES - 1) % MMA_STAGES);
+    cp_commit();
+    const int st = c % MMA_STAGES;
+    const bf16* sa = reinterpret_cast<const bf16*>(smem + st * T::STAGE) +
+                     (wm * 16 * WM + lane % 16) * T::A_LD + 8 * (lane / 16);
+    const int* ws = reinterpret_cast<const int*>(smem + st * T::STAGE +
+                                                 T::A_BYTES) +
+                    wn * 8 * WN + lane / 4;
+    // At two blocks an SM the pair3 decode's hoisted words would spill
+    // past 128 registers: its steps stay a loop there (measured as fast).
+    constexpr bool p3_serial = MINB == 2;
+    if (P::KIND == TILE_PAIR3X && (c & 7) >= 4)
+      mma_chunk<P, 1, WM, WN, p3_serial>(acc, sa, ws, c, t4);
+    else
+      mma_chunk<P, 0, WM, WN, p3_serial && P::KIND == TILE_PAIR3>(acc, sa,
+                                                                 ws, c, t4);
+  }
+
+  // Epilogue from the fragments: lane (g, t4) holds rows g and g + 8 of
+  // each m16 tile, columns 2*t4 and 2*t4 + 1 of each n8 tile.
+  const bool pairs = g.N % 2 == 0 &&
+                     (reinterpret_cast<uintptr_t>(g.out) & 3) == 0 &&
+                     (reinterpret_cast<uintptr_t>(g.res) & 3) == 0;
+#pragma unroll
+  for (int i = 0; i < WM; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + wm * 16 * WM + i * 16 + lane / 4 + 8 * h;
+      if (m >= g.M) continue;
+      const float brs = g.b * g.rs[m];
+#pragma unroll
+      for (int j = 0; j < WN; ++j) {
+        const int n = n0 + wn * 8 * WN + 8 * j + 2 * t4;
+        if (n >= g.N) continue;
+        const size_t o = (size_t)m * g.N + n;
+        float y0 = (g.a * acc[i][j][2 * h] + brs) * g.scale[n];
+        if (g.bias) y0 += g.bias[n];
+        if (n + 1 < g.N) {
+          float y1 = (g.a * acc[i][j][2 * h + 1] + brs) * g.scale[n + 1];
+          if (g.bias) y1 += g.bias[n + 1];
+          if (pairs) {
+            if (g.res) {
+              const float2 r = __bfloat1622float2(
+                  *reinterpret_cast<const __nv_bfloat162*>(g.res + o));
+              y0 += r.x;
+              y1 += r.y;
+            }
+            *reinterpret_cast<__nv_bfloat162*>(g.out + o) =
+                __floats2bfloat162_rn(y0, y1);
+            continue;
+          }
+          if (g.res) y1 += to_f(g.res[o + 1]);
+          g.out[o + 1] = __float2bfloat16_rn(y1);
+        }
+        if (g.res) y0 += to_f(g.res[o]);
+        g.out[o] = __float2bfloat16_rn(y0);
+      }
+    }
+}
+
+template <class P, int WM, int WN, int MINB>
+int launch_mma(const Args& g, cudaStream_t stream) {
+  using T = MmaTile<WM, WN>;
+  static bool raised = false;
+  cudaError_t err =
+      allow_smem(pair_mma_kernel<P, WM, WN, MINB>, T::SMEM, &raised);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((g.N + T::BN - 1) / T::BN, (g.M + T::BM - 1) / T::BM);
+  pair_mma_kernel<P, WM, WN, MINB><<<grid, THREADS, T::SMEM, stream>>>(g);
+  return (int)cudaGetLastError();
+}
+
 template <class P, int BM, int NV>
 int launch_pair(const Args& g, cudaStream_t stream) {
   constexpr int red = KSPLIT * BM * BN * NV;
@@ -552,23 +979,45 @@ int launch_pair(const Args& g, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// M <= 8: the decode kernel. M > 8: the prologue pass, then the tensor-core
+// kernel in 128 x 128 tiles, two blocks an SM where they fill the card
+// twice over (264 blocks; fewer registers, more warps), else one; or in
+// 32 x 64 tiles where the large ones would leave more than half the SMs
+// idle (fewer than 64 blocks). Measured on OPT-1.3B's projections (PERF.md).
 template <class P>
 int launch_pair_m(const Args& g, cudaStream_t stream) {
   if (g.M <= 8) return launch_pair<P, 8, 1>(g, stream);
-  if (g.N % 4 == 0) return launch_pair<P, 16, 4>(g, stream);
-  return launch_pair<P, 16, 1>(g, stream);
+  if (!g.xp || !g.rs) return (int)cudaErrorInvalidValue;
+  const auto aligned = [](const void* p) {
+    return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+  };
+  const bool norm = g.pre == PRE_LN || g.pre == PRE_RMS;
+  if (g.K % 8 == 0 && aligned(g.x) &&
+      (!norm || (aligned(g.ln_s) && aligned(g.ln_b))))
+    prologue_kernel<8><<<g.M, THREADS, 0, stream>>>(g);
+  else
+    prologue_kernel<1><<<g.M, THREADS, 0, stream>>>(g);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  using Wide = MmaTile<4, 4>;
+  const int wide = ((g.M + Wide::BM - 1) / Wide::BM) *
+                   ((g.N + Wide::BN - 1) / Wide::BN);
+  if (wide >= 264) return launch_mma<P, 4, 4, 2>(g, stream);
+  if (wide >= 64) return launch_mma<P, 4, 4, 1>(g, stream);
+  return launch_mma<P, 1, 2, 1>(g, stream);
 }
 
 template <class P>
 int pair3_entry(const void* x, const void* words, const void* scale,
                 const void* bias, const void* ln_s, const void* ln_b,
-                int ln_bf16, const void* res, void* out, int M, int N, int K,
-                int x_cols, int kw, int pre, float a, float b, float eps,
-                void* stream) {
+                int ln_bf16, const void* res, void* out, void* xp, void* rs,
+                int M, int N, int K, int x_cols, int kw, int pre, float a,
+                float b, float eps, void* stream) {
   Args g{static_cast<const bf16*>(x), words,
          static_cast<const float*>(scale), static_cast<const float*>(bias),
          ln_s, ln_b, ln_bf16, static_cast<const bf16*>(res),
-         static_cast<bf16*>(out), M, N, K, x_cols, kw, N, pre, a, b, eps};
+         static_cast<bf16*>(out), M, N, K, x_cols, kw, N, pre, a, b, eps,
+         static_cast<bf16*>(xp), static_cast<float*>(rs)};
   return launch_pair_m<P>(g, static_cast<cudaStream_t>(stream));
 }
 
@@ -588,19 +1037,23 @@ int launch_int8(const Args& g, cudaStream_t stream) {
 
 // K1. x (M, x_cols) bf16 (x_cols = K, or 2K for silu_glu); words (kw, N)
 // int32 'pair'; scale/bias (N,) f32 (bias may be null); ln_s/ln_b (K,)
-// f32 or bf16 (ln_bf16); res (M, N) bf16 or null; out (M, N) bf16. The
-// product runs over the centred weight C - 1.5, so b must be the rowsum
-// coefficient of that fold: b_aff + 1.5 * a_aff.
+// f32 or bf16 (ln_bf16); res (M, N) bf16 or null; out (M, N) bf16; xp
+// (M, K rounded up to 64) bf16 and rs (M,) f32, scratch of the M > 8 route
+// (an M > 8 call without them returns cudaErrorInvalidValue; M <= 8 reads
+// neither). The product runs over the centred weight C - 1.5, so b must be
+// the rowsum coefficient of that fold: b_aff + 1.5 * a_aff.
 extern "C" int pair_matmul(const void* x, const void* words,
                            const void* scale, const void* bias,
                            const void* ln_s, const void* ln_b, int ln_bf16,
-                           const void* res, void* out, int M, int N, int K,
-                           int x_cols, int kw, int nbits, int pre, float a,
-                           float b, float eps, void* stream) {
+                           const void* res, void* out, void* xp, void* rs,
+                           int M, int N, int K, int x_cols, int kw, int nbits,
+                           int pre, float a, float b, float eps,
+                           void* stream) {
   Args g{static_cast<const bf16*>(x), words,
          static_cast<const float*>(scale), static_cast<const float*>(bias),
          ln_s, ln_b, ln_bf16, static_cast<const bf16*>(res),
-         static_cast<bf16*>(out), M, N, K, x_cols, kw, N, pre, a, b, eps};
+         static_cast<bf16*>(out), M, N, K, x_cols, kw, N, pre, a, b, eps,
+         static_cast<bf16*>(xp), static_cast<float*>(rs)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (nbits) {
     case 1: return launch_pair_m<Pair<1>>(g, s);
@@ -620,22 +1073,23 @@ extern "C" int pair_matmul(const void* x, const void* words,
 extern "C" int pair3x_matmul(const void* x, const void* words,
                              const void* scale, const void* bias,
                              const void* ln_s, const void* ln_b, int ln_bf16,
-                             const void* res, void* out, int M, int N, int K,
-                             int x_cols, int kw, int pre, float a, float b,
-                             float eps, void* stream) {
+                             const void* res, void* out, void* xp, void* rs,
+                             int M, int N, int K, int x_cols, int kw, int pre,
+                             float a, float b, float eps, void* stream) {
   return pair3_entry<Pair3x>(x, words, scale, bias, ln_s, ln_b, ln_bf16, res,
-                             out, M, N, K, x_cols, kw, pre, a, b, eps,
+                             out, xp, rs, M, N, K, x_cols, kw, pre, a, b, eps,
                              stream);
 }
 
 extern "C" int pair3_matmul(const void* x, const void* words,
                             const void* scale, const void* bias,
                             const void* ln_s, const void* ln_b, int ln_bf16,
-                            const void* res, void* out, int M, int N, int K,
-                            int x_cols, int kw, int pre, float a, float b,
-                            float eps, void* stream) {
+                            const void* res, void* out, void* xp, void* rs,
+                            int M, int N, int K, int x_cols, int kw, int pre,
+                            float a, float b, float eps, void* stream) {
   return pair3_entry<Pair3>(x, words, scale, bias, ln_s, ln_b, ln_bf16, res,
-                            out, M, N, K, x_cols, kw, pre, a, b, eps, stream);
+                            out, xp, rs, M, N, K, x_cols, kw, pre, a, b, eps,
+                            stream);
 }
 
 // K2. x (M, K) bf16; w8 (Kp, Np) int8, Kp >= K, Np % 4 == 0; out (M, N)

@@ -34,9 +34,11 @@ not folded.
 
 The JAX package chunks prefill-size M through its kernel
 (``PREFILL_CHUNK_M``, a TPU VMEM limit); the CUDA kernels tile M
-themselves, so the port has no chunking. ``LUT_POLY`` and ``PAIR_TUNE``
-are the TPU kernels' schedules of the same functions; the port accepts
-and ignores them.
+themselves, so the port has no chunking. Above ``DECODE_M`` rows K1, K6
+and K7 run on the tensor cores after a prologue pass into scratch that
+their wrappers allocate; one call is still one counted launch.
+``LUT_POLY`` and ``PAIR_TUNE`` are the TPU kernels' schedules of the
+same functions; the port accepts and ignores them.
 """
 
 from __future__ import annotations
@@ -60,23 +62,30 @@ PAIR_TUNE = {"kb": 0, "split": False, "dim_sem": False, "bn": 0, "p3m": 2}
 _PRE = {None: 0, "layernorm": 1, "rmsnorm": 2, "relu": 3, "gelu": 4,
         "silu_glu": 5}
 
+# K1/K6/K7 take their decode route up to DECODE_M rows; above it, a
+# prologue pass into scratch (K rounded up to XP_CHUNK columns) and the
+# tensor-core kernel (``csrc/dequant_matmul.cu``: ``launch_pair_m``,
+# ``MMA_KC``).
+DECODE_M = 8
+XP_CHUNK = 64
+
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# (x, words, scale, bias, ln_scale, ln_bias, ln_bf16, residual, out,
+# (x, words, scale, bias, ln_scale, ln_bias, ln_bf16, residual, out, xp, rs,
 #  M, N, K, x_cols, kw, nbits, pre, a, b, eps)
 K1 = CudaKernel(
     "K1", "dequant_matmul.cu", "pair_matmul",
-    [_P] * 6 + [_I] + [_P] * 2 + [_I] * 7 + [_F] * 3,
+    [_P] * 6 + [_I] + [_P] * 4 + [_I] * 7 + [_F] * 3,
     replaces="sleekit_tpu/ops/dequant_matmul.py:515 _pallas_pair_impl")
-# (x, words, scale, bias, ln_scale, ln_bias, ln_bf16, residual, out,
+# (x, words, scale, bias, ln_scale, ln_bias, ln_bf16, residual, out, xp, rs,
 #  M, N, K, x_cols, kw, pre, a, b, eps)
 K6 = CudaKernel(
     "K6", "dequant_matmul.cu", "pair3x_matmul",
-    [_P] * 6 + [_I] + [_P] * 2 + [_I] * 6 + [_F] * 3,
+    [_P] * 6 + [_I] + [_P] * 4 + [_I] * 6 + [_F] * 3,
     replaces="sleekit_tpu/ops/dequant_matmul.py:515 _pallas_pair_impl "
              "(p3x=True)")
 K7 = CudaKernel(
     "K7", "dequant_matmul.cu", "pair3_matmul",
-    [_P] * 6 + [_I] + [_P] * 2 + [_I] * 6 + [_F] * 3,
+    [_P] * 6 + [_I] + [_P] * 4 + [_I] * 6 + [_F] * 3,
     replaces="sleekit_tpu/ops/dequant_matmul.py:515 _pallas_pair_impl "
              "(pair3=True)")
 # (x, w8, scale, bias, ln_scale, ln_bias, ln_bf16, residual, out,
@@ -260,6 +269,18 @@ def _ptr(t: Optional[torch.Tensor]) -> int:
     return 0 if t is None else t.data_ptr()
 
 
+def _prefill_scratch(x: torch.Tensor, k: int):
+    """The scratch of K1/K6/K7's tensor-core route (M > DECODE_M): pre(x)
+    as bf16 with K rounded up to XP_CHUNK columns, and its row sums; (None,
+    None) at decode M, which reads neither."""
+    m = x.shape[0]
+    if m <= DECODE_M:
+        return None, None
+    cols = -(-k // XP_CHUNK) * XP_CHUNK
+    return (torch.empty((m, cols), dtype=torch.bfloat16, device=x.device),
+            torch.empty(m, dtype=torch.float32, device=x.device))
+
+
 def _check(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(msg)
@@ -322,10 +343,11 @@ def pair_matmul(x, packed, scale, bias, *, nbits, k, a_aff, b_aff,
                             residual, n)
     m = x.shape[0]
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    xp, rs = _prefill_scratch(x, k)
     K1(x.data_ptr(), packed.data_ptr(), scale.data_ptr(), _ptr(bias),
        _ptr(ln_scale), _ptr(ln_bias), ln_bf16, _ptr(residual),
-       out.data_ptr(), m, n, k, x.shape[1], kw, nbits, _PRE[pre],
-       float(a_aff), _centred(a_aff, b_aff), float(eps))
+       out.data_ptr(), _ptr(xp), _ptr(rs), m, n, k, x.shape[1], kw, nbits,
+       _PRE[pre], float(a_aff), _centred(a_aff, b_aff), float(eps))
     return out
 
 
@@ -358,10 +380,12 @@ def pair3_matmul(x, packed, scale, bias, *, k, a_aff, b_aff, pre=None,
                             residual, n)
     m = x.shape[0]
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    xp, rs = _prefill_scratch(x, k)
     kernel(x.data_ptr(), packed.data_ptr(), scale.data_ptr(), _ptr(bias),
            _ptr(ln_scale), _ptr(ln_bias), ln_bf16, _ptr(residual),
-           out.data_ptr(), m, n, k, x.shape[1], kw, _PRE[pre], float(a_aff),
-           _centred(a_aff, b_aff, layout), float(eps))
+           out.data_ptr(), _ptr(xp), _ptr(rs), m, n, k, x.shape[1], kw,
+           _PRE[pre], float(a_aff), _centred(a_aff, b_aff, layout),
+           float(eps))
     return out
 
 

@@ -39,15 +39,20 @@ def _ulp_misses(got, ref):
 @pytest.mark.parametrize("nbits", [2, 4, 7])
 @pytest.mark.parametrize("pre", [None, "layernorm", "rmsnorm", "relu", "gelu",
                                  "silu_glu"])
-@pytest.mark.parametrize("m", [3, 40])
+@pytest.mark.parametrize("m", [3, 9, 40, 64, 1024])
 @pytest.mark.parametrize("N", [200, 198])
 def test_k1_matches_plain(dev, nbits, pre, m, N):
+    """K1 against its plain version: the decode route (m = 3) and the
+    tensor-core route (m > 8, here in 32 x 64 tiles), K not a multiple of
+    the 64-row stage (400; with N = 198, 396: not a multiple of 8 either,
+    so the prologue pass takes one column a thread), N not a multiple of
+    4 at 198."""
     from sleekit_tpu_torch.ops.dequant_matmul import (
         K1, pair_matmul, pair_matmul_plain)
     from sleekit_tpu_torch.ops.pack import pack_indices
 
     g = torch.Generator().manual_seed(nbits)
-    K = 400
+    K = 400 if N == 200 else 396
     idx = torch.randint(0, 2 ** nbits, (K, N), generator=g)
     packed = pack_indices(idx, nbits, layout="pair").to(dev)
     x = torch.randn(m, 2 * K if pre == "silu_glu" else K, generator=g).to(
@@ -63,6 +68,97 @@ def test_k1_matches_plain(dev, nbits, pre, m, N):
     torch.cuda.synchronize()
     assert K1.launches == before + 1
     _bf16_close(got, pair_matmul_plain(x, packed, scale, bias, **kw))
+
+
+@pytest.mark.parametrize("layout", ["pair", "pair3", "pair3x"])
+@pytest.mark.parametrize("m,N", [(1024, 1032), (1024, 1029), (2048, 4232),
+                                 (2048, 4230)])
+def test_k1_k6_k7_tile_rules(dev, layout, m, N):
+    """K1, K7 and K6 in the tensor-core route's 128 x 128 tiles, one block
+    an SM (8 x 9 blocks) and two (16 x 34, at least twice the SMs), with
+    16-byte word copies (N % 4 == 0) and 4-byte ones (N = 1029, 4230; at
+    odd N the outputs are stored one at a time), against their plain
+    versions, with a layernorm prologue and a residual."""
+    from sleekit_tpu_torch.ops import dequant_matmul as dm
+    from sleekit_tpu_torch.ops.pack import pack_indices
+
+    g = torch.Generator().manual_seed(N)
+    K, nbits = 512, 4 if layout == "pair" else 3
+    packed = pack_indices(torch.randint(0, 2 ** nbits, (K, N), generator=g),
+                          nbits, layout=layout).to(dev)
+    x = torch.randn(m, K, generator=g).to(dev, torch.bfloat16)
+    kw = dict(k=K, a_aff=0.25, b_aff=-1.0, pre="layernorm",
+              ln_scale=torch.rand(K, generator=g).to(dev) + 0.5,
+              ln_bias=torch.randn(K, generator=g).to(dev) * 0.1,
+              residual=torch.randn(m, N, generator=g).to(dev, torch.bfloat16))
+    scale = torch.rand(N, generator=g).to(dev) + 0.5
+    bias = torch.randn(N, generator=g).to(dev)
+    if layout == "pair":
+        kernel, fn, plain = dm.K1, dm.pair_matmul, dm.pair_matmul_plain
+        kw["nbits"] = nbits
+    else:
+        kernel = dm.K6 if layout == "pair3x" else dm.K7
+        fn, plain = dm.pair3_matmul, dm.pair3_matmul_plain
+        kw["layout"] = layout
+    before = kernel.launches
+    got = fn(x, packed, scale, bias, **kw)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    _bf16_close(got, plain(x, packed, scale, bias, **kw))
+
+
+def test_k1_replays_in_cuda_graph(dev):
+    """K1 at M = 64 (the tensor-core route, whose wrapper allocates its
+    scratch) captured in a CUDA graph: the scratch is allocated under
+    capture, and a replay after x changes in place gives the eager call's
+    output for the new x."""
+    from sleekit_tpu_torch.ops.dequant_matmul import K1, pair_matmul
+    from sleekit_tpu_torch.ops.pack import pack_indices
+
+    g = torch.Generator().manual_seed(5)
+    K, N, m = 512, 256, 64
+    packed = pack_indices(torch.randint(0, 16, (K, N), generator=g), 4,
+                          layout="pair").to(dev)
+    x = torch.randn(m, K, generator=g).to(dev, torch.bfloat16)
+    scale = torch.rand(N, generator=g).to(dev) + 0.5
+    kw = dict(nbits=4, k=K, a_aff=0.125, b_aff=-1.0, pre="layernorm",
+              ln_scale=torch.rand(K, generator=g).to(dev) + 0.5)
+
+    def call():
+        return pair_matmul(x, packed, scale, None, **kw)
+
+    call()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = K1.launches
+    with torch.cuda.graph(graph):
+        out = call()
+    assert K1.launches == before + 1
+    x.copy_(torch.randn(m, K, generator=g).to(dev, torch.bfloat16))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, call())
+
+
+def test_k1_k6_k7_raise_without_scratch(dev):
+    """An M > 8 launch without the scratch pointers returns a CUDA error
+    that the kernel's binding raises; nothing falls back."""
+    from sleekit_tpu_torch.ops import dequant_matmul as dm
+    from sleekit_tpu_torch.ops.pack import pack_indices
+
+    K, N, m = 512, 64, 16
+    x = torch.zeros(m, K, device=dev, dtype=torch.bfloat16)
+    scale = torch.ones(N, device=dev)
+    out = torch.empty(m, N, device=dev, dtype=torch.bfloat16)
+    idx = torch.zeros(K, N, dtype=torch.int64)
+    for kernel, layout, nbits in ((dm.K1, "pair", 4), (dm.K6, "pair3x", 3),
+                                  (dm.K7, "pair3", 3)):
+        packed = pack_indices(idx, nbits, layout=layout).to(dev)
+        head = (x.data_ptr(), packed.data_ptr(), scale.data_ptr(), 0, 0, 0,
+                0, 0, out.data_ptr(), 0, 0, m, N, K, K, packed.shape[0])
+        tail = ((nbits,) if kernel is dm.K1 else ()) + (0, 1.0, 0.0, 1e-5)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            kernel(*head, *tail)
 
 
 @pytest.mark.parametrize("pre", [None, "layernorm"])
@@ -319,7 +415,7 @@ def test_k5_matches_plain_and_k3(dev, G, cache, ragged):
 @pytest.mark.parametrize("layout,K", [("pair3", 400), ("pair3", 1792),
                                       ("pair3x", 1536)])
 @pytest.mark.parametrize("pre", [None, "layernorm", "relu", "silu_glu"])
-@pytest.mark.parametrize("m", [1, 8, 1024])
+@pytest.mark.parametrize("m", [1, 8, 40, 1024])
 @pytest.mark.parametrize("N", [200, 198])
 def test_k6_k7_match_plain(dev, layout, K, pre, m, N):
     """K7 ('pair3', K not a multiple of its 256-row tile at 400) and K6

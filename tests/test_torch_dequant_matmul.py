@@ -279,3 +279,48 @@ def test_tpu_schedules_change_nothing(layout, monkeypatch):
             monkeypatch.setitem(tdm.PAIR_TUNE, "p3m", p3m)
             assert torch.equal(tdm.quantized_matmul(x, tw, use_kernel=True),
                                base)
+
+
+@pytest.mark.parametrize("layout,K,pre", [
+    ("pair", 256, None), ("pair", 256, "layernorm"),
+    ("pair3", 400, None), ("pair3", 400, "relu"),
+    ("pair3x", 512, None), ("pair3x", 512, "silu_glu")])
+def test_prefill_m_plain_matches_jax_kernel(layout, K, pre):
+    """At prefill M (520 rows, above JAX's PREFILL_CHUNK_M = 512), K1's
+    and K6/K7's plain versions, which their wrappers take for CPU tensors,
+    == the Pallas pair kernel (interpret): without a prologue through
+    dequant_matmul_pallas, which chunks M at 512 rows; with one (and a
+    residual) through fused_quantized_matmul."""
+    assert 520 > jdm.PREFILL_CHUNK_M
+    rng = np.random.RandomState(K + len(layout))
+    M, N = 520, 64
+    jw, tw = (_pair(rng, 4, K, N) if layout == "pair"
+              else _pair3(rng, layout, K, N, True))
+    xk = 2 * K if pre == "silu_glu" else K
+    x = np.asarray(jnp.asarray(rng.randn(M, xk).astype(np.float32)
+                               ).astype(jnp.bfloat16))
+    if pre is None:
+        want = jdm.dequant_matmul_pallas(jnp.asarray(x), jw, interpret=True)
+        got = tdm.quantized_matmul(t(x), tw, use_kernel=True)
+    else:
+        jkw, tkw = _glue_args(rng, pre, True, K, M, N)
+        want = jdm.fused_quantized_matmul(jnp.asarray(x), jw,
+                                          interpret=True, **jkw)
+        got = tdm.fused_quantized_matmul(t(x), tw, use_kernel=True, **tkw)
+    assert got.dtype == torch.bfloat16 and got.shape == (M, N)
+    bf16_close(got, np.asarray(want, np.float32)[:, :N],
+               f"{layout} {pre} M={M}")
+
+
+@pytest.mark.parametrize("m", [1, 8, 9, 520])
+def test_prefill_scratch_only_above_decode_m(m):
+    """K1/K6/K7's wrappers allocate the tensor-core route's scratch only
+    above DECODE_M rows: pre(x) in bf16 with K rounded up to XP_CHUNK
+    columns, and one f32 row sum a row."""
+    x = torch.zeros(m, 400, dtype=torch.bfloat16)
+    xp, rs = tdm._prefill_scratch(x, 400)
+    if m <= tdm.DECODE_M:
+        assert xp is None and rs is None
+    else:
+        assert xp.shape == (m, 448) and xp.dtype == torch.bfloat16
+        assert rs.shape == (m,) and rs.dtype == torch.float32

@@ -1,6 +1,7 @@
-"""The port's decode-side benches and its profiling helpers
-(``sleekit_tpu_torch/experiments/{attn_bench,profile_decode,kernel_bench}``
-and ``utils/profiling.py``), run on the CPU at the tiny geometry: their
+"""The port's benches and its profiling helpers
+(``sleekit_tpu_torch/experiments/{attn_bench,profile_decode,kernel_bench,
+prefill_bench}`` and ``utils/profiling.py``), run on the CPU at the tiny
+geometry: their
 command lines parse, every variant runs the plain versions, and they print
 and return their result structures. Times from these runs are the CPU's
 and test nothing. On the card the same entry points time the kernels."""
@@ -12,7 +13,7 @@ import pytest
 import torch
 
 from sleekit_tpu_torch.experiments import (
-    attn_bench, kernel_bench, profile_decode)
+    attn_bench, kernel_bench, prefill_bench, profile_decode)
 from sleekit_tpu_torch.ops import attention as tattn
 from sleekit_tpu_torch.utils.profiling import (
     Timer, device_trace, time_ms)
@@ -162,6 +163,30 @@ def test_kernel_bench_runs_on_cpu(capsys):
     assert _printed(capsys.readouterr().out) == out
     with pytest.raises(ValueError, match="pair@"):
         kernel_bench.main(["--variants", "pair@kb2s1d1", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("layout,kernel", [("pair", "pair_matmul"),
+                                           ("pair3", "pair3_matmul")])
+def test_prefill_bench_runs_on_cpu(monkeypatch, capsys, tmp_path, layout,
+                                   kernel):
+    """prefill_bench times a full-depth prefill of batch x seq tokens
+    through the kernel wrappers (at M = batch * seq, four linears a layer;
+    plain versions on the CPU), reports tokens/s, and writes a trace."""
+    from sleekit_tpu_torch.ops import dequant_matmul as dm
+
+    rows = []
+    inner = getattr(dm, kernel)
+    monkeypatch.setattr(dm, kernel, lambda x, *a, **k: rows.append(
+        x.shape[0]) or inner(x, *a, **k))
+    out = prefill_bench.main(["--model", "tiny", "--batch", "2", "--seq",
+                              "16", "--reps", "1", "--layout", layout,
+                              "--device", "cpu", "--trace",
+                              str(tmp_path / "t")])
+    assert out["tokens"] == 32 and out["ms"] > 0
+    assert out["tokens_per_s"] == pytest.approx(32 / out["ms"] * 1e3)
+    assert rows and set(rows) == {32} and len(rows) % 4 == 0
+    assert (tmp_path / "t" / "trace.json").exists()
+    assert _printed(capsys.readouterr().out) == out
 
 
 def test_timer_sections_and_counts():

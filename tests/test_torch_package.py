@@ -44,7 +44,7 @@ def test_entry_points_raise_without_cuda(tmp_path):
         pytest.skip("a CUDA device is present: the entry points run there")
     from sleekit_tpu_torch.convert import params_from_numpy
     from sleekit_tpu_torch.experiments import (
-        attn_bench, kernel_bench, profile_decode)
+        attn_bench, kernel_bench, prefill_bench, profile_decode)
     from sleekit_tpu_torch.models.fake_quant import random_packed_params
     from sleekit_tpu_torch.models.transformer import (
         init_kv_cache, init_paged_kv_cache)
@@ -73,7 +73,8 @@ def test_entry_points_raise_without_cuda(tmp_path):
         params_from_numpy(cfg, {"layers": []})
     for bench, argv in ((attn_bench, ["--model", "tiny"]),
                         (profile_decode, ["--model", "tiny"]),
-                        (kernel_bench, ["--shapes", "64x64"])):
+                        (kernel_bench, ["--shapes", "64x64"]),
+                        (prefill_bench, ["--model", "tiny"])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             bench.main(argv)
     Engine(cfg, params, device="cpu")
