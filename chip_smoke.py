@@ -7,8 +7,9 @@
 2. holds each kernel against its plain PyTorch version on the card at the
    shapes OPT-1.3B serving gives it, and times the kernel, the plain
    version and, where one exists, one PyTorch library call computing the
-   same function (a yardstick the port never calls) with CUDA events. The
-   page-pool kernels (K5, K14, K15) run over a strided, out-of-order table
+   same function (a yardstick the port never calls) with CUDA events; K2
+   (the int8 head) at M = 8 (its streaming route), 64 and 1024 (its
+   tensor-core route). The page-pool kernels (K5, K14, K15) run over a strided, out-of-order table
    of distinct 64-row pages; K5 is held bit for bit to K3 on the same
    logical rows, and K13 (the batch-folded flash decode) to K11; K12 (the
    f32 elementwise flash decode) is held within one bf16 step of its plain
@@ -277,36 +278,45 @@ def check_linears(dev, cfg, names):
 
 def check_k2(dev, g, cfg):
     """K2 on the int8 head (OPT-1.3B: 2048 x 51200 for vocab 50272) with
-    the final layernorm prologue, decode M = 8."""
-    K, V, m = cfg.d_model, cfg.vocab_size, 8
+    the final layernorm prologue, at decode M = 8 (the streaming route),
+    at M = 64 (the Engine's most common prefill) and at M = 1024 (the
+    256-bucket group; both on the tensor-core route). Yardstick:
+    ``torch.matmul`` of the bf16 pre(x) with the bf16 head."""
+    K, V = cfg.d_model, cfg.vocab_size
     Np = -(-V // 1024) * 1024
     packed = torch.randint(-128, 128, (K, Np), dtype=torch.int8,
                            generator=g).to(dev)
     scale = (0.001 * torch.rand(Np, generator=g)).to(dev)
-    x = torch.randn(m, K, generator=g).to(dev, torch.bfloat16)
     kw = dict(k=K, out_n=V, a_aff=2.0 / 255, b_aff=-1.0 + 128 * 2.0 / 255,
               pre="layernorm", eps=1e-5,
               ln_scale=torch.ones(K, dtype=torch.bfloat16, device=dev),
               ln_bias=torch.zeros(K, dtype=torch.bfloat16, device=dev))
-    got = dm.int8_matmul(x, packed, scale, None, **kw)
-    want = dm.int8_matmul_plain(x, packed, scale, None, **kw)
-    torch.cuda.synchronize()
-    err = bf16_check(got, want, "K2 head")
-    ms = cuda_ms(lambda i: dm.int8_matmul(x, packed, scale, None, **kw), 1)
-    plain_ms = cuda_ms(lambda i: dm.int8_matmul_plain(
-        x, packed, scale, None, **kw), 1, iters=5, warmup=1, graph=False)
-    xp = dm._prologue_plain(x, "layernorm", kw["ln_scale"], kw["ln_bias"],
-                            1e-5, K)
     wdeq = packed[:, :V].to(torch.bfloat16)
-    lib_ms = cuda_ms(lambda i: torch.matmul(xp, wdeq), 1)
-    nbytes = x.numel() * 2 + K * Np + Np * 4 + m * V * 2 + 2 * K * 2
-    b_ms, b_by = bound(nbytes, 2.0 * m * K * V)
-    log(f"K2 head M={m} K={K} N={V}: err {err:.3g} | kernel {ms:.4f} ms "
-        f"plain {plain_ms:.3f} ms matmul {lib_ms:.4f} ms bound {b_ms:.4f} ms "
-        f"({b_by})")
-    return [dict(case="head M=8", max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                 library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-                 bytes=nbytes)]
+    cases = []
+    for m in (8, 64, 1024):
+        x = torch.randn(m, K, generator=g).to(dev, torch.bfloat16)
+        got = dm.int8_matmul(x, packed, scale, None, **kw)
+        want = dm.int8_matmul_plain(x, packed, scale, None, **kw)
+        torch.cuda.synchronize()
+        err = bf16_check(got, want, f"K2 head M={m}")
+        ms = cuda_ms(lambda i: dm.int8_matmul(x, packed, scale, None, **kw),
+                     1)
+        plain_ms = cuda_ms(lambda i: dm.int8_matmul_plain(
+            x, packed, scale, None, **kw), 1, iters=5, warmup=1, graph=False)
+        xp = dm._prologue_plain(x, "layernorm", kw["ln_scale"],
+                                kw["ln_bias"], 1e-5, K)
+        lib_ms = cuda_ms(lambda i: torch.matmul(xp, wdeq), 1)
+        # The function's bytes: the head's V columns and scales, not the
+        # packed padding past out_n.
+        nbytes = x.numel() * 2 + K * V + V * 4 + m * V * 2 + 2 * K * 2
+        b_ms, b_by = bound(nbytes, 2.0 * m * K * V)
+        log(f"K2 head M={m} K={K} N={V}: err {err:.3g} | kernel {ms:.4f} ms "
+            f"plain {plain_ms:.3f} ms matmul {lib_ms:.4f} ms bound "
+            f"{b_ms:.4f} ms ({b_by})")
+        cases.append(dict(case=f"head M={m}", max_abs_err=err, ms=ms,
+                          plain_ms=plain_ms, library_ms=lib_ms,
+                          bound_ms=b_ms, bound_by=b_by, bytes=nbytes))
+    return cases
 
 
 def check_k3(dev, g, cfg):

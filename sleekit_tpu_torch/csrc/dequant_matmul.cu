@@ -22,7 +22,8 @@
 // operations (26 GFLOP for OPT-1.3B qkv at M = 1024, 26 us at the bf16
 // tensor-core rate), which CUDA-core FMAs run some 15x slower than that.
 //
-// Two routes, one launch entry. M <= 8 runs pair_kernel<P, 8, 1> (below).
+// Two routes per kernel, one launch entry. K1, K6, K7: M <= 8 runs
+// pair_kernel<P, 8, 1> (below).
 // M > 8 runs two kernels on the same stream: prologue_kernel writes pre(x)
 // once per call, as bf16 into the scratch xp (M, K rounded up to 64, 0
 // past K) with its row sums in rs, and pair_mma_kernel multiplies it on
@@ -55,14 +56,36 @@
 // a = 4*step and b = zero + 3.5*step. The TPU kernel's pair3x epilogue
 // instead subtracts a section-weighted rowsum from a*acc, two large,
 // nearly equal terms.
-// Each decode block owns 16 columns (64 for K2) and one M tile of 8 rows
-// (16 for K2 at M > 8); its 256 threads split K 16 ways and
-// sum the slices through shared memory at the end. pre(x) of the block's
+// Each decode block owns 16 columns and one M tile of 8 rows; its 256
+// threads split K 16 ways and sum the slices through shared memory at the
+// end. pre(x) of the block's
 // rows is built chunk by chunk in shared memory, row-minor, so one 16-byte
 // load serves four rows. The decode route is the simple first version:
 // CUDA-core FMAs, no split-K across blocks (N = 2048 projections fill 128
 // of 132 SMs), and every block recomputes its rows' norm statistics.
 // The tensor-core route uses mma.sync, not wgmma, and cp.async, not TMA.
+//
+// K2 (the int8 head, OPT-1.3B: 2048 x 51200 bytes, 106 MB) runs the
+// prologue pass at every M, so norm statistics and pre(x) are built once
+// per call, then one of two kernels:
+// - M > 8, int8_mma_kernel: bound by its products (2*M*K*N, 0.21 ms at
+//   M = 1024 at the bf16 tensor-core rate; at M = 64 by the 106 MB, 0.033
+//   ms). pair_mma_kernel's pipeline and epilogue, but an int8 value takes
+//   8 significant bits, one more than a bf16 mantissa stores, so no
+//   exponent OR decodes it, and the two K rows of a B register lie Np
+//   bytes apart. The raw bytes arrive by 16-byte loads into registers,
+//   two 64-row chunks ahead, and each chunk is converted once (byte into
+//   the low mantissa of 2^23, one f32 subtraction, the upper half is the
+//   exact bf16) into a bf16 K x N tile in shared memory, whose B
+//   fragments come by ldmatrix.trans; A comes by cp.async as in K1.
+//   128 x 128 tiles (64 x 128 at M <= 64), M tiles along the grid's x so
+//   the M tiles of a column strip share its bytes through L2.
+// - M <= 8, int8_stream_kernel: bound by the 106 MB weight stream (0.032
+//   ms at 3.35 TB/s). The weight is the m16n8k16 A operand and the tokens
+//   the n8, so the products cost a few instructions per 16 bytes and the
+//   loads are 16 bytes a lane along N, the next k16 step's in flight in
+//   registers while this one's products run. K is split across a block's
+//   8 warps, whose sums meet in a fixed order.
 #include "common.cuh"
 
 namespace {
@@ -74,7 +97,6 @@ constexpr int THREADS = 256;
 constexpr int KSPLIT = 16;   // K slices (threads along K) per block
 constexpr int BN = 16;       // threads along N per block
 constexpr int NWARPS = THREADS / 32;
-constexpr int CK8 = 128;     // K rows per chunk of the int8 kernel
 
 struct Args {
   const bf16* x;
@@ -477,78 +499,6 @@ __global__ void __launch_bounds__(THREADS, BM == 8 ? 2 : 1)
   epilogue<BM, BN * NV>(g, m0, n0, g.N, acc, xs, rs);
 }
 
-template <int BM>
-__global__ void __launch_bounds__(THREADS, BM == 8 ? 2 : 1)
-    int8_kernel(Args g) {
-  extern __shared__ float4 smem4[];
-  float* xs = reinterpret_cast<float*>(smem4);
-  __shared__ float mu[BM], rstd[BM], rs[BM];
-  const int ks = threadIdx.x / BN, cq = threadIdx.x % BN;
-  const int n0 = blockIdx.x * BN * 4, m0 = blockIdx.y * BM;
-  const int n = n0 + cq * 4;
-  const int8_t* w8 = static_cast<const int8_t*>(g.w);
-  if (threadIdx.x < BM) {
-    mu[threadIdx.x] = 0.0f;
-    rstd[threadIdx.x] = 0.0f;
-    rs[threadIdx.x] = 0.0f;
-  }
-  __syncthreads();
-  if (g.pre == PRE_LN || g.pre == PRE_RMS) row_stats<BM>(g, m0, mu, rstd);
-
-  float acc[BM][4];
-#pragma unroll
-  for (int m = 0; m < BM; ++m)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[m][j] = 0.0f;
-
-  constexpr int RPT = CK8 / KSPLIT;  // weight rows per thread per chunk
-  // Double-buffered in registers, as in pair_kernel.
-  char4 wn[RPT];
-  auto load_rows = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int k = k0 + ks + i * KSPLIT;
-      wn[i] = n < g.ld_w && k < g.K
-                  ? __ldg(reinterpret_cast<const char4*>(
-                        w8 + (size_t)k * g.ld_w + n))
-                  : make_char4(0, 0, 0, 0);
-    }
-  };
-  load_rows(0);
-  for (int k0 = 0; k0 < g.K; k0 += CK8) {
-    const int ck = min(CK8, g.K - k0);
-    char4 wb[RPT];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) wb[i] = wn[i];
-    if (k0 + CK8 < g.K) load_rows(k0 + CK8);
-    __syncthreads();
-    fill_chunk<BM>(g, m0, k0, ck, xs, mu, rstd, rs);
-    __syncthreads();
-    if (n >= g.ld_w) continue;
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int r = ks + i * KSPLIT;
-      if (r >= ck) break;
-      const char4 v = wb[i];
-      const float v0 = v.x, v1 = v.y, v2 = v.z, v3 = v.w;
-      const float* xr = xs + r * BM;
-#pragma unroll
-      for (int m = 0; m < BM; m += 4) {
-        const float4 a = *reinterpret_cast<const float4*>(xr + m);
-        const float av[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          acc[m + e][0] += av[e] * v0;
-          acc[m + e][1] += av[e] * v1;
-          acc[m + e][2] += av[e] * v2;
-          acc[m + e][3] += av[e] * v3;
-        }
-      }
-    }
-  }
-  epilogue<BM, BN * 4>(g, m0, n0, g.N, acc, xs, rs);
-}
-
 // ---- the tensor-core route (M > 8) -----------------------------------------
 
 constexpr int MMA_KC = 64;      // K rows per pipeline stage
@@ -834,6 +784,55 @@ __device__ __forceinline__ void mma_chunk(float (&acc)[WM][WN][4],
   }
 }
 
+// The epilogue from the fragments of a warp's WM x WN tiles, whose first
+// row is mb and first column nb: lane (g, t4) holds rows g and g + 8 of
+// each m16 tile, columns 2*t4 and 2*t4 + 1 of each n8 tile. The output
+// (and the residual) is g.N columns wide.
+template <int WM, int WN>
+__device__ __forceinline__ void mma_epilogue(const Args& g,
+                                             const float (&acc)[WM][WN][4],
+                                             int mb, int nb, int lane) {
+  const int t4 = lane % 4;
+  const bool pairs = g.N % 2 == 0 &&
+                     (reinterpret_cast<uintptr_t>(g.out) & 3) == 0 &&
+                     (reinterpret_cast<uintptr_t>(g.res) & 3) == 0;
+#pragma unroll
+  for (int i = 0; i < WM; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = mb + i * 16 + lane / 4 + 8 * h;
+      if (m >= g.M) continue;
+      const float brs = g.b * g.rs[m];
+#pragma unroll
+      for (int j = 0; j < WN; ++j) {
+        const int n = nb + 8 * j + 2 * t4;
+        if (n >= g.N) continue;
+        const size_t o = (size_t)m * g.N + n;
+        float y0 = (g.a * acc[i][j][2 * h] + brs) * g.scale[n];
+        if (g.bias) y0 += g.bias[n];
+        if (n + 1 < g.N) {
+          float y1 = (g.a * acc[i][j][2 * h + 1] + brs) * g.scale[n + 1];
+          if (g.bias) y1 += g.bias[n + 1];
+          if (pairs) {
+            if (g.res) {
+              const float2 r = __bfloat1622float2(
+                  *reinterpret_cast<const __nv_bfloat162*>(g.res + o));
+              y0 += r.x;
+              y1 += r.y;
+            }
+            *reinterpret_cast<__nv_bfloat162*>(g.out + o) =
+                __floats2bfloat162_rn(y0, y1);
+            continue;
+          }
+          if (g.res) y1 += to_f(g.res[o + 1]);
+          g.out[o + 1] = __float2bfloat16_rn(y1);
+        }
+        if (g.res) y0 += to_f(g.res[o]);
+        g.out[o] = __float2bfloat16_rn(y0);
+      }
+    }
+}
+
 // out[m0 .. m0+BM, n0 .. n0+BN] of the tensor-core route: the 64-row chunks
 // of xp and their word rows stream through a ring of MMA_STAGES stages.
 // MINB blocks per SM (2 caps the registers at 128 a thread).
@@ -913,46 +912,7 @@ __global__ void __launch_bounds__(THREADS, MINB) pair_mma_kernel(Args g) {
                                                                  ws, c, t4);
   }
 
-  // Epilogue from the fragments: lane (g, t4) holds rows g and g + 8 of
-  // each m16 tile, columns 2*t4 and 2*t4 + 1 of each n8 tile.
-  const bool pairs = g.N % 2 == 0 &&
-                     (reinterpret_cast<uintptr_t>(g.out) & 3) == 0 &&
-                     (reinterpret_cast<uintptr_t>(g.res) & 3) == 0;
-#pragma unroll
-  for (int i = 0; i < WM; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int m = m0 + wm * 16 * WM + i * 16 + lane / 4 + 8 * h;
-      if (m >= g.M) continue;
-      const float brs = g.b * g.rs[m];
-#pragma unroll
-      for (int j = 0; j < WN; ++j) {
-        const int n = n0 + wn * 8 * WN + 8 * j + 2 * t4;
-        if (n >= g.N) continue;
-        const size_t o = (size_t)m * g.N + n;
-        float y0 = (g.a * acc[i][j][2 * h] + brs) * g.scale[n];
-        if (g.bias) y0 += g.bias[n];
-        if (n + 1 < g.N) {
-          float y1 = (g.a * acc[i][j][2 * h + 1] + brs) * g.scale[n + 1];
-          if (g.bias) y1 += g.bias[n + 1];
-          if (pairs) {
-            if (g.res) {
-              const float2 r = __bfloat1622float2(
-                  *reinterpret_cast<const __nv_bfloat162*>(g.res + o));
-              y0 += r.x;
-              y1 += r.y;
-            }
-            *reinterpret_cast<__nv_bfloat162*>(g.out + o) =
-                __floats2bfloat162_rn(y0, y1);
-            continue;
-          }
-          if (g.res) y1 += to_f(g.res[o + 1]);
-          g.out[o + 1] = __float2bfloat16_rn(y1);
-        }
-        if (g.res) y0 += to_f(g.res[o]);
-        g.out[o] = __float2bfloat16_rn(y0);
-      }
-    }
+  mma_epilogue<WM, WN>(g, acc, m0 + wm * 16 * WM, n0 + wn * 8 * WN, lane);
 }
 
 template <class P, int WM, int WN, int MINB>
@@ -979,15 +939,9 @@ int launch_pair(const Args& g, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// M <= 8: the decode kernel. M > 8: the prologue pass, then the tensor-core
-// kernel in 128 x 128 tiles, two blocks an SM where they fill the card
-// twice over (264 blocks; fewer registers, more warps), else one; or in
-// 32 x 64 tiles where the large ones would leave more than half the SMs
-// idle (fewer than 64 blocks). Measured on OPT-1.3B's projections (PERF.md).
-template <class P>
-int launch_pair_m(const Args& g, cudaStream_t stream) {
-  if (g.M <= 8) return launch_pair<P, 8, 1>(g, stream);
-  if (!g.xp || !g.rs) return (int)cudaErrorInvalidValue;
+// The prologue pass: 16-byte loads and stores where K % 8 == 0 and the
+// rows and norm parameters are aligned, else one column a thread.
+int launch_prologue(const Args& g, cudaStream_t stream) {
   const auto aligned = [](const void* p) {
     return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
   };
@@ -997,8 +951,20 @@ int launch_pair_m(const Args& g, cudaStream_t stream) {
     prologue_kernel<8><<<g.M, THREADS, 0, stream>>>(g);
   else
     prologue_kernel<1><<<g.M, THREADS, 0, stream>>>(g);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// M <= 8: the decode kernel. M > 8: the prologue pass, then the tensor-core
+// kernel in 128 x 128 tiles, two blocks an SM where they fill the card
+// twice over (264 blocks; fewer registers, more warps), else one; or in
+// 32 x 64 tiles where the large ones would leave more than half the SMs
+// idle (fewer than 64 blocks). Measured on OPT-1.3B's projections (PERF.md).
+template <class P>
+int launch_pair_m(const Args& g, cudaStream_t stream) {
+  if (g.M <= 8) return launch_pair<P, 8, 1>(g, stream);
+  if (!g.xp || !g.rs) return (int)cudaErrorInvalidValue;
+  const int err = launch_prologue(g, stream);
+  if (err != cudaSuccess) return err;
   using Wide = MmaTile<4, 4>;
   const int wide = ((g.M + Wide::BM - 1) / Wide::BM) *
                    ((g.N + Wide::BN - 1) / Wide::BN);
@@ -1021,16 +987,342 @@ int pair3_entry(const void* x, const void* words, const void* scale,
   return launch_pair_m<P>(g, static_cast<cudaStream_t>(stream));
 }
 
-template <int BM>
-int launch_int8(const Args& g, cudaStream_t stream) {
-  const int bytes = 4 * (CK8 * BM > KSPLIT * BM * BN * 4
-                             ? CK8 * BM : KSPLIT * BM * BN * 4);
+// ---- K2: the int8 head --------------------------------------------------
+
+// The transposed fragments of four 8 x 8 bf16 matrices: lane l gives the
+// address of a row of matrix l / 8, and receives, of each matrix, the
+// elements (2*(l%4), l/4) and (2*(l%4) + 1, l/4), the lower row in the
+// low half: from a K x N tile, an m16n8k16 B fragment.
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&b)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
+      : "r"(smem_addr(p)));
+}
+
+// Four signed bytes as bf16 (exact: |v| <= 128 has at most 8 significant
+// bits): byte j + 128 goes into the low mantissa of 2^23, so the f32
+// 2^23 + 128 + v less 2^23 + 128 is v; its upper half is v in bf16. Returns
+// (bytes 0, 1) and (bytes 2, 3), the lower byte in the low half.
+__device__ __forceinline__ uint2 s8x4_bf16(uint32_t w) {
+  const uint32_t u = w ^ 0x80808080u;
+  uint32_t f[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    f[j] = __float_as_uint(
+        __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 | j)) -
+        8388736.0f);
+  return make_uint2(__byte_perm(f[0], f[1], 0x7632),
+                    __byte_perm(f[2], f[3], 0x7632));
+}
+
+// 16 weight bytes of K row k from column n: zeros at or past Kp or Np; one
+// byte at a time unless vec.
+__device__ __forceinline__ uint4 load_w16(const Args& g, const int8_t* w8,
+                                          int k, int n, bool vec) {
+  uint4 v = make_uint4(0u, 0u, 0u, 0u);
+  if (k >= g.kw) return v;
+  const int8_t* p = w8 + (size_t)k * g.ld_w + n;
+  if (vec) return n < g.ld_w ? __ldg(reinterpret_cast<const uint4*>(p)) : v;
+  uint32_t q[4] = {0u, 0u, 0u, 0u};
+  for (int b = 0; b < 16; ++b)
+    if (n + b < g.ld_w) q[b / 4] |= (uint32_t)(uint8_t)p[b] << (8 * (b % 4));
+  return make_uint4(q[0], q[1], q[2], q[3]);
+}
+
+// The prefill route's tiles: 8 warps, 2 along M and 4 along N, each WM m16
+// by WN n8 tiles (WN even), with a ring of ST stages of 64 rows of A (bf16,
+// as in MmaTile). The weight's 64 K rows of BN columns arrive by plain
+// 16-byte loads into registers, WL a thread, two chunks ahead, and are
+// converted once into one bf16 copy, Bs (rows padded by 16 bytes so that
+// ldmatrix's eight rows fall on distinct banks), which feeds the products.
+template <int WM, int WN, int ST>
+struct Int8Tile {
+  static constexpr int BM = 2 * 16 * WM, BN = 4 * 8 * WN;
+  static constexpr int A_LD = MMA_KC + 8;  // bf16 per A row
+  static constexpr int B_LD = BN + 8;      // bf16 per Bs row
+  static constexpr int STAGE = BM * A_LD * 2;
+  static constexpr int SMEM = ST * STAGE + MMA_KC * B_LD * 2;
+  static constexpr int WL = MMA_KC * BN / 16 / THREADS;
+};
+
+// 16 raw bytes (columns n .. n + 15 of one row) as bf16 into dst: two
+// 16-byte stores, in the order swap gives.
+__device__ __forceinline__ void store_bf16x16(bf16* dst, uint4 q, bool swap) {
+  const uint2 a = s8x4_bf16(q.x), b = s8x4_bf16(q.y);
+  const uint2 c = s8x4_bf16(q.z), d = s8x4_bf16(q.w);
+  const uint4 lo = make_uint4(a.x, a.y, b.x, b.y);
+  const uint4 hi = make_uint4(c.x, c.y, d.x, d.y);
+  uint4* p = reinterpret_cast<uint4*>(dst);
+  if (swap) {
+    p[1] = hi;
+    p[0] = lo;
+  } else {
+    p[0] = lo;
+    p[1] = hi;
+  }
+}
+
+// out[m0 .. m0+BM, n0 .. n0+BN] of K2 at M > 8: the 64-row chunks of xp
+// stream through a ring of ST stages by cp.async (rows past M skipped);
+// the weight's raw rows (at or past Kp, which are not allocated, zeros)
+// are loaded into registers two chunks ahead and converted into Bs,
+// whose B fragments come by ldmatrix.trans. Two barriers a chunk: Bs is
+// single-buffered.
+template <int WM, int WN, int MINB, int ST>
+__global__ void __launch_bounds__(THREADS, MINB) int8_mma_kernel(Args g) {
+  using T = Int8Tile<WM, WN, ST>;
+  static_assert(WN % 2 == 0, "ldmatrix.x4.trans serves two n8 tiles");
+  extern __shared__ float4 smem4[];
+  char* smem = reinterpret_cast<char*>(smem4);
+  bf16* bs = reinterpret_cast<bf16*>(smem + ST * T::STAGE);
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int wm = warp / 4, wn = warp % 4;
+  // M tiles along x: the tiles of one column strip run together and
+  // share its weight bytes through L2.
+  const int m0 = blockIdx.x * T::BM, n0 = blockIdx.y * T::BN;
+  const int kp = xp_cols(g.K), chunks = kp / MMA_KC;
+  const int8_t* w8 = static_cast<const int8_t*>(g.w);
+  // 16-byte copies need 16-byte aligned rows; else one byte at a time.
+  const bool vec = g.ld_w % 16 == 0 &&
+                   (reinterpret_cast<uintptr_t>(w8) & 15) == 0;
+
+  auto load = [&](int c, int st) {
+    bf16* sa = reinterpret_cast<bf16*>(smem + st * T::STAGE);
+    for (int i = tid; i < T::BM * (MMA_KC / 8); i += THREADS) {
+      const int r = i / (MMA_KC / 8), q = i % (MMA_KC / 8);
+      // Rows past M feed only output rows that are never stored: not
+      // copied (the zero-filling form of cp.async is slower).
+      if (m0 + r < g.M)
+        cp16(sa + r * T::A_LD + 8 * q,
+             g.xp + (size_t)(m0 + r) * kp + c * MMA_KC + 8 * q, true);
+    }
+  };
+  // Thread tid holds the 16-byte pieces tid + i * THREADS of a chunk, row
+  // e / (BN/16), columns 16 * (e % (BN/16)); with 8 pieces a row, the
+  // second 8-byte half goes first in every other group of four threads,
+  // so a quarter-warp's stores fall on distinct banks.
+  auto ldw = [&](int c, uint4 (&q)[T::WL]) {
+#pragma unroll
+    for (int i = 0; i < T::WL; ++i) {
+      const int e = tid + i * THREADS;
+      const int r = e / (T::BN / 16), n = 16 * (e % (T::BN / 16));
+      q[i] = c < chunks ? load_w16(g, w8, c * MMA_KC + r, n0 + n, vec)
+                        : make_uint4(0u, 0u, 0u, 0u);
+    }
+  };
+  auto stw = [&](const uint4 (&q)[T::WL]) {
+#pragma unroll
+    for (int i = 0; i < T::WL; ++i) {
+      const int e = tid + i * THREADS;
+      const int r = e / (T::BN / 16), n = 16 * (e % (T::BN / 16));
+      store_bf16x16(bs + r * T::B_LD + n, q[i],
+                    T::BN >= 128 && ((e >> 2) & 1));
+    }
+  };
+
+  float acc[WM][WN][4];
+#pragma unroll
+  for (int i = 0; i < WM; ++i)
+#pragma unroll
+    for (int j = 0; j < WN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+
+  uint4 rw[2][T::WL];
+  ldw(0, rw[0]);
+  ldw(1, rw[1]);
+#pragma unroll
+  for (int st = 0; st < ST - 1; ++st) {
+    if (st < chunks) load(st, st);
+    cp_commit();
+  }
+  // Lane addresses: A as in pair_mma_kernel; Bs rows lane % 16 of a k16
+  // step, columns 8 * (lane / 16) of an n8 pair.
+  const bf16* sb = bs + (lane % 16) * T::B_LD + wn * 8 * WN + 8 * (lane / 16);
+  auto chunk = [&](int c, uint4 (&q)[T::WL]) {
+    cp_wait<ST - 2>();  // chunk c has arrived
+    __syncthreads();    // ... for every thread; chunk c-1 is consumed
+    if (c + ST - 1 < chunks) load(c + ST - 1, (c + ST - 1) % ST);
+    cp_commit();
+    const int st = c % ST;
+    stw(q);
+    ldw(c + 2, q);
+    __syncthreads();  // Bs holds chunk c
+    const bf16* sa = reinterpret_cast<const bf16*>(smem + st * T::STAGE) +
+                     (wm * 16 * WM + lane % 16) * T::A_LD + 8 * (lane / 16);
+#pragma unroll
+    for (int s = 0; s < MMA_KC / 16; ++s) {
+      uint32_t a[WM][4];
+#pragma unroll
+      for (int i = 0; i < WM; ++i)
+        ldsm_x4(a[i], sa + i * 16 * T::A_LD + 16 * s);
+#pragma unroll
+      for (int j = 0; j < WN; j += 2) {
+        uint32_t b4[4];
+        ldsm_x4_trans(b4, sb + 16 * s * T::B_LD + 8 * j);
+        const uint32_t b0[2] = {b4[0], b4[1]}, b1[2] = {b4[2], b4[3]};
+#pragma unroll
+        for (int i = 0; i < WM; ++i) {
+          mma_bf16(acc[i][j], a[i], b0);
+          mma_bf16(acc[i][j + 1], a[i], b1);
+        }
+      }
+    }
+  };
+  // Two chunks an iteration, so each register buffer has a fixed name.
+  for (int c = 0; c < chunks; c += 2) {
+    chunk(c, rw[0]);
+    if (c + 1 < chunks) chunk(c + 1, rw[1]);
+  }
+
+  mma_epilogue<WM, WN>(g, acc, m0 + wm * 16 * WM, n0 + wn * 8 * WN, lane);
+}
+
+template <int WM, int WN, int MINB, int ST>
+int launch_int8_mma(const Args& g, cudaStream_t stream) {
+  using T = Int8Tile<WM, WN, ST>;
   static bool raised = false;
-  cudaError_t err = allow_smem(int8_kernel<BM>, bytes, &raised);
+  cudaError_t err =
+      allow_smem(int8_mma_kernel<WM, WN, MINB, ST>, T::SMEM, &raised);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((g.N + BN * 4 - 1) / (BN * 4), (g.M + BM - 1) / BM);
-  int8_kernel<BM><<<grid, THREADS, bytes, stream>>>(g);
+  dim3 grid((g.M + T::BM - 1) / T::BM, (g.N + T::BN - 1) / T::BN);
+  int8_mma_kernel<WM, WN, MINB, ST><<<grid, THREADS, T::SMEM, stream>>>(g);
   return (int)cudaGetLastError();
+}
+
+// The decode route (M <= 8) swaps the operands: W^T is the m16n8k16 A
+// (16 output columns by 16 K rows) and pre(x)^T the B (16 K rows by the 8
+// tokens), so the tokens fill the n8 and no row of the product is wasted.
+// A warp owns a strip of STREAM_COLS columns: lane (g, t4) loads 16
+// consecutive columns, 16g .. 16g + 15, of K rows 4*t4 .. 4*t4 + 3 of each
+// k16 step (four 16-byte loads), and m16 tile i takes its rows g and
+// g + 8 from columns 16g + 2i and 16g + 2i + 1, its k indices 2*t4, +1,
+// +8, +9 from those four rows; the lane's B registers are its token's x at
+// the same four rows, one 8-byte load.
+constexpr int STREAM_COLS = 128;
+
+// The eight products of one k16 step: w[r] holds the lane's 16 columns of
+// the step's K row 4*t4 + r, b its token's x at those rows.
+__device__ __forceinline__ void stream_step(float (&acc)[8][4],
+                                            const uint4 (&w)[4],
+                                            const uint32_t (&b)[2]) {
+  const uint32_t r[4][4] = {{w[0].x, w[0].y, w[0].z, w[0].w},
+                            {w[1].x, w[1].y, w[1].z, w[1].w},
+                            {w[2].x, w[2].y, w[2].z, w[2].w},
+                            {w[3].x, w[3].y, w[3].z, w[3].w}};
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    // Columns 4q .. 4q + 3 of rows (0, 1) and (2, 3), interleaved by row.
+    const uint2 lo01 = s8x4_bf16(__byte_perm(r[0][q], r[1][q], 0x5140));
+    const uint2 hi01 = s8x4_bf16(__byte_perm(r[0][q], r[1][q], 0x7362));
+    const uint2 lo23 = s8x4_bf16(__byte_perm(r[2][q], r[3][q], 0x5140));
+    const uint2 hi23 = s8x4_bf16(__byte_perm(r[2][q], r[3][q], 0x7362));
+    const uint32_t a0[4] = {lo01.x, lo01.y, lo23.x, lo23.y};
+    const uint32_t a1[4] = {hi01.x, hi01.y, hi23.x, hi23.y};
+    mma_bf16(acc[2 * q], a0, b);
+    mma_bf16(acc[2 * q + 1], a1, b);
+  }
+}
+
+// K2 at M <= 8 after the prologue pass: block x streams the weight strip
+// of columns 128x .. 128x + 127, its 8 warps over 8 slices of K. Each
+// lane loads the next k16 step into registers while the products of this
+// one run. The warps' sums meet in shared memory in a fixed order, and
+// the block applies the epilogue.
+__global__ void __launch_bounds__(THREADS, 2) int8_stream_kernel(Args g) {
+  __shared__ float red[NWARPS][8][STREAM_COLS];
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int gq = lane / 4, t4 = lane % 4;
+  const int n0 = blockIdx.x * STREAM_COLS, n = n0 + 16 * gq;
+  const int8_t* w8 = static_cast<const int8_t*>(g.w);
+  const bool vec = g.ld_w % 16 == 0 &&
+                   (reinterpret_cast<uintptr_t>(w8) & 15) == 0;
+  const int kp = xp_cols(g.K), steps = (g.K + 15) / 16;
+  const int s0 = steps * warp / NWARPS, s1 = steps * (warp + 1) / NWARPS;
+  const bf16* xrow = g.xp + (size_t)min(gq, g.M - 1) * kp + 4 * t4;
+
+  // Step j: rows 16j + 4*t4 + r of the lane's 16 columns, and its token's
+  // x at those rows (zeros past M).
+  uint4 w[4];
+  uint32_t b[2];
+  const auto load = [&](int j, uint4 (&wj)[4], uint32_t (&bj)[2]) {
+    const int k = 16 * j + 4 * t4;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) wj[r] = load_w16(g, w8, k + r, n, vec);
+    uint2 xv = make_uint2(0u, 0u);
+    if (gq < g.M) xv = __ldg(reinterpret_cast<const uint2*>(xrow + 16 * j));
+    bj[0] = xv.x;
+    bj[1] = xv.y;
+  };
+
+  float acc[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
+
+  if (s0 < s1) load(s0, w, b);
+  for (int j = s0; j < s1; ++j) {
+    uint4 wn[4];
+    uint32_t bn[2];
+    if (j + 1 < s1) load(j + 1, wn, bn);
+    stream_step(acc, w, b);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) w[r] = wn[r];
+    b[0] = bn[0];
+    b[1] = bn[1];
+  }
+
+  // acc[i] = D of m16 tile i: rows g, g + 8 are columns 16g + 2i, + 1;
+  // columns 2*t4, + 1 are tokens. red[warp][token][column].
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int c = 16 * gq + 2 * i;
+    *reinterpret_cast<float2*>(&red[warp][2 * t4][c]) =
+        make_float2(acc[i][0], acc[i][2]);
+    *reinterpret_cast<float2*>(&red[warp][2 * t4 + 1][c]) =
+        make_float2(acc[i][1], acc[i][3]);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int p = 0; p < 8 * STREAM_COLS / THREADS; ++p) {
+    const int e = tid + p * THREADS, t = e / STREAM_COLS, c = e % STREAM_COLS;
+    const int gn = n0 + c;
+    if (t >= g.M || gn >= g.N) continue;
+    float sum = 0.0f;
+#pragma unroll
+    for (int w = 0; w < NWARPS; ++w) sum += red[w][t][c];
+    float y = (g.a * sum + g.b * g.rs[t]) * g.scale[gn];
+    if (g.bias) y += g.bias[gn];
+    const size_t o = (size_t)t * g.N + gn;
+    if (g.res) y += to_f(g.res[o]);
+    g.out[o] = __float2bfloat16_rn(y);
+  }
+}
+
+// K2: the prologue pass, then at M <= 8 the streaming kernel, else the
+// tensor-core kernel: 128 x 128 tiles at two blocks an SM where they fill
+// the card twice over (M > 64), 64 x 128 where those do (six stages of A:
+// the weight stream then bounds it), else 32 x 64. Measured on OPT-1.3B's
+// head (PERF.md).
+int launch_int8_m(const Args& g, cudaStream_t stream) {
+  if (!g.xp || !g.rs) return (int)cudaErrorInvalidValue;
+  int err = launch_prologue(g, stream);
+  if (err != cudaSuccess) return err;
+  if (g.M <= 8) {
+    const int strips = (g.N + STREAM_COLS - 1) / STREAM_COLS;
+    int8_stream_kernel<<<strips, THREADS, 0, stream>>>(g);
+    return (int)cudaGetLastError();
+  }
+  const auto blocks = [&](int bm, int bn) {
+    return ((g.M + bm - 1) / bm) * ((g.N + bn - 1) / bn);
+  };
+  if (g.M > 64 && blocks(128, 128) >= 264)
+    return launch_int8_mma<4, 4, 2, 3>(g, stream);
+  if (blocks(64, 128) >= 132) return launch_int8_mma<2, 4, 2, 6>(g, stream);
+  return launch_int8_mma<1, 2, 1, 3>(g, stream);
 }
 
 }  // namespace
@@ -1092,20 +1384,23 @@ extern "C" int pair3_matmul(const void* x, const void* words,
                             stream);
 }
 
-// K2. x (M, K) bf16; w8 (Kp, Np) int8, Kp >= K, Np % 4 == 0; out (M, N)
-// bf16 with N <= Np (the padded vocab columns are never written); other
-// arguments as K1.
+// K2. x (M, K) bf16; w8 (Kp, Np) int8, Kp >= K; out (M, N) bf16 with
+// N <= Np (the padded vocab columns are never written); xp (M, K rounded
+// up to 64) bf16 and rs (M,) f32, the prologue pass's scratch at every M
+// (a call without them returns cudaErrorInvalidValue); other arguments
+// as K1, with b the rowsum coefficient of the signed bytes: zero + 128 *
+// step.
 extern "C" int int8_matmul(const void* x, const void* w8, const void* scale,
                            const void* bias, const void* ln_s,
                            const void* ln_b, int ln_bf16, const void* res,
-                           void* out, int M, int N, int K, int Kp, int Np,
-                           int pre, float a, float b, float eps,
+                           void* out, void* xp, void* rs, int M, int N,
+                           int K, int Kp, int Np, int pre, float a, float b,
+                           float eps,
                            void* stream) {
-  (void)Kp;
   Args g{static_cast<const bf16*>(x), w8, static_cast<const float*>(scale),
          static_cast<const float*>(bias), ln_s, ln_b, ln_bf16,
          static_cast<const bf16*>(res), static_cast<bf16*>(out), M, N, K, K,
-         0, Np, pre, a, b, eps};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return g.M <= 8 ? launch_int8<8>(g, s) : launch_int8<16>(g, s);
+         Kp, Np, pre, a, b, eps, static_cast<bf16*>(xp),
+         static_cast<float*>(rs)};
+  return launch_int8_m(g, static_cast<cudaStream_t>(stream));
 }

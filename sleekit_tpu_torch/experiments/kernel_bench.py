@@ -3,9 +3,11 @@
 
 Times y = x @ deq(W) for the decode-shape matmuls of a model geometry
 (M = batch, K x N from the layer shapes) per layout: ``pair`` (K1),
-``plane`` (K9 for a uniform codebook, K8 for a table) and ``dense`` (one
-bf16 ``torch.matmul``, the yardstick), and reports the weight bytes each
-streams per call as GB/s and as a share of the H100's 3.35 TB/s.
+``plane`` (K9 for a uniform codebook, K8 for a table), ``int8`` (K2, the
+layout of a packed head, 8-bit uniform codebook whatever ``--nbits``
+says) and ``dense`` (one bf16 ``torch.matmul``, the yardstick), and
+reports the weight bytes each streams per call as GB/s and as a share of
+the H100's 3.35 TB/s.
 
 On the card the calls are captured in a CUDA graph and replayed between
 CUDA events, cycling over enough copies of the weight to exceed twice the
@@ -17,7 +19,7 @@ does layer after layer. The JAX bench's ``pair@...`` variants and
 Usage:
   python -m sleekit_tpu_torch.experiments.kernel_bench [--nbits 4] [--m 8]
       [--shapes 2048x6144,2048x2048,2048x8192,8192x2048] [--iters 256]
-      [--variants pair,plane,dense] [--device cuda|cpu]
+      [--variants pair,plane,int8,dense] [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -57,13 +59,14 @@ def main(argv=None):
 
     dev = resolve_device(args.device)
     cb = UniformCodebook(2 ** args.nbits, -1.0, 1.0)
+    cb8 = UniformCodebook(256, -1.0, 1.0)
     shapes = [tuple(map(int, s.split("x"))) for s in args.shapes.split(",")]
     variants = args.variants.split(",")
     for v in variants:
-        if v not in ("pair", "plane", "dense"):
+        if v not in ("pair", "plane", "int8", "dense"):
             raise ValueError(f"variant {v!r}: the port times 'pair', "
-                             "'plane' and 'dense' (the TPU tuning variants "
-                             "pair@... are TPU schedules)")
+                             "'plane', 'int8' and 'dense' (the TPU tuning "
+                             "variants pair@... are TPU schedules)")
     m = args.m
     where = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
              else "the CPU (plain versions)")
@@ -85,9 +88,10 @@ def main(argv=None):
                 def fn(i, copies=copies):
                     return torch.matmul(x, copies[i])
             else:
-                p = random_packed_linear(1, k, n, cb, layout=variant,
-                                         device=dev)
-                nbytes = p.packed.numel() * 4
+                p = random_packed_linear(
+                    1, k, n, cb8 if variant == "int8" else cb,
+                    layout=variant, device=dev)
+                nbytes = p.packed.numel() * p.packed.element_size()
                 copies = [p] + [dataclasses.replace(p, packed=p.packed.clone())
                                 for _ in range(_copies(nbytes, dev) - 1)]
 

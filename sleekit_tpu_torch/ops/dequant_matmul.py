@@ -36,7 +36,13 @@ The JAX package chunks prefill-size M through its kernel
 (``PREFILL_CHUNK_M``, a TPU VMEM limit); the CUDA kernels tile M
 themselves, so the port has no chunking. Above ``DECODE_M`` rows K1, K6
 and K7 run on the tensor cores after a prologue pass into scratch that
-their wrappers allocate; one call is still one counted launch.
+their wrappers allocate; one call is still one counted launch. K2 runs
+that prologue pass at every M, then above ``DECODE_M`` rows its own
+tensor-core kernel (the int8 bytes converted to bf16 tiles in shared
+memory), and up to ``DECODE_M`` rows a kernel that streams the weight
+with 16-byte loads into tensor-core products whose N is the tokens, K
+split over a block's warps and summed in a fixed order; its wrapper
+allocates the prologue's scratch at every M (:func:`_xp_scratch`).
 ``LUT_POLY`` and ``PAIR_TUNE`` are the TPU kernels' schedules of the
 same functions; the port accepts and ignores them.
 """
@@ -65,7 +71,8 @@ _PRE = {None: 0, "layernorm": 1, "rmsnorm": 2, "relu": 3, "gelu": 4,
 # K1/K6/K7 take their decode route up to DECODE_M rows; above it, a
 # prologue pass into scratch (K rounded up to XP_CHUNK columns) and the
 # tensor-core kernel (``csrc/dequant_matmul.cu``: ``launch_pair_m``,
-# ``MMA_KC``).
+# ``MMA_KC``). K2 runs the prologue pass at every M, then its streaming
+# kernel up to DECODE_M rows (``launch_int8_m``).
 DECODE_M = 8
 XP_CHUNK = 64
 
@@ -88,11 +95,11 @@ K7 = CudaKernel(
     [_P] * 6 + [_I] + [_P] * 4 + [_I] * 6 + [_F] * 3,
     replaces="sleekit_tpu/ops/dequant_matmul.py:515 _pallas_pair_impl "
              "(pair3=True)")
-# (x, w8, scale, bias, ln_scale, ln_bias, ln_bf16, residual, out,
+# (x, w8, scale, bias, ln_scale, ln_bias, ln_bf16, residual, out, xp, rs,
 #  M, N_out, K, Kp, Np, pre, a, b, eps)
 K2 = CudaKernel(
     "K2", "dequant_matmul.cu", "int8_matmul",
-    [_P] * 6 + [_I] + [_P] * 2 + [_I] * 6 + [_F] * 3,
+    [_P] * 6 + [_I] + [_P] * 4 + [_I] * 6 + [_F] * 3,
     replaces="sleekit_tpu/ops/dequant_matmul.py:664 _pallas_int8_impl")
 # (x, words, scale, bias, lut, out, M, N, K, kw, nbits, ksize, step, zero)
 K8 = CudaKernel(
@@ -269,16 +276,21 @@ def _ptr(t: Optional[torch.Tensor]) -> int:
     return 0 if t is None else t.data_ptr()
 
 
-def _prefill_scratch(x: torch.Tensor, k: int):
-    """The scratch of K1/K6/K7's tensor-core route (M > DECODE_M): pre(x)
-    as bf16 with K rounded up to XP_CHUNK columns, and its row sums; (None,
-    None) at decode M, which reads neither."""
-    m = x.shape[0]
-    if m <= DECODE_M:
-        return None, None
+def _xp_scratch(x: torch.Tensor, k: int):
+    """The prologue pass's scratch: pre(x) as bf16 with K rounded up to
+    XP_CHUNK columns, and its row sums."""
     cols = -(-k // XP_CHUNK) * XP_CHUNK
-    return (torch.empty((m, cols), dtype=torch.bfloat16, device=x.device),
-            torch.empty(m, dtype=torch.float32, device=x.device))
+    return (torch.empty((x.shape[0], cols), dtype=torch.bfloat16,
+                        device=x.device),
+            torch.empty(x.shape[0], dtype=torch.float32, device=x.device))
+
+
+def _prefill_scratch(x: torch.Tensor, k: int):
+    """The scratch of K1/K6/K7's tensor-core route (M > DECODE_M), from
+    :func:`_xp_scratch`; (None, None) at decode M, which reads neither."""
+    if x.shape[0] <= DECODE_M:
+        return None, None
+    return _xp_scratch(x, k)
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -451,8 +463,10 @@ def int8_matmul(x, packed, scale, bias, *, k, out_n, a_aff, b_aff,
                 pre=None, ln_scale=None, ln_bias=None, eps=1e-5,
                 residual=None):
     """Kernel K2: the K1 epilogue over pre-padded signed int8 (Kp, Np)
-    weights, output sliced to ``out_n`` columns. A CUDA tensor launches the
-    kernel; a CPU tensor takes :func:`int8_matmul_plain`."""
+    weights, output sliced to ``out_n`` columns; one call is one counted
+    launch of the prologue pass and the streaming (M <= DECODE_M) or
+    tensor-core kernel. A CUDA tensor launches the kernel; a CPU tensor
+    takes :func:`int8_matmul_plain`."""
     if not x.is_cuda:
         return int8_matmul_plain(
             x, packed, scale, bias, k=k, out_n=out_n, a_aff=a_aff,
@@ -460,20 +474,21 @@ def int8_matmul(x, packed, scale, bias, *, k, out_n, a_aff, b_aff,
             eps=eps, residual=residual)
     kp, np_ = packed.shape
     _check(pre != "silu_glu", "GLU fusion is pair-layout only")
-    _check(packed.dtype == torch.int8 and packed.is_contiguous()
-           and packed.device == x.device,
-           "packed must be contiguous int8 on x's device")
-    _check(kp >= k and out_n <= np_ and np_ % 4 == 0,
+    _check(packed.dtype == torch.int8 and packed.dim() == 2
+           and packed.is_contiguous() and packed.device == x.device,
+           "packed must be contiguous (Kp, Np) int8 on x's device")
+    _check(kp >= k and out_n <= np_,
            f"int8 weights {tuple(packed.shape)} do not cover K={k}, "
            f"N={out_n}")
     ln_bf16 = _check_common(x, k, scale, bias, pre, ln_scale, ln_bias,
                             residual, out_n)
     m = x.shape[0]
     out = torch.empty((m, out_n), dtype=torch.bfloat16, device=x.device)
+    xp, rs = _xp_scratch(x, k)
     K2(x.data_ptr(), packed.data_ptr(), scale.data_ptr(), _ptr(bias),
        _ptr(ln_scale), _ptr(ln_bias), ln_bf16, _ptr(residual),
-       out.data_ptr(), m, out_n, k, kp, np_, _PRE[pre],
-       float(a_aff), float(b_aff), float(eps))
+       out.data_ptr(), xp.data_ptr(), rs.data_ptr(), m, out_n, k, kp, np_,
+       _PRE[pre], float(a_aff), float(b_aff), float(eps))
     return out
 
 

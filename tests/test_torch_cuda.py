@@ -161,24 +161,142 @@ def test_k1_k6_k7_raise_without_scratch(dev):
             kernel(*head, *tail)
 
 
-@pytest.mark.parametrize("pre", [None, "layernorm"])
-@pytest.mark.parametrize("m", [2, 20])
-def test_k2_matches_plain(dev, pre, m):
-    from sleekit_tpu_torch.ops.dequant_matmul import (
-        int8_matmul, int8_matmul_plain)
+def _k2_head(g, dev, K, N, narrow):
+    """An int8 head of K x N: packed by ``pack_indices`` (K rounded up to
+    32 rows, N to 1024 columns), or with ``narrow`` a bare (K, N) byte
+    matrix (N not a multiple of 16: the kernels copy one byte at a time)."""
     from sleekit_tpu_torch.ops.pack import pack_indices
 
-    g = torch.Generator().manual_seed(2)
-    K, N = 200, 300
-    packed = pack_indices(torch.randint(0, 256, (K, N), generator=g), 8,
-                          layout="int8").to(dev)
+    idx = torch.randint(0, 256, (K, N), generator=g)
+    if narrow:
+        return (idx - 128).to(torch.int8).to(dev)
+    return pack_indices(idx, 8, layout="int8").to(dev)
+
+
+def _k2_args(g, dev, K, m, n, pre, glue):
     x = torch.randn(m, K, generator=g).to(dev, torch.bfloat16)
-    kw = dict(k=K, out_n=N, a_aff=2 / 255, b_aff=0.004, pre=pre,
-              ln_scale=torch.ones(K, device=dev, dtype=torch.bfloat16),
-              ln_bias=torch.zeros(K, device=dev, dtype=torch.bfloat16))
-    scale = torch.rand(1024, generator=g).to(dev)
+    kw = dict(k=K, out_n=n, a_aff=2 / 255, b_aff=0.004, pre=pre,
+              ln_scale=torch.rand(K, generator=g).to(dev, torch.bfloat16)
+              + 0.5,
+              ln_bias=(torch.randn(K, generator=g) * 0.1).to(
+                  dev, torch.bfloat16) if pre == "layernorm" else None)
+    if glue:
+        kw["residual"] = torch.randn(m, n, generator=g).to(dev,
+                                                           torch.bfloat16)
+    return x, kw
+
+
+@pytest.mark.parametrize("m", [2, 8, 20, 64, 130])
+@pytest.mark.parametrize("pre", [None, "layernorm", "rmsnorm"])
+@pytest.mark.parametrize("glue", [False, True])
+@pytest.mark.parametrize("narrow", [False, True])
+def test_k2_matches_plain(dev, m, pre, glue, narrow):
+    """K2 against its plain version: the streaming route (m <= 8) and the
+    tensor-core route (m > 8, here in 32 x 64 tiles), with and without
+    bias and residual. Packed, K = 200 gives Kp = 224 rows, below the 256
+    columns of the prologue's scratch (rows 224-255 must arrive as zeros),
+    and out_n = 300 ends inside a tile of Np = 1024; ``narrow``: a bare
+    (200, 300) byte matrix, out_n = 290."""
+    from sleekit_tpu_torch.ops.dequant_matmul import (
+        K2, int8_matmul, int8_matmul_plain)
+
+    g = torch.Generator().manual_seed(m)
+    K, N = 200, 300
+    packed = _k2_head(g, dev, K, N, narrow)
+    assert packed.shape == ((200, 300) if narrow else (224, 1024))
+    n = 290 if narrow else N
+    x, kw = _k2_args(g, dev, K, m, n, pre, glue)
+    scale = torch.rand(packed.shape[1], generator=g).to(dev)
+    bias = torch.randn(packed.shape[1], generator=g).to(dev) if glue else None
+    before = K2.launches
+    got = int8_matmul(x, packed, scale, bias, **kw)
+    torch.cuda.synchronize()
+    assert K2.launches == before + 1
+    assert got.shape == (m, n)
+    _bf16_close(got, int8_matmul_plain(x, packed, scale, bias, **kw))
+
+
+@pytest.mark.parametrize("m,N", [(64, 17000), (130, 34000), (1024, 4300)])
+@pytest.mark.parametrize("narrow", [False, True])
+def test_k2_tile_rules(dev, m, N, narrow):
+    """K2's tensor-core tiles at enough columns to take them: 64 x 128
+    (m = 64: 133 blocks) and 128 x 128 at two blocks an SM (m = 130: 2 x
+    266 blocks; m = 1024: 8 x 34), with 16-byte copies (packed) and
+    one-byte ones (``narrow``: N + 1 columns), against the plain version
+    with a layernorm prologue and a residual."""
+    from sleekit_tpu_torch.ops.dequant_matmul import (
+        int8_matmul, int8_matmul_plain)
+
+    g = torch.Generator().manual_seed(N)
+    K = 256
+    packed = _k2_head(g, dev, K, N + 1 if narrow else N, narrow)
+    x, kw = _k2_args(g, dev, K, m, N, "layernorm", True)
+    scale = torch.rand(packed.shape[1], generator=g).to(dev)
     got = int8_matmul(x, packed, scale, None, **kw)
     _bf16_close(got, int8_matmul_plain(x, packed, scale, None, **kw))
+
+
+@pytest.mark.parametrize("m", [1, 8])
+@pytest.mark.parametrize("K,N", [(1024, 300), (2048, 4000)])
+def test_k2_stream_is_deterministic(dev, m, K, N):
+    """K2's streaming route over few 128-column strips and long K: within
+    the bf16 tolerance of the plain version, and bit for bit the same on
+    a second call (the warps' K slices are added in a fixed order)."""
+    from sleekit_tpu_torch.ops import dequant_matmul as dm
+
+    g = torch.Generator().manual_seed(K + m)
+    packed = _k2_head(g, dev, K, N, False)
+    x, kw = _k2_args(g, dev, K, m, N, "layernorm", True)
+    scale = torch.rand(packed.shape[1], generator=g).to(dev)
+    got = dm.int8_matmul(x, packed, scale, None, **kw)
+    assert torch.equal(got, dm.int8_matmul(x, packed, scale, None, **kw))
+    _bf16_close(got, dm.int8_matmul_plain(x, packed, scale, None, **kw))
+
+
+@pytest.mark.parametrize("m", [8, 64])
+def test_k2_replays_in_cuda_graph(dev, m):
+    """K2 on both routes (its wrapper allocates the prologue's scratch at
+    every M) captured in a CUDA graph: a replay after x changes in place
+    gives the eager call's output for the new x."""
+    from sleekit_tpu_torch.ops.dequant_matmul import K2, int8_matmul
+
+    g = torch.Generator().manual_seed(7)
+    K, N = 512, 3000
+    packed = _k2_head(g, dev, K, N, False)
+    x, kw = _k2_args(g, dev, K, m, N, "layernorm", False)
+    scale = torch.rand(packed.shape[1], generator=g).to(dev)
+
+    def call():
+        return int8_matmul(x, packed, scale, None, **kw)
+
+    call()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = K2.launches
+    with torch.cuda.graph(graph):
+        out = call()
+    assert K2.launches == before + 1
+    x.copy_(torch.randn(m, K, generator=g).to(dev, torch.bfloat16))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, call())
+
+
+def test_k2_raises_without_scratch(dev):
+    """A K2 launch without the prologue's scratch, at M > 8 and at M = 8
+    (whose streaming route reads it too), returns a CUDA error that the
+    binding raises; nothing falls back."""
+    from sleekit_tpu_torch.ops.dequant_matmul import K2
+
+    K, N = 512, 1024
+    w8 = torch.zeros(K, N, device=dev, dtype=torch.int8)
+    scale = torch.ones(N, device=dev)
+    for m in (16, 8):
+        x = torch.zeros(m, K, device=dev, dtype=torch.bfloat16)
+        out = torch.empty(m, N, device=dev, dtype=torch.bfloat16)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            K2(x.data_ptr(), w8.data_ptr(), scale.data_ptr(), 0, 0, 0, 0, 0,
+               out.data_ptr(), 0, 0, m, N, K, K, N, 0, 1.0, 0.0, 1e-5)
 
 
 @pytest.mark.parametrize("G", [1, 4])

@@ -80,14 +80,16 @@ def test_pair_kernel_plain_matches_jax_kernel(nbits, pre, use_res, bias):
     bf16_close(got, want, f"{nbits} {pre} {use_res}")
 
 
+@pytest.mark.parametrize("M", [4, 20])
 @pytest.mark.parametrize("pre,use_res", [
     (None, False), ("layernorm", True), ("rmsnorm", False)])
-def test_int8_kernel_plain_matches_jax_kernel(pre, use_res):
+def test_int8_kernel_plain_matches_jax_kernel(pre, use_res, M):
     """K2's plain version == the Pallas int8 kernel (interpret) on a head
     whose vocab pads at pack time (N 300 -> 1024), incl. the slice to the
-    true output width and bf16 norm parameters."""
+    true output width and bf16 norm parameters, at a decode M (4) and a
+    prefill M (20, the kernel's tensor-core route on the card)."""
     rng = np.random.RandomState(21)
-    K, N, M = 200, 300, 4
+    K, N = 200, 300
     jw, tw = _pair(rng, 8, K, N, layout="int8")
     assert tuple(tw.packed.shape) == (224, 1024)
     x = np.asarray(jnp.asarray(rng.randn(M, K).astype(np.float32)
@@ -324,3 +326,20 @@ def test_prefill_scratch_only_above_decode_m(m):
     else:
         assert xp.shape == (m, 448) and xp.dtype == torch.bfloat16
         assert rs.shape == (m,) and rs.dtype == torch.float32
+
+
+@pytest.mark.parametrize("m,k,cols", [
+    (1, 2048, 2048),    # decode: K2's streaming route reads it too
+    (8, 200, 256),      # K rounded up to XP_CHUNK
+    (9, 64, 64),
+    (64, 4096, 4096),
+    (520, 100, 128),
+])
+def test_xp_scratch_at_every_m(m, k, cols):
+    """K2's wrapper allocates the prologue pass's scratch at every M (K1's
+    only above DECODE_M): pre(x) in bf16 with K rounded up to XP_CHUNK
+    columns, and one f32 row sum a row."""
+    x = torch.zeros(m, k, dtype=torch.bfloat16)
+    xp, rs = tdm._xp_scratch(x, k)
+    assert xp.shape == (m, cols) and xp.dtype == torch.bfloat16
+    assert rs.shape == (m,) and rs.dtype == torch.float32

@@ -165,6 +165,31 @@ def test_kernel_bench_runs_on_cpu(capsys):
         kernel_bench.main(["--variants", "pair@kb2s1d1", "--device", "cpu"])
 
 
+def test_kernel_bench_int8_variant_times_k2(monkeypatch, capsys):
+    """kernel_bench's int8 variant takes K2 (its plain version on the
+    CPU) over a head packed with an 8-bit codebook, whatever --nbits
+    says, and counts the padded int8 bytes (N 300 -> 1024)."""
+    from sleekit_tpu_torch.ops import dequant_matmul as dm
+
+    calls = []
+    real = dm.int8_matmul_plain
+
+    def spy(x, packed, *a, **kw):
+        calls.append(tuple(packed.shape))
+        return real(x, packed, *a, **kw)
+
+    monkeypatch.setattr(dm, "int8_matmul_plain", spy)
+    out = kernel_bench.main(["--shapes", "256x300", "--variants", "int8",
+                             "--nbits", "4", "--iters", "1", "--m", "20",
+                             "--device", "cpu"])
+    assert calls and set(calls) == {(256, 1024)}
+    ((shape, variant, us, gbs),) = out
+    assert (shape, variant) == ("256x300", "int8") and us > 0
+    # us and GB/s are printed to one decimal
+    assert gbs == pytest.approx(256 * 1024 / (us * 1e-6) / 1e9, abs=0.06)
+    assert _printed(capsys.readouterr().out) == out
+
+
 @pytest.mark.parametrize("layout,kernel", [("pair", "pair_matmul"),
                                            ("pair3", "pair3_matmul")])
 def test_prefill_bench_runs_on_cpu(monkeypatch, capsys, tmp_path, layout,
