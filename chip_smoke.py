@@ -9,7 +9,9 @@
    version and, where one exists, one PyTorch library call computing the
    same function (a yardstick the port never calls) with CUDA events; K2
    (the int8 head) at M = 8 (its streaming route), 64 and 1024 (its
-   tensor-core route). The page-pool kernels (K5, K14, K15) run over a strided, out-of-order table
+   tensor-core route); K4 (causal flash prefill, bf16 on the tensor
+   cores) at OPT-1.3B's 256-bucket group, at BLOOM-560m's with ALiBi and
+   at llama3-8b's GQA over a 1024-token prompt. The page-pool kernels (K5, K14, K15) run over a strided, out-of-order table
    of distinct 64-row pages; K5 is held bit for bit to K3 on the same
    logical rows, and K13 (the batch-folded flash decode) to K11; K12 (the
    f32 elementwise flash decode) is held within one bf16 step of its plain
@@ -377,32 +379,47 @@ def check_k3(dev, g, cfg):
     return cases
 
 
-def check_k4(dev, g, cfg):
-    """K4 at the 256-token prompt bucket: 4 rows (OPT-1.3B: H = KV 32,
-    D 64)."""
-    B, T, H, D = 4, 256, cfg.n_heads, cfg.head_dim
-    q = torch.randn(B, T, H, D, generator=g).to(dev, torch.bfloat16)
-    k = torch.randn(B, H, T, D, generator=g).to(dev, torch.bfloat16)
-    v = torch.randn(B, H, T, D, generator=g).to(dev, torch.bfloat16)
-    scale = 1.0 / math.sqrt(D)
-    got = attn.flash_prefill(q, k, v, scale)
-    want = attn.flash_prefill_plain(q, k, v, scale)
-    torch.cuda.synchronize()
-    err = bf16_check(got, want, "K4")
-    ms = cuda_ms(lambda i: attn.flash_prefill(q, k, v, scale), 1)
-    plain_ms = cuda_ms(lambda i: attn.flash_prefill_plain(q, k, v, scale), 1,
-                       iters=5, warmup=1, graph=False)
-    qh = q.transpose(1, 2)
-    lib_ms = cuda_ms(lambda i: F.scaled_dot_product_attention(
-        qh, k, v, is_causal=True), 1)
-    nbytes = 4 * B * T * H * D * 2
-    b_ms, b_by = bound(nbytes, 4.0 * B * H * D * T * (T + 1) / 2)
-    log(f"K4 T={T} B={B}: err {err:.3g} | kernel {ms:.4f} ms plain "
-        f"{plain_ms:.3f} ms sdpa {lib_ms:.4f} ms bound {b_ms:.4f} ms "
-        f"({b_by})")
-    return [dict(case=f"T={T} B={B}", max_abs_err=err, ms=ms,
-                 plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                 bound_by=b_by, bytes=nbytes)]
+def check_k4(dev):
+    """K4 in its three cases (``prefill_bench.K4_CASES``): the main path's
+    256-bucket group (OPT-1.3B: B 4, T 256, H = KV 32, D 64), BLOOM-560m
+    with ALiBi (B 4, T 256, H 16, D 64) and llama3-8b's GQA (B 1, T 1024,
+    H 32, KV 8, D 128). Yardstick: SDPA (causal; for GQA with
+    ``enable_gqa``; for ALiBi with the bias, causal mask included, as a
+    bf16 ``attn_mask``)."""
+    cases = []
+    for model, B, T in prefill_bench.K4_CASES:
+        q, k, v, scale, slopes = prefill_bench.k4_inputs(model, B, T, dev)
+        H, KV, D = q.shape[2], k.shape[1], q.shape[3]
+        label = f"{model} B={B} T={T}"
+        got = attn.flash_prefill(q, k, v, scale, slopes)
+        want = attn.flash_prefill_plain(q, k, v, scale, slopes)
+        torch.cuda.synchronize()
+        err = bf16_check(got, want, f"K4 {label}")
+        ms = cuda_ms(lambda i: attn.flash_prefill(q, k, v, scale, slopes), 1)
+        plain_ms = cuda_ms(lambda i: attn.flash_prefill_plain(
+            q, k, v, scale, slopes), 1, iters=5, warmup=1, graph=False)
+        qh = q.transpose(1, 2)
+        sdpa = dict(scale=scale)
+        if slopes is None:
+            sdpa.update(is_causal=True, enable_gqa=KV != H)
+        else:
+            pos = torch.arange(T, device=dev)
+            dist = (pos[None, :] - pos[:, None]).float()
+            sdpa["attn_mask"] = torch.where(
+                dist <= 0, slopes[:, None, None] * dist, -math.inf
+            ).to(torch.bfloat16)[None]
+        lib_ms = cuda_ms(lambda i: F.scaled_dot_product_attention(
+            qh, k, v, **sdpa), 1)
+        nbytes = (2 * B * T * H * D * 2 + 2 * B * T * KV * D * 2
+                  + (H * 4 if slopes is not None else 0))
+        b_ms, b_by = bound(nbytes, 4.0 * B * H * D * T * (T + 1) / 2)
+        log(f"K4 {label} H={H} KV={KV} D={D}: err {err:.3g} | kernel "
+            f"{ms:.4f} ms plain {plain_ms:.3f} ms sdpa {lib_ms:.4f} ms bound "
+            f"{b_ms:.4f} ms ({b_by})")
+        cases.append(dict(case=label, max_abs_err=err, ms=ms,
+                          plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                          bound_by=b_by, bytes=nbytes))
+    return cases
 
 
 # Page geometry of the paged phases: OPT-1.3B serving pages of 64 rows, 8
@@ -1277,7 +1294,7 @@ def main():
     cfg = opt_1b3(dtype=torch.bfloat16)
     g = torch.Generator().manual_seed(0)
     cases = {**check_linears(dev, cfg, ["K1"]), "K2": check_k2(dev, g, cfg),
-             "K3": check_k3(dev, g, cfg), "K4": check_k4(dev, g, cfg),
+             "K3": check_k3(dev, g, cfg), "K4": check_k4(dev),
              **check_paged(dev, g, cfg)}
     launches, engine, state = run_engine(dev, cfg, smi)
     paged_launches, paged_metrics, pool = run_paged_engine(dev, cfg, smi,

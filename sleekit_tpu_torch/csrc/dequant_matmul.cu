@@ -620,49 +620,11 @@ __global__ void __launch_bounds__(THREADS) prologue_kernel(Args g) {
   if (tid == 0) g.rs[m] = part;
 }
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 (or 4) bytes from global to shared memory, asynchronously; zeros when
-// !ok (src is then not read).
-__device__ __forceinline__ void cp16(void* dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-
+// 4 bytes from global to shared memory, asynchronously; zeros when !ok.
 __device__ __forceinline__ void cp4(void* dst, const void* src, bool ok) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src), "r"(ok ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// The A fragment of an m16k16 tile: lane l gives the address of row l % 16,
-// column 8 * (l / 16).
-__device__ __forceinline__ void ldsm_x4(uint32_t (&a)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // u's two bf16 halves times m plus c, as bf16x2 (exact for every use
@@ -988,18 +950,6 @@ int pair3_entry(const void* x, const void* words, const void* scale,
 }
 
 // ---- K2: the int8 head --------------------------------------------------
-
-// The transposed fragments of four 8 x 8 bf16 matrices: lane l gives the
-// address of a row of matrix l / 8, and receives, of each matrix, the
-// elements (2*(l%4), l/4) and (2*(l%4) + 1, l/4), the lower row in the
-// low half: from a K x N tile, an m16n8k16 B fragment.
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&b)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
-      : "r"(smem_addr(p)));
-}
 
 // Four signed bytes as bf16 (exact: |v| <= 128 has at most 8 significant
 // bits): byte j + 128 goes into the low mantissa of 2^23, so the f32

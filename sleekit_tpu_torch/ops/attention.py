@@ -574,7 +574,9 @@ def flash_prefill(q, kT, vT, scale: float, alibi_slopes=None):
     """Kernel K4: causal self-attention for prefill. q (B, T, H, D); kT/vT
     (B, KV, T, D) read in place (no GQA repeat); ALiBi slopes (H,) f32 or
     None. Returns (B, T, H, D) in q's dtype. A CUDA tensor launches the
-    kernel; a CPU tensor takes :func:`flash_prefill_plain`."""
+    kernel - bf16 on the tensor cores (D % 16 == 0, D <= 128), f32 on the
+    CUDA cores (D % 4 == 0, D <= 128) - or raises; a CPU tensor takes
+    :func:`flash_prefill_plain`."""
     if not q.is_cuda:
         return flash_prefill_plain(q, kT, vT, scale, alibi_slopes)
     B, T, H, D = q.shape
@@ -584,11 +586,20 @@ def flash_prefill(q, kT, vT, scale: float, alibi_slopes=None):
            "q must be bf16 or f32")
     _check(kT.shape == (B, KV, T, D) and vT.shape == kT.shape
            and H % KV == 0, "kT/vT must be (B, KV, T, D) with H % KV == 0")
-    _check(D <= 128 and D % 4 == 0,
-           "head_dim must be a multiple of 4 and <= 128")
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        _check(D <= 128 and D % 16 == 0,
+               f"bf16 K4 runs on the tensor cores and takes a head_dim that "
+               f"is a multiple of 16 and <= 128, not {D}")
+    else:
+        _check(D <= 128 and D % 4 == 0,
+               f"f32 K4 takes a head_dim that is a multiple of 4 and <= 128, "
+               f"not {D}")
     for t in (q, kT, vT):
         _check(t.dtype == q.dtype and t.is_contiguous() and t.device == dev,
                "q, kT and vT must be contiguous, of one dtype and device")
+        _check(t.data_ptr() % 16 == 0,
+               "q, kT and vT must start on a 16-byte boundary")
     if alibi_slopes is not None:
         _check(alibi_slopes.dtype == torch.float32
                and alibi_slopes.shape == (H,) and alibi_slopes.device == dev
@@ -597,6 +608,5 @@ def flash_prefill(q, kT, vT, scale: float, alibi_slopes=None):
     out = torch.empty_like(q)
     K4(q.data_ptr(), kT.data_ptr(), vT.data_ptr(),
        0 if alibi_slopes is None else alibi_slopes.data_ptr(),
-       out.data_ptr(), B, T, H, KV, D, float(scale),
-       int(q.dtype == torch.bfloat16))
+       out.data_ptr(), B, T, H, KV, D, float(scale), int(bf16))
     return out

@@ -180,6 +180,19 @@ def test_flash_prefill_plain_matches_jax_kernel(G, alibi, dtype):
     np.testing.assert_allclose(f32(got), f32(want), rtol=tol, atol=tol)
 
 
+def test_prefill_kernel_chunk_is_plain_chunk():
+    """K4's key chunk (BS in csrc/prefill_attention.cu, read as text)
+    equals the plain version's _PREFILL_CHUNK, so both round p to bf16
+    against the same running maxima."""
+    import re
+    from pathlib import Path
+
+    src = (Path(tattn.__file__).resolve().parents[1] / "csrc"
+           / "prefill_attention.cu").read_text()
+    found = re.findall(r"constexpr int BS = (\d+);", src)
+    assert found == [str(tattn._PREFILL_CHUNK)]
+
+
 def test_quant_rows_bit_identical():
     """The int8 KV quantizer rounds half to even and divides by its scale,
     byte for byte as the JAX package does (ties included)."""

@@ -338,25 +338,71 @@ def test_k3_matches_plain(dev, G, cache, ragged):
         assert torch.equal(a.cpu(), b)
 
 
-@pytest.mark.parametrize("G", [1, 4])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("T", [256, 200])
-def test_k4_matches_plain(dev, G, dtype, T):
-    from sleekit_tpu_torch.ops.attention import (
-        flash_prefill, flash_prefill_plain)
-
-    g = torch.Generator().manual_seed(T + G)
-    B, KV, D = 2, 2, 64
+def _k4_args(dev, dtype, B, T, KV, G, D, seed, alibi=True):
+    g = torch.Generator().manual_seed(seed)
     q = torch.randn(B, T, KV * G, D, generator=g).to(dev, dtype)
     k = torch.randn(B, KV, T, D, generator=g).to(dev, dtype)
     v = torch.randn(B, KV, T, D, generator=g).to(dev, dtype)
-    slopes = torch.linspace(0.02, 0.4, KV * G).to(dev)
-    got = flash_prefill(q, k, v, 0.125, slopes)
-    want = flash_prefill_plain(q, k, v, 0.125, slopes)
+    slopes = torch.linspace(0.02, 0.4, KV * G).to(dev) if alibi else None
+    return q, k, v, slopes
+
+
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("T", [256, 200, 1024])
+@pytest.mark.parametrize("D", [64, 80, 128])
+@pytest.mark.parametrize("alibi", [False, True])
+def test_k4_matches_plain(dev, G, dtype, T, D, alibi):
+    """K4 against its plain version: bf16 on the tensor cores, f32 on the
+    CUDA cores; T = 200 leaves a ragged last tile and chunk."""
+    from sleekit_tpu_torch.ops.attention import (
+        flash_prefill, flash_prefill_plain)
+
+    q, k, v, slopes = _k4_args(dev, dtype, 2, T, 2, G, D, T + G + D, alibi)
+    got = flash_prefill(q, k, v, D ** -0.5, slopes)
+    want = flash_prefill_plain(q, k, v, D ** -0.5, slopes)
     if dtype == torch.float32:
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     else:
         _bf16_close(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D,G", [(16, 1), (48, 2), (64, 4), (112, 1),
+                                 (128, 4)])
+def test_k4_row0_is_v_row0(dev, dtype, D, G):
+    """Row 0 attends to column 0 alone (p = 1, sum 1), so K4's output row 0
+    is V's row 0 of its KV head, bit for bit."""
+    from sleekit_tpu_torch.ops.attention import flash_prefill
+
+    q, k, v, slopes = _k4_args(dev, dtype, 2, 130, 2, G, D, D + G)
+    got = flash_prefill(q, k, v, D ** -0.5, slopes)
+    want = v[:, :, 0].repeat_interleave(G, dim=1)
+    assert torch.equal(got[:, 0], want)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k4_is_deterministic(dev, dtype):
+    """Two launches on the same inputs give the same bits."""
+    from sleekit_tpu_torch.ops.attention import flash_prefill
+
+    q, k, v, slopes = _k4_args(dev, dtype, 2, 300, 2, 4, 128, 7)
+    a = flash_prefill(q, k, v, 0.1, slopes)
+    b = flash_prefill(q, k, v, 0.1, slopes)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("D", [40, 136])
+def test_k4_bf16_head_dim_raises(dev, D):
+    """The bf16 route takes D % 16 == 0 and D <= 128 and raises on any
+    other head dim; it hands nothing to another body."""
+    from sleekit_tpu_torch.ops.attention import K4, flash_prefill
+
+    q, k, v, _ = _k4_args(dev, torch.bfloat16, 1, 64, 1, 1, D, 0)
+    before = K4.launches
+    with pytest.raises(ValueError, match="multiple of 16"):
+        flash_prefill(q, k, v, 0.1)
+    assert K4.launches == before
 
 
 def _cache(g, shape, cache):

@@ -214,6 +214,35 @@ def test_prefill_bench_runs_on_cpu(monkeypatch, capsys, tmp_path, layout,
     assert _printed(capsys.readouterr().out) == out
 
 
+def test_prefill_bench_attention_times_k4(monkeypatch, capsys):
+    """prefill_bench --attention times flash_prefill alone in each case,
+    with the model's geometry (ALiBi slopes for BLOOM, KV heads for GQA)."""
+    calls = []
+    inner = tattn.flash_prefill
+
+    def spy(q, k, v, scale, slopes=None):
+        calls.append((tuple(q.shape), k.shape[1], slopes is not None))
+        return inner(q, k, v, scale, slopes)
+
+    monkeypatch.setattr(tattn, "flash_prefill", spy)
+    monkeypatch.setattr(prefill_bench, "K4_CASES", (
+        ("tiny", 2, 16), ("bloom-560m", 1, 8), ("llama3-8b", 1, 8)))
+    out = prefill_bench.main(["--attention", "--reps", "1", "--device",
+                              "cpu"])
+    assert [r["case"] for r in out["attention"]] == [
+        "tiny B=2 T=16", "bloom-560m B=1 T=8", "llama3-8b B=1 T=8"]
+    assert all(r["ms"] > 0 for r in out["attention"])
+    assert set(calls) == {((2, 16, 4, 16), 4, False),
+                          ((1, 8, 16, 64), 16, True),
+                          ((1, 8, 32, 128), 8, False)}
+    assert _printed(capsys.readouterr().out) == out
+    calls.clear()
+    out = prefill_bench.main(["--attention", "--models", "llama3-8b",
+                              "--reps", "1", "--device", "cpu"])
+    assert [r["case"] for r in out["attention"]] == ["llama3-8b B=1 T=8"]
+    assert set(calls) == {((1, 8, 32, 128), 8, False)}
+
+
 def test_timer_sections_and_counts():
     """Sections accumulate time and counts; timed() waits for a value's
     device and returns it; the report orders sections by total time."""
