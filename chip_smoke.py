@@ -3,7 +3,8 @@
     python3 chip_smoke.py
 
 1. builds the port's CUDA kernels (K1-K15) from ``sleekit_tpu_torch/csrc``,
-   one nvcc per source, all at once;
+   one nvcc per source, all at once, and prints ptxas's registers and
+   spills of K1/K6/K7's decode kernel (``pair_stream_kernel``);
 2. holds each kernel against its plain PyTorch version on the card at the
    shapes OPT-1.3B serving gives it, and times the kernel, the plain
    version and, where one exists, one PyTorch library call computing the
@@ -22,22 +23,26 @@
    scales), with the time its prefills take, checks that every kernel
    launched and the launches of one decode step, checks the prefill
    logits against the kernels' plain versions on the card (bf16
-   tolerance through the first layer, relative L2 through all of them),
-   and times a full-depth prefill of the 256-bucket group (4 x 256) and
-   batch-8 decode;
+   tolerance through the first layer, relative L2 through all of them)
+   and one decode step's logits from two copies of the Engine's cache
+   likewise (relative L2 of 2^-6 through all layers, argmax agreement
+   measured), and times a full-depth prefill of the 256-bucket group (4
+   x 256) and batch-8 decode;
 4. serves the same requests through the paged Engine (page pool of 64-row
    pages): run A on the default pool emits the slot Engine's tokens and
    launches 96 K1, 1 K2 and 24 K5 (no K3) per decode step; run B on a
    17-page pool blocks admission and recycles pages; decode through a
    pool holding the slot cache's rows gives the slot cache's logits, bit
-   for bit, and is timed as in 3;
+   for bit, its logits against the plain versions' as in 3, and it is
+   timed as in 3;
 5. takes one decode step on each split route (FLASH_FUSED_APPEND off)
    over the slot cache - 24 K10 + 24 K11; with FLASH_MHA_MODE 'ew' 24 K12;
    with FLASH_BATCH_FOLD 24 K13; with both, K12 - and over the pool (24
    K14 + 24 K15), within the bf16 tolerance of the fused route's logits
    through one layer and a relative L2 of 2^-6 through 24, each step timed
    as a CUDA graph; then serves the prompts of 3 (16 new tokens) through
-   the slot Engine on the 'ew' split route (24 K10 + 24 K12 a step);
+   the slot Engine on the 'ew' split route (24 K10 + 24 K12 a step),
+   its decode logits held as in 3;
 6. holds K6 ('pair3x'), K7 ('pair3'), K8 (NF4 'plane') and K9 (uniform
    int4 'plane') against their plain versions on the four projections of
    an OPT-1.3B layer at M = 8, 64 and 1024, timed as in 2 (K1 too, in 2);
@@ -47,7 +52,8 @@
    decode step launches exactly 96 K6, K7 or K8, 1 K2 and 24 K3 (no K1);
    prefill logits, kernels vs plain versions, as in 3 (NF4's random model
    drifts: its full depth is measured, and held on the same indices over
-   its table minus its mean), and each of the 24 layers on the same input
+   its table minus its mean; its decode logits likewise only measured),
+   the decode logits as in 3, and each of the 24 layers on the same input
    within the bf16 tolerance; the pair3
    logits against the pair3x ones; prefill and batch-8 decode timed as
    in 3. Then
@@ -77,6 +83,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -122,6 +129,26 @@ L2_BYTES = 50 * 2 ** 20
 
 def log(*a):
     print(*a, flush=True)
+
+
+def ptxas_report(build_log: str, kernel: str):
+    """{instantiation: [registers, spill store bytes, spill load bytes]}
+    of each entry named ``kernel`` in nvcc's ``-Xptxas -v`` output (the
+    tile rule read from the mangled name: Pair<NB>, Pair3, Pair3x)."""
+    out = {}
+    for part in build_log.split("Compiling entry function '")[1:]:
+        name = part.split("'")[0]
+        if kernel not in name:
+            continue
+        rule = re.search(r"Pair3x|Pair3|PairILi(\d+)E", name)
+        key = (rule.group(0) if rule and not rule.group(1)
+               else f"Pair<{rule.group(1)}>" if rule else name)
+        regs = re.search(r"Used (\d+) registers", part)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", part)
+        out[key] = [int(regs.group(1)) if regs else None,
+                    *(map(int, spill.groups()) if spill else (None, None))]
+    return out
 
 
 def copies_for(nbytes: int) -> int:
@@ -706,6 +733,9 @@ def serve(dev, cfg, card, what, params, kernel, prompts, n_new, hold=True):
     if set(launches) != {kernel.name, "K2", "K3", "K4"}:
         raise AssertionError(f"{what}: the Engine launched {launches}")
     check_completions(comps, prompts, cfg, f"{what} Engine", n_new)
+    dec_rel, dec_agree = check_decode(
+        cfg, params, engine.cache, last_tokens(comps, dev),
+        max(len(c.tokens) for c in comps), f"{what} ", hold)
 
     kernels.reset_launch_counts()
     tok = torch.zeros((8, 1), dtype=torch.int64, device=dev)
@@ -734,6 +764,8 @@ def serve(dev, cfg, card, what, params, kernel, prompts, n_new, hold=True):
                "decode_step_graph_ms": dev_ms,
                "prefill_layer1_max_err": err1, "prefill_full_rel_l2": rel,
                "prefill_full_argmax_agree": agree,
+               "decode_full_rel_l2": dec_rel,
+               "decode_full_argmax_agree": dec_agree,
                "layers_max_err": layers_err}
     return (launches, {f"{what}_{k}": v for k, v in metrics.items()}, full,
             engine, comps)
@@ -816,6 +848,36 @@ def check_prefill(dev, cfg, params, toks, what, hold=True):
         f"({'<= 2^-6' if hold else 'measured, not held'}), max |err| "
         f"{(got - want).abs().max().item():.4g}, argmax agreement {agree:.4f}")
     return err1, rel, agree, got
+
+
+def check_decode(cfg, params, cache, tok, pos, what, hold=True):
+    """One decode step of ``tok`` at ``pos`` from two clones of ``cache``
+    (a slot cache or a page pool), through the public entry point with the
+    kernels and with their plain versions on the card (use_kernel=False):
+    the full-depth logits held to a relative L2 of at most 2^-6 (or only
+    measured without ``hold``), as check_prefill holds the prefill's, and
+    their argmax agreement measured. The per-projection checks hold each
+    kernel alone; this holds the decode route through the whole model.
+    Returns (relative L2, argmax agreement)."""
+    def clone():
+        return {k: v.clone() for k, v in cache.items()}
+    got, _ = decode_step(cfg, params, tok, clone(), pos, use_kernel=True)
+    want, _ = decode_step(cfg, params, tok, clone(), pos, use_kernel=False)
+    got, want = got.float(), want.float()
+    rel, agree = rel_l2(got, want, f"{what}decode logits through "
+                        f"{cfg.n_layers} layers", hold)
+    log(f"{what}decode logits (batch 8, one step at position {pos}), "
+        f"kernels vs plain versions: {cfg.n_layers} layers relative L2 "
+        f"{rel:.4g} ({'<= 2^-6' if hold else 'measured, not held'}), max "
+        f"|err| {(got - want).abs().max().item():.4g}, argmax agreement "
+        f"{agree:.4f}")
+    return rel, agree
+
+
+def last_tokens(comps, dev):
+    """Each completion's last token, as the next decode step's input."""
+    return torch.as_tensor([[int(c.tokens[-1])] for c in comps],
+                           dtype=torch.int64, device=dev)
 
 
 def time_decode(dev, cfg, params, cache, card, what):
@@ -949,6 +1011,7 @@ def run_paged_engine(dev, cfg, card: str, state):
         raise AssertionError("decode through the pool: logits differ from "
                              "the slot cache's")
     del slot_cache
+    rel, agree = check_decode(cfg, params, pool, tok, 257, "paged ")
     last = torch.zeros(8, dtype=torch.int32, device=dev)
     decode_scan(cfg, params, pool, last, 256, 4, use_kernel=True)
     torch.cuda.synchronize()
@@ -964,6 +1027,8 @@ def run_paged_engine(dev, cfg, card: str, state):
         f"{8 * steps / dt:.1f} tokens/s; one step replayed as a CUDA graph: "
         f"{dev_ms:.3f} ms ({card})")
     return launches, dict(paged_run_s=run_s, paged_pages=eng.total_pages,
+                          paged_decode_full_rel_l2=rel,
+                          paged_decode_full_argmax_agree=agree,
                           paged_small_pool_agree=float(agree),
                           paged_decode_ms_per_step=dt / steps * 1e3,
                           paged_decode_tokens_per_s=8 * steps / dt,
@@ -1085,6 +1150,10 @@ def run_ew_engine(dev, cfg, state):
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
         run = {k: n for k, n in counts().items() if n}
+        check_completions(comps, prompts, cfg, "ew Engine", n_new)
+        rel, dec_agree = check_decode(
+            cfg, params, engine.cache, last_tokens(comps, dev),
+            max(len(c.tokens) for c in comps), "ew ")
         kernels.reset_launch_counts()
         tok = torch.zeros((8, 1), dtype=torch.int64, device=dev)
         logits, _ = decode_step(cfg, params, tok, engine.cache, 300,
@@ -1097,7 +1166,6 @@ def run_ew_engine(dev, cfg, state):
             "K12": cfg.n_layers}
     if step != want or not torch.isfinite(logits).all():
         raise AssertionError(f"ew Engine: one decode step launched {step}")
-    check_completions(comps, prompts, cfg, "ew Engine", n_new)
     agree = float(np.mean([
         np.mean(c.new_tokens == tokens[len(p):len(p) + n_new])
         for c, p, tokens in zip(comps, prompts, state["tokens"])]))
@@ -1105,7 +1173,9 @@ def run_ew_engine(dev, cfg, state):
         f"tokens in {run_s:.2f} s; launches {run}; one decode step launches "
         f"{want}, no K3/K11; new-token agreement with the default route "
         f"{agree:.4f} (not held: K12's f32 softmax is other arithmetic)")
-    return dict(ew_engine_run_s=run_s, ew_engine_token_agree=agree)
+    return dict(ew_engine_run_s=run_s, ew_engine_token_agree=agree,
+                ew_decode_full_rel_l2=rel,
+                ew_decode_full_argmax_agree=dec_agree)
 
 
 def run_benches(cfg, trace_dir):
@@ -1287,9 +1357,18 @@ def main():
         f"{torch.__version__}, CUDA {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    built = kernels.build()
+    built = kernels.build(ptxas_verbose=True)
     log(f"build: {time.perf_counter() - t0:.1f} s wall "
         + json.dumps({k: round(v['seconds'], 1) for k, v in built.items()}))
+    if "dequant_matmul.cu" in built:
+        stream_ptxas = ptxas_report(built["dequant_matmul.cu"]["log"],
+                                    "pair_stream_kernel")
+        log("ptxas, pair_stream_kernel (K1/K6/K7 at M <= 8): [registers, "
+            "spill store bytes, spill load bytes] " + json.dumps(stream_ptxas))
+    else:
+        stream_ptxas = None
+        log("ptxas: dequant_matmul.cu was built before this run, no report "
+            "(python -m sleekit_tpu_torch.kernels rebuilds with one)")
 
     cfg = opt_1b3(dtype=torch.bfloat16)
     g = torch.Generator().manual_seed(0)
@@ -1332,6 +1411,7 @@ def main():
             bound_ms=total("bound_ms"),
             bound_by=main_cs[0]["bound_by"], library_ms=total("library_ms"),
             cases=cs))
+    engine["ptxas_pair_stream_kernel"] = stream_ptxas
     print(json.dumps({"kernels": rows, "engine": engine,
                       "benches": benches}))
     print(smi)

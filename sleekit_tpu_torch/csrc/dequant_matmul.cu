@@ -22,52 +22,58 @@
 // operations (26 GFLOP for OPT-1.3B qkv at M = 1024, 26 us at the bf16
 // tensor-core rate), which CUDA-core FMAs run some 15x slower than that.
 //
-// Two routes per kernel, one launch entry. K1, K6, K7: M <= 8 runs
-// pair_kernel<P, 8, 1> (below).
-// M > 8 runs two kernels on the same stream: prologue_kernel writes pre(x)
-// once per call, as bf16 into the scratch xp (M, K rounded up to 64, 0
-// past K) with its row sums in rs, and pair_mma_kernel multiplies it on
-// the tensor cores (mma.sync m16n8k16 bf16, f32 accumulation). A pair
-// word holds K rows 2p and 2p+1 of one column as two bf16 mantissas, the
-// layout of one .b32 register of an m16n8k16 B fragment, so B is built in
-// registers straight from the words (shift, mask, OR the exponent, one
-// exact bf16x2 FMA to centre it) and no dequantized tile exists in shared
-// memory. A and the words arrive by cp.async in a ring of three 64-row
-// stages; A fragments come from shared memory by ldmatrix.
+// K1, K6, K7 and K2 share one route rule. Every call first runs
+// prologue_kernel, which writes pre(x) once, as bf16 into the scratch xp
+// (M, K rounded up to 64, 0 past K), with its row sums in rs (norm
+// statistics and activations are never recomputed per block). Then:
+// - M > 8, pair_mma_kernel: xp times the words on the tensor cores
+//   (mma.sync m16n8k16 bf16, f32 accumulation). A pair word holds K rows
+//   2p and 2p+1 of one column as two bf16 mantissas, the layout of one
+//   .b32 register of an m16n8k16 B fragment, so B is built in registers
+//   straight from the words (shift, mask, OR the exponent, one exact
+//   bf16x2 FMA to centre it) and no dequantized tile exists in shared
+//   memory. A and the words arrive by cp.async in a ring of three 64-row
+//   stages; A fragments come from shared memory by ldmatrix.
+// - M <= 8, pair_stream_kernel: bound by the word stream, so the operands
+//   swap: the decoded weight is the m16n8k16 A operand (16 output columns
+//   by 16 K rows; the same word is one A register, row = column, k = two
+//   consecutive K rows) and the <= 8 tokens are the n8 B operand, one
+//   8-byte load of xp per lane and k16 step, so no product row is wasted.
+//   Each lane loads 16 bytes along N (four columns of one word row) and
+//   every word it loads serves all of its planes; the next unit's words
+//   and x are in flight in registers while this unit's products run. The
+//   kernel is the prologue pass's programmatic dependent, so its blocks
+//   start, and load their first words, while the pass runs. K is split
+//   over a block's 8 warps and, where the column strips alone would leave
+//   SMs idle, over blocks; the partial sums meet in a fixed order (warps
+//   in a block through shared memory, blocks through a scratch of
+//   partials and a ticket per strip: the last block to arrive adds them
+//   in split order), so a call is bit for bit the same on every run.
+//   What still bounds it at OPT-1.3B's shapes is latency, not the stream:
+//   the prologue pass, the launch and the split-K tail take about as long
+//   as the words (PERF.md).
+// The decoders are shared: pair_reg (plane j of a 'pair' word), p4_reg
+// ('pair3x' 4-bit fields) and pair3_b ('pair3' low and high words) build
+// a bf16x2 register of the centred weight for either operand.
 //
-// The decode route: every weight word is read once per
-// M tile, coalesced along N (16 consecutive columns per half-warp), and
-// decoded in registers - one shift, AND, OR per plane gives the bf16 bit
-// patterns C = 1 + idx/2^nbits of two K rows at once; the affine codebook
-// is folded into the epilogue, so no dequantized weight ever exists. The
-// product runs over C - 1.5 (one exact subtraction): over C itself, the
-// fold a*acc + b*rowsum cancels catastrophically when x has a large mean
-// (after relu, rowsum ~ 2000 against a result ~ 7 at OPT-1.3B's fc2), and
-// the f32 rounding of acc then flips about one bf16 output in ten.
-// K6 and K7 are K1's body under another tile rule (the template parameter
-// P): the same prologue, 512-row chunks and epilogue, 32 K rows per thread
-// per chunk, one FMA per K row. A pair3 index keeps its 2 low bits in low
-// word p (rows j*32 + 2p + h) and its high bit in high word p % 8, plane
-// 2j + p/8 (the same rows), so the thread of K slice p loads both words
-// and ORs the two parts into one bf16 mantissa, C = 1 + idx/8; pair3x's
-// 4-bit fields give 4 + idx/4 as the TPU kernel builds them. Each value
-// goes into the product minus its midpoint (2*(C - 1.4375) and
-// 4 + idx/4 - 4.875, both idx/4 - 0.875, exact), so both layouts fold
-// a = 4*step and b = zero + 3.5*step. The TPU kernel's pair3x epilogue
+// The product runs over C - 1.5 (one exact subtraction): over C itself,
+// the fold a*acc + b*rowsum cancels catastrophically when x has a large
+// mean (after relu, rowsum ~ 2000 against a result ~ 7 at OPT-1.3B's fc2),
+// and the f32 rounding of acc then flips about one bf16 output in ten.
+// K6 and K7 are K1's kernels under another tile rule (the template
+// parameter P). A pair3 index keeps its 2 low bits in low word p (rows
+// j*32 + 2p + h) and its high bit in high word p % 8, plane 2j + p/8 (the
+// same rows); both parts OR into one bf16 mantissa, C = 1 + idx/8;
+// pair3x's 4-bit fields give 4 + idx/4 as the TPU kernel builds them.
+// Each value goes into the product minus its midpoint (2*(C - 1.4375) and
+// 4 + idx/4 - 4.875, both idx/4 - 0.875, exact), so both layouts fold a =
+// 4*step and b = zero + 3.5*step. The TPU kernel's pair3x epilogue
 // instead subtracts a section-weighted rowsum from a*acc, two large,
-// nearly equal terms.
-// Each decode block owns 16 columns and one M tile of 8 rows; its 256
-// threads split K 16 ways and sum the slices through shared memory at the
-// end. pre(x) of the block's
-// rows is built chunk by chunk in shared memory, row-minor, so one 16-byte
-// load serves four rows. The decode route is the simple first version:
-// CUDA-core FMAs, no split-K across blocks (N = 2048 projections fill 128
-// of 132 SMs), and every block recomputes its rows' norm statistics.
-// The tensor-core route uses mma.sync, not wgmma, and cp.async, not TMA.
+// nearly equal terms. The tensor-core kernels use mma.sync, not wgmma,
+// and cp.async or plain loads, not TMA.
 //
-// K2 (the int8 head, OPT-1.3B: 2048 x 51200 bytes, 106 MB) runs the
-// prologue pass at every M, so norm statistics and pre(x) are built once
-// per call, then one of two kernels:
+// K2 (the int8 head, OPT-1.3B: 2048 x 51200 bytes, 106 MB), after the
+// prologue pass:
 // - M > 8, int8_mma_kernel: bound by its products (2*M*K*N, 0.21 ms at
 //   M = 1024 at the bf16 tensor-core rate; at M = 64 by the 106 MB, 0.033
 //   ms). pair_mma_kernel's pipeline and epilogue, but an int8 value takes
@@ -82,10 +88,9 @@
 //   the M tiles of a column strip share its bytes through L2.
 // - M <= 8, int8_stream_kernel: bound by the 106 MB weight stream (0.032
 //   ms at 3.35 TB/s). The weight is the m16n8k16 A operand and the tokens
-//   the n8, so the products cost a few instructions per 16 bytes and the
-//   loads are 16 bytes a lane along N, the next k16 step's in flight in
-//   registers while this one's products run. K is split across a block's
-//   8 warps, whose sums meet in a fixed order.
+//   the n8, as in pair_stream_kernel, with the next k16 step's loads in
+//   flight; K is split across a block's 8 warps, whose sums meet in a
+//   fixed order.
 #include "common.cuh"
 
 namespace {
@@ -94,9 +99,10 @@ enum Pre { PRE_NONE = 0, PRE_LN = 1, PRE_RMS = 2, PRE_RELU = 3, PRE_GELU = 4,
            PRE_GLU = 5 };
 
 constexpr int THREADS = 256;
-constexpr int KSPLIT = 16;   // K slices (threads along K) per block
-constexpr int BN = 16;       // threads along N per block
 constexpr int NWARPS = THREADS / 32;
+// Columns a decode block of K1/K6/K7 streams (pair_stream_kernel): lane
+// (g, t4) of each warp holds columns 4g .. 4g + 3 of the strip.
+constexpr int PAIR_COLS = 32;
 
 struct Args {
   const bf16* x;
@@ -110,8 +116,18 @@ struct Args {
   bf16* out;
   int M, N, K, x_cols, kw, ld_w, pre;
   float a, b, eps;
-  bf16* xp;   // tensor-core route scratch: pre(x), (M, xp_cols(K))
+  bf16* xp;   // the prologue pass's scratch: pre(x), (M, xp_cols(K))
   float* rs;  // and its row sums, (M,)
+};
+
+// K1/K6/K7's K split over blocks at M <= 8: splits slices, and above one
+// the partial sums (splits, M, N) and one ticket per column strip. Kept
+// out of Args: a larger Args made int8_mma_kernel 11% slower at M = 64
+// (PERF.md).
+struct Split {
+  float* part;
+  int* tickets;
+  int splits;
 };
 
 __device__ __forceinline__ float gelu_tanh(float x) {
@@ -140,125 +156,9 @@ __device__ __forceinline__ float prologue(const Args& g, float v, float u,
   }
 }
 
-// LOADS independent loads in flight per lane: the row walks are bound by
-// load latency, not bandwidth.
-constexpr int LOADS = 8;
-
-// Row statistics of the norm prologues over the valid K: mean (layernorm)
-// and 1/sqrt(var + eps); one warp per row.
-template <int BM>
-__device__ void row_stats(const Args& g, int m0, float* mu, float* rstd) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int m = warp; m < BM; m += NWARPS) {
-    float mean = 0.0f, r = 0.0f;
-    if (m0 + m < g.M) {
-      const bf16* row = g.x + (size_t)(m0 + m) * g.x_cols;
-      float s = 0.0f, s2 = 0.0f;
-      if (g.pre == PRE_LN) {
-        for (int k0 = 0; k0 < g.K; k0 += 32 * LOADS) {
-          float v[LOADS];
-#pragma unroll
-          for (int i = 0; i < LOADS; ++i) {
-            const int k = k0 + lane + 32 * i;
-            v[i] = k < g.K ? to_f(row[k]) : 0.0f;
-          }
-#pragma unroll
-          for (int i = 0; i < LOADS; ++i) s += v[i];
-        }
-        mean = warp_sum(s) / (float)g.K;
-      }
-      for (int k0 = 0; k0 < g.K; k0 += 32 * LOADS) {
-        float v[LOADS];
-#pragma unroll
-        for (int i = 0; i < LOADS; ++i) {
-          const int k = k0 + lane + 32 * i;
-          v[i] = k < g.K ? to_f(row[k]) - mean : 0.0f;
-        }
-#pragma unroll
-        for (int i = 0; i < LOADS; ++i) s2 += v[i] * v[i];
-      }
-      r = 1.0f / sqrtf(warp_sum(s2) / (float)g.K + g.eps);
-    }
-    if (lane == 0) {
-      mu[m] = mean;
-      rstd[m] = r;
-    }
-  }
-}
-
-// xs[c * BM + m] = pre(x)[m0 + m, k0 + c] for c < ck (0 past K or M), and
-// rs[m] += the chunk's row sums. One warp per row, lanes along K.
-template <int BM>
-__device__ void fill_chunk(const Args& g, int m0, int k0, int ck, float* xs,
-                           const float* mu, const float* rstd, float* rs) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const bool glu = g.pre == PRE_GLU;
-  const bool norm = g.pre == PRE_LN || g.pre == PRE_RMS;
-  for (int m = warp; m < BM; m += NWARPS) {
-    const bool row_ok = m0 + m < g.M;
-    const bf16* row = g.x + (size_t)(m0 + m) * g.x_cols;
-    float part = 0.0f;
-    for (int c0 = 0; c0 < ck; c0 += 32 * LOADS) {
-      // All of the batch's loads first, then the arithmetic.
-      float v[LOADS], u[LOADS], ls[LOADS], lb[LOADS];
-#pragma unroll
-      for (int i = 0; i < LOADS; ++i) {
-        const int c = c0 + lane + 32 * i, k = k0 + c;
-        const bool ok = row_ok && c < ck && k < g.K;
-        v[i] = ok ? to_f(row[k]) : 0.0f;
-        u[i] = ok && glu ? to_f(row[g.K + k]) : 0.0f;
-        ls[i] = ok && norm ? load_param(g.ln_s, k, g.ln_bf16) : 0.0f;
-        lb[i] = ok && norm && g.ln_b ? load_param(g.ln_b, k, g.ln_bf16)
-                                     : 0.0f;
-      }
-#pragma unroll
-      for (int i = 0; i < LOADS; ++i) {
-        const int c = c0 + lane + 32 * i, k = k0 + c;
-        const float y = row_ok && c < ck && k < g.K
-                            ? prologue(g, v[i], u[i], ls[i], lb[i], mu[m],
-                                       rstd[m])
-                            : 0.0f;
-        if (c < ck) xs[c * BM + m] = y;
-        part += y;
-      }
-    }
-    part = warp_sum(part);
-    if (lane == 0) rs[m] += part;
-  }
-}
-
-// Sum the K slices' partial products through shared memory (reusing the
-// x chunk buffer) and apply the epilogue to COLS columns from n0.
-template <int BM, int COLS>
-__device__ void epilogue(const Args& g, int m0, int n0, int n_out,
-                         const float (&acc)[BM][COLS / BN], float* red,
-                         const float* rs) {
-  constexpr int V = COLS / BN;
-  const int ks = threadIdx.x / BN, cn = threadIdx.x % BN;
-  __syncthreads();
-#pragma unroll
-  for (int m = 0; m < BM; ++m)
-#pragma unroll
-    for (int j = 0; j < V; ++j)
-      red[(ks * BM + m) * COLS + cn * V + j] = acc[m][j];
-  __syncthreads();
-  for (int e = threadIdx.x; e < BM * COLS; e += THREADS) {
-    const int m = e / COLS, c = e % COLS;
-    const int gm = m0 + m, gn = n0 + c;
-    if (gm >= g.M || gn >= n_out) continue;
-    float s = 0.0f;
-#pragma unroll
-    for (int k = 0; k < KSPLIT; ++k) s += red[(k * BM + m) * COLS + c];
-    float y = (g.a * s + g.b * rs[m]) * g.scale[gn];
-    if (g.bias) y += g.bias[gn];
-    if (g.res) y += to_f(g.res[(size_t)gm * n_out + gn]);
-    g.out[(size_t)gm * n_out + gn] = __float2bfloat16_rn(y);
-  }
-}
-
-// Tile rules: PG word rows per tile, BK K rows per tile, TPC tiles per
-// shared-memory chunk, WPT word rows per thread per chunk, row(i, ks) the
-// chunk row of a thread's i-th word. 'pair' has HP planes per 16-bit half.
+// Tile rules: PG word rows per tile, BK K rows per tile. 'pair' has HP
+// planes per 16-bit half; a plane spans 2*PG K rows, word row p holding
+// rows 2p and 2p + 1 of it.
 enum TileKind { TILE_PAIR = 0, TILE_PAIR3 = 1, TILE_PAIR3X = 2 };
 
 template <int NB>
@@ -268,236 +168,20 @@ struct Pair {
   static constexpr int HP = 16 / NB;
   static constexpr int PG = (HP % 2) ? 64 : 32;
   static constexpr int BK = 2 * PG * HP;
-  static constexpr int TPC = BK >= 512 ? 1 : 512 / BK;
-  static constexpr int CW = TPC * PG;   // word rows per chunk
-  static constexpr int CK = TPC * BK;   // K rows per chunk
-  static constexpr int WPT = CW / KSPLIT;
-  static __device__ __forceinline__ int row(int i, int ks) {
-    return ks + i * KSPLIT;
-  }
 };
 
-// 'pair3': 24 word rows per 256-row tile, two tiles a chunk; per tile, low
-// word ks and high word ks % 8.
+// 'pair3': 24 word rows per 256-row tile, 16 low words then 8 high words.
 struct Pair3 {
   static constexpr int KIND = TILE_PAIR3;
-  static constexpr int NBITS = 3;
-  static constexpr int PG = 24, BK = 256, TPC = 2;
-  static constexpr int CW = TPC * PG, CK = TPC * BK, WPT = 4;
-  static __device__ __forceinline__ int row(int i, int ks) {
-    return (i / 2) * PG + (i % 2 ? 16 + (ks & 7) : ks);
-  }
+  static constexpr int PG = 24, BK = 256;
 };
 
-// 'pair3x': 56 word rows per 512-row group, one group a chunk; 4-bit words
-// ks and ks + 16, low word 32 + ks, high word 48 + ks % 8.
+// 'pair3x': 56 word rows per 512-row group, 32 4-bit words then one pair3
+// tile.
 struct Pair3x {
   static constexpr int KIND = TILE_PAIR3X;
-  static constexpr int NBITS = 3;
-  static constexpr int PG = 56, BK = 512, TPC = 1;
-  static constexpr int CW = TPC * PG, CK = TPC * BK, WPT = 4;
-  static __device__ __forceinline__ int row(int i, int ks) {
-    return i == 0 ? ks : i == 1 ? ks + 16 : i == 2 ? 32 + ks : 48 + (ks & 7);
-  }
+  static constexpr int PG = 56, BK = 512;
 };
-
-// acc[m][v] += x rows (xl, xl + BM) times (lo, hi), the two K rows of a
-// plane.
-template <int BM, int NV>
-__device__ __forceinline__ void fma_rows(float (&acc)[BM][NV], const float* xl,
-                                         const float (&lo)[NV],
-                                         const float (&hi)[NV]) {
-#pragma unroll
-  for (int m = 0; m < BM; m += 4) {
-    const float4 a = *reinterpret_cast<const float4*>(xl + m);
-    const float4 b = *reinterpret_cast<const float4*>(xl + BM + m);
-    const float av[4] = {a.x, a.y, a.z, a.w};
-    const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-#pragma unroll
-      for (int v = 0; v < NV; ++v)
-        acc[m + e][v] += av[e] * lo[v] + bv[e] * hi[v];
-  }
-}
-
-// A pair3x 4-bit word p whose rows 2p, 2p + 1 are at xt: plane j holds
-// rows j*64 + 2p + h; the field ORs under exponent 129, 4 + idx/4.
-template <int BM, int NV>
-__device__ __forceinline__ void p4_word(float (&acc)[BM][NV],
-                                        const uint32_t (&w)[NV],
-                                        const float* xt) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int s = 3 - 4 * j;
-    float lo[NV], hi[NV];
-#pragma unroll
-    for (int v = 0; v < NV; ++v) {
-      uint32_t u = s >= 0 ? (w[v] << s) : (w[v] >> (-s));
-      u = (u & 0x00780078u) | 0x40804080u;
-      lo[v] = __uint_as_float(u << 16) - 4.875f;
-      hi[v] = __uint_as_float(u & 0xFFFF0000u) - 4.875f;
-    }
-    fma_rows<BM, NV>(acc, xt + j * 64 * BM, lo, hi);
-  }
-}
-
-// Slice ks's rows of a pair3 tile whose row 0 is at xt: low word ks
-// (plane j: rows j*32 + 2ks + h, 2 bits) and high word ks % 8, plane
-// 2j + ks/8 (the same rows, 1 bit). The low field goes to mantissa bits
-// 4-5 and the high bit to bit 6: C = 1 + idx/8.
-template <int BM, int NV>
-__device__ __forceinline__ void pair3_rows(float (&acc)[BM][NV],
-                                           const uint32_t (&wl)[NV],
-                                           const uint32_t (&wh)[NV],
-                                           const float* xt, int ks) {
-  uint32_t h[NV];
-#pragma unroll
-  for (int v = 0; v < NV; ++v) h[v] = wh[v] >> (ks >> 3);
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int sl = 4 - 2 * j, sh = 6 - 2 * j;
-    float lo[NV], hi[NV];
-#pragma unroll
-    for (int v = 0; v < NV; ++v) {
-      const uint32_t a = sl >= 0 ? (wl[v] << sl) : (wl[v] >> (-sl));
-      const uint32_t b = sh >= 0 ? (h[v] << sh) : (h[v] >> (-sh));
-      const uint32_t u = (a & 0x00300030u) | (b & 0x00400040u) | 0x3F803F80u;
-      lo[v] = (__uint_as_float(u << 16) - 1.4375f) * 2.0f;
-      hi[v] = (__uint_as_float(u & 0xFFFF0000u) - 1.4375f) * 2.0f;
-    }
-    fma_rows<BM, NV>(acc, xt + (j * 32 + 2 * ks) * BM, lo, hi);
-  }
-}
-
-// One chunk of a 3-bit layout: 32 K rows of slice ks (cw word rows; a
-// pair3 chunk at the end of K may hold one tile only).
-template <class P, int BM, int NV>
-__device__ __forceinline__ void pair3_chunk(float (&acc)[BM][NV],
-                                            const uint32_t (&w)[4][NV],
-                                            const float* xs, int ks, int cw) {
-  if constexpr (P::KIND == TILE_PAIR3X) {
-    p4_word<BM, NV>(acc, w[0], xs + 2 * ks * BM);
-    p4_word<BM, NV>(acc, w[1], xs + 2 * (ks + 16) * BM);
-    pair3_rows<BM, NV>(acc, w[2], w[3], xs + 256 * BM, ks);
-  } else {
-    pair3_rows<BM, NV>(acc, w[0], w[1], xs, ks);
-    if (cw > P::PG) pair3_rows<BM, NV>(acc, w[2], w[3], xs + P::BK * BM, ks);
-  }
-}
-
-// Word rows kw0 + P::row(i, ks) (i < WPT) of column n; 0 past the matrix.
-template <class P, int WPT, int NV>
-__device__ __forceinline__ void load_words(uint32_t (&w)[WPT][NV],
-                                           const int* words, int kw0, int kw,
-                                           int N, int n, int ks) {
-  static_assert(NV == 1, "the decode tiles take one column per thread");
-#pragma unroll
-  for (int i = 0; i < WPT; ++i) {
-    const int row = kw0 + P::row(i, ks);
-    const int* wp = words + (size_t)row * N + n;
-    if (n < N && row < kw) {
-      w[i][0] = (uint32_t)__ldg(wp);
-    } else {
-#pragma unroll
-      for (int v = 0; v < NV; ++v) w[i][v] = 0u;
-    }
-  }
-}
-
-// The decode route (M <= 8): BM = 8 rows, NV = 1 column per thread (more
-// blocks for the weight stream), two blocks per SM (at most 128 registers
-// a thread).
-template <class P, int BM, int NV>
-__global__ void __launch_bounds__(THREADS, BM == 8 ? 2 : 1)
-    pair_kernel(Args g) {
-  constexpr int NB = P::NBITS;
-  extern __shared__ float4 smem4[];
-  float* xs = reinterpret_cast<float*>(smem4);
-  __shared__ float mu[BM], rstd[BM], rs[BM];
-  const int ks = threadIdx.x / BN, cn = threadIdx.x % BN;
-  const int n0 = blockIdx.x * BN * NV, m0 = blockIdx.y * BM;
-  const int n = n0 + cn * NV;
-  const int* words = static_cast<const int*>(g.w);
-  if (threadIdx.x < BM) {
-    mu[threadIdx.x] = 0.0f;
-    rstd[threadIdx.x] = 0.0f;
-    rs[threadIdx.x] = 0.0f;
-  }
-  __syncthreads();
-  if (g.pre == PRE_LN || g.pre == PRE_RMS) row_stats<BM>(g, m0, mu, rstd);
-
-  constexpr uint32_t mlow = ((1u << NB) - 1u) << (7 - NB);
-  constexpr uint32_t mask = mlow | (mlow << 16);
-  float acc[BM][NV];
-#pragma unroll
-  for (int m = 0; m < BM; ++m)
-#pragma unroll
-    for (int v = 0; v < NV; ++v) acc[m][v] = 0.0f;
-
-  constexpr int WPT = P::WPT;  // word rows per thread per chunk
-  // The words of the next chunk are loaded while this one is built and
-  // consumed (two register buffers), so their device-memory latency hides
-  // behind the chunk's shared-memory work.
-  uint32_t wn[WPT][NV];
-  load_words<P, WPT, NV>(wn, words, 0, g.kw, g.N, n, ks);
-  for (int kw0 = 0; kw0 < g.kw; kw0 += P::CW) {
-    const int cw = min(P::CW, g.kw - kw0);
-    uint32_t wb[WPT][NV];
-#pragma unroll
-    for (int i = 0; i < WPT; ++i)
-#pragma unroll
-      for (int v = 0; v < NV; ++v) wb[i][v] = wn[i][v];
-    if (kw0 + P::CW < g.kw)
-      load_words<P, WPT, NV>(wn, words, kw0 + P::CW, g.kw, g.N, n, ks);
-    __syncthreads();  // the previous chunk is consumed
-    fill_chunk<BM>(g, m0, kw0 / P::PG * P::BK, cw / P::PG * P::BK, xs, mu,
-                   rstd, rs);
-    __syncthreads();
-    if (n >= g.N) continue;
-    if constexpr (P::KIND != TILE_PAIR) {
-      pair3_chunk<P, BM, NV>(acc, wb, xs, ks, cw);
-    } else {
-#pragma unroll
-      for (int i = 0; i < WPT; ++i) {
-        const int r = ks + i * KSPLIT;
-        if (r >= cw) break;
-        uint32_t w[NV];  // by value: a pointer would put wb in local memory
-#pragma unroll
-        for (int v = 0; v < NV; ++v) w[v] = wb[i][v];
-        const int t = r / P::PG, p = r - t * P::PG;
-        const float* xt = xs + (t * P::BK + 2 * p) * BM;
-#pragma unroll
-        for (int j = 0; j < P::HP; ++j) {
-          const int s = 7 - NB - NB * j;  // shift of plane j into the mantissa
-          float lo[NV], hi[NV];
-#pragma unroll
-          for (int v = 0; v < NV; ++v) {
-            uint32_t u = s >= 0 ? (w[v] << s) : (w[v] >> (-s));
-            u = (u & mask) | 0x3F803F80u;
-            // C - 1.5 of K rows 2p and 2p+1 (exact in f32)
-            lo[v] = __uint_as_float(u << 16) - 1.5f;
-            hi[v] = __uint_as_float(u & 0xFFFF0000u) - 1.5f;
-          }
-          const float* xl = xt + j * 2 * P::PG * BM;
-#pragma unroll
-          for (int m = 0; m < BM; m += 4) {
-            const float4 a = *reinterpret_cast<const float4*>(xl + m);
-            const float4 b = *reinterpret_cast<const float4*>(xl + BM + m);
-            const float av[4] = {a.x, a.y, a.z, a.w};
-            const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-#pragma unroll
-              for (int v = 0; v < NV; ++v)
-                acc[m + e][v] += av[e] * lo[v] + bv[e] * hi[v];
-          }
-        }
-      }
-    }
-  }
-  epilogue<BM, BN * NV>(g, m0, n0, g.N, acc, xs, rs);
-}
 
 // ---- the tensor-core route (M > 8) -----------------------------------------
 
@@ -548,11 +232,19 @@ __device__ __forceinline__ void load_params(const void* p, int k, int is_bf16,
 // and the row's sum into g.rs, W consecutive columns a thread at a time
 // (W = 8: 16-byte loads and stores, for K % 8 == 0 and aligned rows; else
 // W = 1), so every load of a row is in flight at once. The norm
-// statistics run over the valid K in two passes, as row_stats does.
+// statistics (mean for layernorm, then 1/sqrt(var + eps)) run over the
+// valid K in two passes. Block 0 also zeroes the decode route's tickets
+// (one per PAIR_COLS-column strip; null for the other routes), which the
+// kernel after it on the same stream counts up.
 template <int W>
-__global__ void __launch_bounds__(THREADS) prologue_kernel(Args g) {
+__global__ void __launch_bounds__(THREADS) prologue_kernel(Args g,
+                                                            int* tickets) {
   __shared__ float red[NWARPS];
   const int tid = threadIdx.x, m = blockIdx.x;
+  // A kernel launched after this one as its programmatic dependent (the
+  // decode route's) may start now: it loads its words, then waits for
+  // this grid before it reads xp, rs or the tickets.
+  asm volatile("griddepcontrol.launch_dependents;\n" ::);
   const auto block_sum = [&](float v) {
     v = warp_sum(v);
     __syncthreads();  // red's previous sum has been read
@@ -565,6 +257,9 @@ __global__ void __launch_bounds__(THREADS) prologue_kernel(Args g) {
   };
   const bool glu = g.pre == PRE_GLU;
   const bool norm = g.pre == PRE_LN || g.pre == PRE_RMS;
+  if (tickets && m == 0)
+    for (int i = tid; i < (g.N + PAIR_COLS - 1) / PAIR_COLS; i += THREADS)
+      tickets[i] = 0;
   const bf16* row = g.x + (size_t)m * g.x_cols;
   float mu = 0.0f, rstd = 0.0f;
   for (int pass = g.pre == PRE_LN ? 0 : 1; norm && pass < 2; ++pass) {
@@ -635,7 +330,29 @@ __device__ __forceinline__ uint32_t bf2_fma(uint32_t u, float m, float c) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// A pair3 B register: low word wl, plane j (2-bit fields) and high word
+// The decoders. Each builds one bf16x2 register of the centred weight, K
+// rows 2p (low half) and 2p + 1 of one column: a B register of the
+// tensor-core route (k = two consecutive K rows of one column) or an A
+// register of the decode route (row = that column).
+
+// Plane j of a 'pair' word of NB-bit fields: the bf16 bit patterns C = 1 +
+// idx/2^NB (one shift, AND, OR), then C - 1.5.
+template <int NB>
+__device__ __forceinline__ uint32_t pair_reg(uint32_t w, int j) {
+  constexpr uint32_t mlow = ((1u << NB) - 1u) << (7 - NB);
+  const uint32_t u = (((w >> (NB * j)) << (7 - NB)) & (mlow | mlow << 16)) |
+                     0x3F803F80u;
+  return bf2_fma(u, 1.0f, -1.5f);
+}
+
+// Plane j (< 4) of a 'pair3x' 4-bit word (top bit of each field 0): the
+// field ORs under exponent 129, 4 + idx/4, then minus 4.875.
+__device__ __forceinline__ uint32_t p4_reg(uint32_t w, int j) {
+  const uint32_t u = (((w >> (4 * j)) << 3) & 0x00780078u) | 0x40804080u;
+  return bf2_fma(u, 1.0f, -4.875f);
+}
+
+// A pair3 register: low word wl, plane j (2-bit fields) and high word
 // wh, plane i (1 bit), OR'd into the mantissa as C = 1 + idx/8, then
 // 2*(C - 1.4375) = idx/4 - 0.875.
 __device__ __forceinline__ uint32_t pair3_b(uint32_t wl, uint32_t wh, int j,
@@ -685,26 +402,16 @@ template <class P, int PART>
 __device__ __forceinline__ void b_frag(const int* ws, int ld, int c, int s,
                                        int t4, uint32_t (&b)[2]) {
   if constexpr (P::KIND == TILE_PAIR) {
-    constexpr int NB = P::NBITS, HALVES = P::PG / 32;
-    constexpr uint32_t mlow = ((1u << NB) - 1u) << (7 - NB);
-    const int j = c % (P::BK / MMA_KC) / HALVES;  // the chunk's plane
+    const int j = c % (P::BK / MMA_KC) / (P::PG / 32);  // the chunk's plane
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const uint32_t w = (uint32_t)ws[(8 * s + 4 * h + t4) * ld];
-      const uint32_t u = (((w >> (NB * j)) << (7 - NB)) & (mlow | mlow << 16))
-                         | 0x3F803F80u;
-      b[h] = bf2_fma(u, 1.0f, -1.5f);  // C - 1.5
-    }
+    for (int h = 0; h < 2; ++h)
+      b[h] = pair_reg<P::NBITS>((uint32_t)ws[(8 * s + 4 * h + t4) * ld], j);
   } else if constexpr (P::KIND == TILE_PAIR3) {
     pair3_frag(ws, ld, 4 * (c & 3) + s, t4, b);
   } else if constexpr (PART == 0) {  // 4-bit fields, plane c % 8 (< 4)
-    const int j = c & 7;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const uint32_t w = (uint32_t)ws[(8 * s + 4 * h + t4) * ld];
-      const uint32_t u = (((w >> (4 * j)) << 3) & 0x00780078u) | 0x40804080u;
-      b[h] = bf2_fma(u, 1.0f, -4.875f);  // 4 + idx/4 - 4.875
-    }
+    for (int h = 0; h < 2; ++h)
+      b[h] = p4_reg((uint32_t)ws[(8 * s + 4 * h + t4) * ld], c & 7);
   } else {
     pair3_frag(ws, ld, 4 * ((c & 7) - 4) + s, t4, b);
   }
@@ -889,44 +596,394 @@ int launch_mma(const Args& g, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <class P, int BM, int NV>
-int launch_pair(const Args& g, cudaStream_t stream) {
-  constexpr int red = KSPLIT * BM * BN * NV;
-  const int bytes = 4 * (P::CK * BM > red ? P::CK * BM : red);
-  static bool raised = false;
-  cudaError_t err = allow_smem(pair_kernel<P, BM, NV>, bytes, &raised);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((g.N + BN * NV - 1) / (BN * NV), (g.M + BM - 1) / BM);
-  pair_kernel<P, BM, NV><<<grid, THREADS, bytes, stream>>>(g);
-  return (int)cudaGetLastError();
+// ---- the decode route (M <= 8) ------------------------------------------
+
+// Whether the decode route's epilogue may store two columns as one
+// bf16x2: N even and the output and residual 4-byte aligned.
+__device__ __forceinline__ bool pair_stores(const Args& g) {
+  return g.N % 2 == 0 && (reinterpret_cast<uintptr_t>(g.out) & 3) == 0 &&
+         (reinterpret_cast<uintptr_t>(g.res) & 3) == 0;
+}
+
+// Its operands of output row m, columns n and n + 1 (n < g.N; column n +
+// 1 only below g.N): scale, bias and residual (0 where absent), the
+// residual pair as one bf16x2 load where pairs. The output (and the
+// residual) is g.N columns wide.
+struct Epi {
+  float s[2], b[2], r[2];
+};
+
+__device__ __forceinline__ Epi epi_load(const Args& g, int m, int n,
+                                        bool pairs) {
+  Epi e = {{0.0f, 0.0f}, {0.0f, 0.0f}, {0.0f, 0.0f}};
+  const bool two = n + 1 < g.N;
+  const size_t o = (size_t)m * g.N + n;
+  e.s[0] = g.scale[n];
+  if (two) e.s[1] = g.scale[n + 1];
+  if (g.bias) {
+    e.b[0] = g.bias[n];
+    if (two) e.b[1] = g.bias[n + 1];
+  }
+  if (g.res) {
+    if (two && pairs) {
+      const float2 r = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(g.res + o));
+      e.r[0] = r.x;
+      e.r[1] = r.y;
+    } else {
+      e.r[0] = to_f(g.res[o]);
+      if (two) e.r[1] = to_f(g.res[o + 1]);
+    }
+  }
+  return e;
+}
+
+// Output row m, columns n and n + 1 (if < g.N), from their sums v0, v1
+// and operands e: (a*v + brs)*scale + bias [+ res], brs = b*rs[m]; one
+// bf16x2 store where pairs.
+__device__ __forceinline__ void store_pair(const Args& g, int m, int n,
+                                           float v0, float v1, float brs,
+                                           const Epi& e, bool pairs) {
+  const size_t o = (size_t)m * g.N + n;
+  float y0 = (g.a * v0 + brs) * e.s[0];
+  if (g.bias) y0 += e.b[0];
+  if (g.res) y0 += e.r[0];
+  if (n + 1 < g.N) {
+    float y1 = (g.a * v1 + brs) * e.s[1];
+    if (g.bias) y1 += e.b[1];
+    if (g.res) y1 += e.r[1];
+    if (pairs) {
+      *reinterpret_cast<__nv_bfloat162*>(g.out + o) =
+          __floats2bfloat162_rn(y0, y1);
+      return;
+    }
+    g.out[o + 1] = __float2bfloat16_rn(y1);
+  }
+  g.out[o] = __float2bfloat16_rn(y0);
+}
+
+// The decode route walks K in units of word rows, each word loaded once
+// for all of its planes: 'pair' 8 word rows of a tile (one k16 step in
+// each of its HP planes); 'pair3' the 8 low words of one half of a tile
+// with the tile's 8 high words (8 steps); 'pair3x' per 512-row group its
+// four eights of 4-bit words (4 steps each), then its pair3 tile's two
+// halves. RW word rows a lane loads per unit, STEPS k16 steps at most.
+template <class P>
+constexpr int stream_steps() {
+  if constexpr (P::KIND == TILE_PAIR) return P::HP;
+  else return 8;
+}
+
+template <class P>
+struct Stream {
+  static constexpr int RW = P::KIND == TILE_PAIR ? 2 : 4;
+  static constexpr int STEPS = stream_steps<P>();
+};
+
+// Units of kw word rows (ops/dequant_matmul.py stream_units mirrors it).
+template <class P>
+__device__ __forceinline__ int stream_units(int kw) {
+  if constexpr (P::KIND == TILE_PAIR) return kw / 8;
+  else if constexpr (P::KIND == TILE_PAIR3) return kw / P::PG * 2;
+  else return kw / P::PG * 6;
+}
+
+constexpr int NO_ROW = 1 << 30;
+
+// The first K row of step s of unit u (a multiple of 16), or NO_ROW.
+template <class P>
+__device__ __forceinline__ int step_row(int u, int s) {
+  if constexpr (P::KIND == TILE_PAIR) {
+    const int w = 8 * u;
+    return w / P::PG * P::BK + 2 * (w % P::PG) + s * 2 * P::PG;
+  } else if constexpr (P::KIND == TILE_PAIR3) {
+    return (u >> 1) * P::BK + 16 * (2 * s + (u & 1));
+  } else {
+    const int r = u % 6, k0 = u / 6 * P::BK;
+    if (r < 4) return s < 4 ? k0 + 64 * s + 16 * r : NO_ROW;
+    return k0 + 256 + 16 * (2 * s + r - 4);
+  }
+}
+
+// The word rows lane t4 loads for unit u. Rows 0 and 1 give the lane's A
+// registers at k = 2*t4, +1 and k = 2*t4 + 8, +9 of every step: the K rows
+// 4*t4 .. 4*t4 + 3 of the step (the same permutation of k as its x load).
+// For the 3-bit rules rows 2 and 3 are the pair3 tile's high words, -1
+// where the unit has none.
+template <class P>
+__device__ __forceinline__ void unit_rows(int u, int t4,
+                                          int (&r)[Stream<P>::RW]) {
+  if constexpr (P::KIND == TILE_PAIR) {
+    r[0] = 8 * u + 2 * t4;
+  } else if constexpr (P::KIND == TILE_PAIR3) {
+    const int t = (u >> 1) * P::PG;
+    r[0] = t + 8 * (u & 1) + 2 * t4;
+    r[2] = t + 16 + 2 * t4;
+  } else {
+    const int q = u % 6, t = u / 6 * P::PG;
+    r[0] = q < 4 ? t + 8 * q + 2 * t4 : t + 32 + 8 * (q - 4) + 2 * t4;
+    r[2] = q < 4 ? -1 : t + 48 + 2 * t4;
+  }
+  r[1] = r[0] + 1;
+  if constexpr (Stream<P>::RW == 4) r[3] = r[2] < 0 ? -1 : r[2] + 1;
+}
+
+// Columns n .. n + 3 of word row r: one 16-byte load where vec, else four
+// 4-byte ones; zeros past the matrix or for r < 0.
+__device__ __forceinline__ void load_cols(const int* words, int r, int kw,
+                                          int N, int n, bool vec,
+                                          uint32_t (&w)[4]) {
+  w[0] = w[1] = w[2] = w[3] = 0u;
+  if (r < 0 || r >= kw) return;
+  const int* p = words + (size_t)r * N + n;
+  if (vec) {
+    if (n < N) {
+      const uint4 q = __ldg(reinterpret_cast<const uint4*>(p));
+      w[0] = q.x;
+      w[1] = q.y;
+      w[2] = q.z;
+      w[3] = q.w;
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (n + c < N) w[c] = (uint32_t)__ldg(p + c);
+  }
+}
+
+// The products of unit u: w[i][c] holds the lane's column c of its word
+// row i, x[s] its token's x at the K rows 4*t4 .. 4*t4 + 3 of step s. m16
+// tile i takes its rows g and g + 8 from the lane's columns 2i and 2i + 1.
+// Steps at or past K are skipped (their x is 0; the words there decode to
+// nonzero weights).
+template <class P>
+__device__ __forceinline__ void stream_unit(
+    float (&acc)[2][4], const uint32_t (&w)[Stream<P>::RW][4],
+    const uint32_t (&x)[Stream<P>::STEPS][2], int u, int K) {
+  if constexpr (P::KIND == TILE_PAIR) {
+#pragma unroll
+    for (int j = 0; j < P::HP; ++j) {
+      if (step_row<P>(u, j) >= K) break;  // the rows grow with the plane
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const uint32_t a[4] = {pair_reg<P::NBITS>(w[0][2 * i], j),
+                               pair_reg<P::NBITS>(w[0][2 * i + 1], j),
+                               pair_reg<P::NBITS>(w[1][2 * i], j),
+                               pair_reg<P::NBITS>(w[1][2 * i + 1], j)};
+        mma_bf16(acc[i], a, x[j]);
+      }
+    }
+  } else {
+    if (P::KIND == TILE_PAIR3X && u % 6 < 4) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const uint32_t a[4] = {p4_reg(w[0][2 * i], j),
+                                 p4_reg(w[0][2 * i + 1], j),
+                                 p4_reg(w[1][2 * i], j),
+                                 p4_reg(w[1][2 * i + 1], j)};
+          mma_bf16(acc[i], a, x[j]);
+        }
+      }
+      return;
+    }
+    const int hf = P::KIND == TILE_PAIR3 ? (u & 1) : u % 6 - 4;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      if (step_row<P>(u, q) >= K) break;
+      const int S = 2 * q + hf;  // low plane q, high plane S
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int c0 = 2 * i, c1 = 2 * i + 1;
+        const uint32_t a[4] = {pair3_b(w[0][c0], w[2][c0], q, S),
+                               pair3_b(w[0][c1], w[2][c1], q, S),
+                               pair3_b(w[1][c0], w[3][c0], q, S),
+                               pair3_b(w[1][c1], w[3][c1], q, S)};
+        mma_bf16(acc[i], a, x[q]);
+      }
+    }
+  }
+}
+
+// K1/K6/K7 at M <= 8 after the prologue pass: block (x, y) streams the
+// PAIR_COLS-column strip x over K slice y of sp.splits (units in equal
+// shares), its 8 warps over 8 sub-slices. Each lane keeps the next
+// unit's words and x in flight in registers while this unit's products
+// run. The warps' sums meet in shared memory in warp order; with one
+// slice the block applies the epilogue, else it writes its sums to
+// sp.part, and the last block of the strip to take a ticket adds the
+// slices in slice order and applies it.
+template <class P>
+__global__ void __launch_bounds__(THREADS, 2)
+    pair_stream_kernel(Args g, Split sp) {
+  using S = Stream<P>;
+  __shared__ float4 red[NWARPS][8][PAIR_COLS / 4];
+  __shared__ int last;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int gq = lane / 4, t4 = lane % 4;
+  const int n0 = blockIdx.x * PAIR_COLS, n = n0 + 4 * gq;
+  const int* words = static_cast<const int*>(g.w);
+  const bool vec = g.N % 4 == 0 &&
+                   (reinterpret_cast<uintptr_t>(words) & 15) == 0;
+  const int units = stream_units<P>(g.kw);
+  const int b0 = units * blockIdx.y / sp.splits;
+  const int b1 = units * (blockIdx.y + 1) / sp.splits;
+  const int u0 = b0 + (b1 - b0) * warp / NWARPS;
+  const int u1 = b0 + (b1 - b0) * (warp + 1) / NWARPS;
+  const bool tok = gq < g.M;  // the lane's token (the n8 column g)
+  const bf16* xrow = g.xp + (size_t)(tok ? gq : 0) * xp_cols(g.K) + 4 * t4;
+
+  const auto load_w = [&](int u, uint32_t (&wu)[S::RW][4]) {
+    int r[S::RW];
+    unit_rows<P>(u, t4, r);
+#pragma unroll
+    for (int i = 0; i < S::RW; ++i)
+      load_cols(words, r[i], g.kw, g.N, n, vec, wu[i]);
+  };
+  const auto load_x = [&](int u, uint32_t (&xu)[S::STEPS][2]) {
+#pragma unroll
+    for (int s = 0; s < S::STEPS; ++s) {
+      const int k = step_row<P>(u, s);
+      uint2 v = make_uint2(0u, 0u);
+      if (tok && k < g.K) v = __ldg(reinterpret_cast<const uint2*>(xrow + k));
+      xu[s][0] = v.x;
+      xu[s][1] = v.y;
+    }
+  };
+
+  float acc[2][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
+  // A ring of D units in registers: unit u0 + v lives in buffer v % D,
+  // and unit u + D - 1 loads while the products of unit u run. A third
+  // unit takes enough registers to cost the int4 rule one block an SM,
+  // and was slower on OPT-1.3B's shapes (PERF.md).
+  constexpr int D = 2;
+  uint32_t w[D][S::RW][4], x[D][S::STEPS][2];
+#pragma unroll
+  for (int d = 0; d < D - 1; ++d)
+    if (u0 + d < u1) load_w(u0 + d, w[d]);
+  // Thread tid < 8 * PAIR_COLS / 2 of the epilogue: token t, columns c and
+  // c + 1, whose operands load now.
+  const int t = tid / (PAIR_COLS / 2), c = 2 * (tid % (PAIR_COLS / 2));
+  const int nc = n0 + c;
+  const bool mine = tid < 8 * PAIR_COLS / 2 && t < g.M && nc < g.N;
+  const bool pairs = pair_stores(g);
+  Epi epi = {};
+  if (mine) epi = epi_load(g, t, nc, pairs);
+  // The words, scale, bias and residual do not depend on the prologue
+  // pass launched before this kernel (launch_pair_m makes it its
+  // programmatic dependent); xp, rs and the tickets do.
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  const float brs = mine ? g.b * g.rs[t] : 0.0f;
+#pragma unroll
+  for (int d = 0; d < D - 1; ++d)
+    if (u0 + d < u1) load_x(u0 + d, x[d]);
+  for (int u = u0; u < u1; u += D) {
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      const int ahead = u + d + D - 1;
+      if (ahead < u1) {
+        load_w(ahead, w[(d + D - 1) % D]);
+        load_x(ahead, x[(d + D - 1) % D]);
+      }
+      if (u + d < u1) stream_unit<P>(acc, w[d], x[d], u + d, g.K);
+    }
+  }
+
+  // acc[i][e]: the lane's column 2i (e < 2) or 2i + 1 (e >= 2), token
+  // 2*t4 + e % 2. red[warp][token][column / 4].
+  red[warp][2 * t4][gq] =
+      make_float4(acc[0][0], acc[0][2], acc[1][0], acc[1][2]);
+  red[warp][2 * t4 + 1][gq] =
+      make_float4(acc[0][1], acc[0][3], acc[1][1], acc[1][3]);
+  __syncthreads();
+  const float* rf = reinterpret_cast<const float*>(red);
+  float s0 = 0.0f, s1 = 0.0f;
+  if (mine)
+#pragma unroll
+    for (int v = 0; v < NWARPS; ++v) {
+      s0 += rf[(v * 8 + t) * PAIR_COLS + c];
+      s1 += rf[(v * 8 + t) * PAIR_COLS + c + 1];
+    }
+  if (sp.splits == 1) {
+    if (mine) store_pair(g, t, nc, s0, s1, brs, epi, pairs);
+    return;
+  }
+  if (mine) {
+    float* p = sp.part + ((size_t)blockIdx.y * g.M + t) * g.N + nc;
+    p[0] = s0;
+    if (nc + 1 < g.N) p[1] = s1;
+  }
+  __threadfence();  // the partials are visible before the ticket is taken
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(sp.tickets + blockIdx.x, 1) == sp.splits - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  if (mine) {
+    s0 = s1 = 0.0f;
+    for (int y = 0; y < sp.splits; ++y) {
+      const float* p = sp.part + ((size_t)y * g.M + t) * g.N + nc;
+      s0 += __ldcg(p);
+      if (nc + 1 < g.N) s1 += __ldcg(p + 1);
+    }
+    store_pair(g, t, nc, s0, s1, brs, epi, pairs);
+  }
 }
 
 // The prologue pass: 16-byte loads and stores where K % 8 == 0 and the
 // rows and norm parameters are aligned, else one column a thread.
-int launch_prologue(const Args& g, cudaStream_t stream) {
+int launch_prologue(const Args& g, int* tickets, cudaStream_t stream) {
   const auto aligned = [](const void* p) {
     return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
   };
   const bool norm = g.pre == PRE_LN || g.pre == PRE_RMS;
   if (g.K % 8 == 0 && aligned(g.x) &&
       (!norm || (aligned(g.ln_s) && aligned(g.ln_b))))
-    prologue_kernel<8><<<g.M, THREADS, 0, stream>>>(g);
+    prologue_kernel<8><<<g.M, THREADS, 0, stream>>>(g, tickets);
   else
-    prologue_kernel<1><<<g.M, THREADS, 0, stream>>>(g);
+    prologue_kernel<1><<<g.M, THREADS, 0, stream>>>(g, tickets);
   return (int)cudaGetLastError();
 }
 
-// M <= 8: the decode kernel. M > 8: the prologue pass, then the tensor-core
+// The prologue pass, then at M <= 8 the streaming kernel (its
+// programmatic dependent) over (strips, sp.splits) blocks (sp.splits >=
+// 1; above 1 it needs sp.part and sp.tickets), else the tensor-core
 // kernel in 128 x 128 tiles, two blocks an SM where they fill the card
 // twice over (264 blocks; fewer registers, more warps), else one; or in
 // 32 x 64 tiles where the large ones would leave more than half the SMs
-// idle (fewer than 64 blocks). Measured on OPT-1.3B's projections (PERF.md).
+// idle (fewer than 64 blocks). Measured on OPT-1.3B's projections
+// (PERF.md).
 template <class P>
-int launch_pair_m(const Args& g, cudaStream_t stream) {
-  if (g.M <= 8) return launch_pair<P, 8, 1>(g, stream);
+int launch_pair_m(const Args& g, const Split& sp, cudaStream_t stream) {
   if (!g.xp || !g.rs) return (int)cudaErrorInvalidValue;
-  const int err = launch_prologue(g, stream);
+  const bool stream_route = g.M <= 8;
+  if (stream_route &&
+      (sp.splits < 1 || (sp.splits > 1 && (!sp.part || !sp.tickets))))
+    return (int)cudaErrorInvalidValue;
+  const int err = launch_prologue(
+      g, stream_route && sp.splits > 1 ? sp.tickets : nullptr, stream);
   if (err != cudaSuccess) return err;
+  if (stream_route) {
+    // A programmatic dependent of the prologue pass: its blocks start
+    // while the pass runs and load their first words.
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[0].val.programmaticStreamSerializationAllowed = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((g.N + PAIR_COLS - 1) / PAIR_COLS, sp.splits);
+    cfg.blockDim = dim3(THREADS);
+    cfg.stream = stream;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const cudaError_t e =
+        cudaLaunchKernelEx(&cfg, pair_stream_kernel<P>, g, sp);
+    return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+  }
   using Wide = MmaTile<4, 4>;
   const int wide = ((g.M + Wide::BM - 1) / Wide::BM) *
                    ((g.N + Wide::BN - 1) / Wide::BN);
@@ -935,18 +992,17 @@ int launch_pair_m(const Args& g, cudaStream_t stream) {
   return launch_mma<P, 1, 2, 1>(g, stream);
 }
 
-template <class P>
-int pair3_entry(const void* x, const void* words, const void* scale,
-                const void* bias, const void* ln_s, const void* ln_b,
-                int ln_bf16, const void* res, void* out, void* xp, void* rs,
-                int M, int N, int K, int x_cols, int kw, int pre, float a,
-                float b, float eps, void* stream) {
-  Args g{static_cast<const bf16*>(x), words,
-         static_cast<const float*>(scale), static_cast<const float*>(bias),
-         ln_s, ln_b, ln_bf16, static_cast<const bf16*>(res),
-         static_cast<bf16*>(out), M, N, K, x_cols, kw, N, pre, a, b, eps,
-         static_cast<bf16*>(xp), static_cast<float*>(rs)};
-  return launch_pair_m<P>(g, static_cast<cudaStream_t>(stream));
+Args pair_args(const void* x, const void* words, const void* scale,
+               const void* bias, const void* ln_s, const void* ln_b,
+               int ln_bf16, const void* res, void* out, void* xp, void* rs,
+               int M, int N, int K, int x_cols, int kw, int pre, float a,
+               float b, float eps) {
+  return Args{static_cast<const bf16*>(x), words,
+              static_cast<const float*>(scale),
+              static_cast<const float*>(bias), ln_s, ln_b, ln_bf16,
+              static_cast<const bf16*>(res), static_cast<bf16*>(out), M, N,
+              K, x_cols, kw, N, pre, a, b, eps, static_cast<bf16*>(xp),
+              static_cast<float*>(rs)};
 }
 
 // ---- K2: the int8 head --------------------------------------------------
@@ -1259,7 +1315,7 @@ __global__ void __launch_bounds__(THREADS, 2) int8_stream_kernel(Args g) {
 // head (PERF.md).
 int launch_int8_m(const Args& g, cudaStream_t stream) {
   if (!g.xp || !g.rs) return (int)cudaErrorInvalidValue;
-  int err = launch_prologue(g, stream);
+  int err = launch_prologue(g, nullptr, stream);
   if (err != cudaSuccess) return err;
   if (g.M <= 8) {
     const int strips = (g.N + STREAM_COLS - 1) / STREAM_COLS;
@@ -1280,31 +1336,34 @@ int launch_int8_m(const Args& g, cudaStream_t stream) {
 // K1. x (M, x_cols) bf16 (x_cols = K, or 2K for silu_glu); words (kw, N)
 // int32 'pair'; scale/bias (N,) f32 (bias may be null); ln_s/ln_b (K,)
 // f32 or bf16 (ln_bf16); res (M, N) bf16 or null; out (M, N) bf16; xp
-// (M, K rounded up to 64) bf16 and rs (M,) f32, scratch of the M > 8 route
-// (an M > 8 call without them returns cudaErrorInvalidValue; M <= 8 reads
-// neither). The product runs over the centred weight C - 1.5, so b must be
-// the rowsum coefficient of that fold: b_aff + 1.5 * a_aff.
+// (M, K rounded up to 64) bf16 and rs (M,) f32, the prologue pass's
+// scratch at every M; at M <= 8, splits >= 1 K slices over blocks, and
+// above 1 the scratch part (splits, M, N) f32 and tickets, one int32 per
+// 32-column strip (a call without the scratch it needs returns
+// cudaErrorInvalidValue). The product runs over the centred weight C -
+// 1.5, so b must be the rowsum coefficient of that fold: b_aff + 1.5 *
+// a_aff.
 extern "C" int pair_matmul(const void* x, const void* words,
                            const void* scale, const void* bias,
                            const void* ln_s, const void* ln_b, int ln_bf16,
                            const void* res, void* out, void* xp, void* rs,
-                           int M, int N, int K, int x_cols, int kw, int nbits,
+                           void* part, void* tickets, int M, int N, int K,
+                           int x_cols, int kw, int splits, int nbits,
                            int pre, float a, float b, float eps,
                            void* stream) {
-  Args g{static_cast<const bf16*>(x), words,
-         static_cast<const float*>(scale), static_cast<const float*>(bias),
-         ln_s, ln_b, ln_bf16, static_cast<const bf16*>(res),
-         static_cast<bf16*>(out), M, N, K, x_cols, kw, N, pre, a, b, eps,
-         static_cast<bf16*>(xp), static_cast<float*>(rs)};
+  const Args g = pair_args(x, words, scale, bias, ln_s, ln_b, ln_bf16, res,
+                           out, xp, rs, M, N, K, x_cols, kw, pre, a, b, eps);
+  const Split sp{static_cast<float*>(part), static_cast<int*>(tickets),
+                 splits};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (nbits) {
-    case 1: return launch_pair_m<Pair<1>>(g, s);
-    case 2: return launch_pair_m<Pair<2>>(g, s);
-    case 3: return launch_pair_m<Pair<3>>(g, s);
-    case 4: return launch_pair_m<Pair<4>>(g, s);
-    case 5: return launch_pair_m<Pair<5>>(g, s);
-    case 6: return launch_pair_m<Pair<6>>(g, s);
-    case 7: return launch_pair_m<Pair<7>>(g, s);
+    case 1: return launch_pair_m<Pair<1>>(g, sp, s);
+    case 2: return launch_pair_m<Pair<2>>(g, sp, s);
+    case 3: return launch_pair_m<Pair<3>>(g, sp, s);
+    case 4: return launch_pair_m<Pair<4>>(g, sp, s);
+    case 5: return launch_pair_m<Pair<5>>(g, sp, s);
+    case 6: return launch_pair_m<Pair<6>>(g, sp, s);
+    case 7: return launch_pair_m<Pair<7>>(g, sp, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1316,22 +1375,28 @@ extern "C" int pair3x_matmul(const void* x, const void* words,
                              const void* scale, const void* bias,
                              const void* ln_s, const void* ln_b, int ln_bf16,
                              const void* res, void* out, void* xp, void* rs,
-                             int M, int N, int K, int x_cols, int kw, int pre,
-                             float a, float b, float eps, void* stream) {
-  return pair3_entry<Pair3x>(x, words, scale, bias, ln_s, ln_b, ln_bf16, res,
-                             out, xp, rs, M, N, K, x_cols, kw, pre, a, b, eps,
-                             stream);
+                             void* part, void* tickets, int M, int N, int K,
+                             int x_cols, int kw, int splits, int pre, float a,
+                             float b, float eps, void* stream) {
+  return launch_pair_m<Pair3x>(
+      pair_args(x, words, scale, bias, ln_s, ln_b, ln_bf16, res, out, xp, rs,
+                M, N, K, x_cols, kw, pre, a, b, eps),
+      Split{static_cast<float*>(part), static_cast<int*>(tickets), splits},
+      static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int pair3_matmul(const void* x, const void* words,
                             const void* scale, const void* bias,
                             const void* ln_s, const void* ln_b, int ln_bf16,
                             const void* res, void* out, void* xp, void* rs,
-                            int M, int N, int K, int x_cols, int kw, int pre,
-                            float a, float b, float eps, void* stream) {
-  return pair3_entry<Pair3>(x, words, scale, bias, ln_s, ln_b, ln_bf16, res,
-                            out, xp, rs, M, N, K, x_cols, kw, pre, a, b, eps,
-                            stream);
+                            void* part, void* tickets, int M, int N, int K,
+                            int x_cols, int kw, int splits, int pre, float a,
+                            float b, float eps, void* stream) {
+  return launch_pair_m<Pair3>(
+      pair_args(x, words, scale, bias, ln_s, ln_b, ln_bf16, res, out, xp, rs,
+                M, N, K, x_cols, kw, pre, a, b, eps),
+      Split{static_cast<float*>(part), static_cast<int*>(tickets), splits},
+      static_cast<cudaStream_t>(stream));
 }
 
 // K2. x (M, K) bf16; w8 (Kp, Np) int8, Kp >= K; out (M, N) bf16 with

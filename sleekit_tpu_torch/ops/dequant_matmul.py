@@ -34,15 +34,16 @@ not folded.
 
 The JAX package chunks prefill-size M through its kernel
 (``PREFILL_CHUNK_M``, a TPU VMEM limit); the CUDA kernels tile M
-themselves, so the port has no chunking. Above ``DECODE_M`` rows K1, K6
-and K7 run on the tensor cores after a prologue pass into scratch that
-their wrappers allocate; one call is still one counted launch. K2 runs
-that prologue pass at every M, then above ``DECODE_M`` rows its own
-tensor-core kernel (the int8 bytes converted to bf16 tiles in shared
-memory), and up to ``DECODE_M`` rows a kernel that streams the weight
-with 16-byte loads into tensor-core products whose N is the tokens, K
-split over a block's warps and summed in a fixed order; its wrapper
-allocates the prologue's scratch at every M (:func:`_xp_scratch`).
+themselves, so the port has no chunking. K1, K6, K7 and K2 share one
+route rule, and one call is still one counted launch: a prologue pass
+writes pre(x) and its row sums once into scratch that the wrappers
+allocate at every M (:func:`_scratch`); then above ``DECODE_M`` rows
+a tensor-core kernel tiles the product (K2 converts its int8 bytes to
+bf16 tiles in shared memory), and up to ``DECODE_M`` rows a kernel
+streams the weight with 16-byte loads into tensor-core products whose N
+is the tokens, K split over a block's warps and, for K1/K6/K7 where the
+column strips alone leave SMs idle, over blocks (:func:`stream_plan`),
+the slices summed in a fixed order.
 ``LUT_POLY`` and ``PAIR_TUNE`` are the TPU kernels' schedules of the
 same functions; the port accepts and ignores them.
 """
@@ -50,6 +51,7 @@ same functions; the port accepts and ignores them.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -68,31 +70,41 @@ PAIR_TUNE = {"kb": 0, "split": False, "dim_sem": False, "bn": 0, "p3m": 2}
 _PRE = {None: 0, "layernorm": 1, "rmsnorm": 2, "relu": 3, "gelu": 4,
         "silu_glu": 5}
 
-# K1/K6/K7 take their decode route up to DECODE_M rows; above it, a
-# prologue pass into scratch (K rounded up to XP_CHUNK columns) and the
-# tensor-core kernel (``csrc/dequant_matmul.cu``: ``launch_pair_m``,
-# ``MMA_KC``). K2 runs the prologue pass at every M, then its streaming
-# kernel up to DECODE_M rows (``launch_int8_m``).
+# K1/K6/K7 and K2 run a prologue pass into scratch (K rounded up to
+# XP_CHUNK columns) at every M, then their streaming kernel up to DECODE_M
+# rows and their tensor-core kernel above (``csrc/dequant_matmul.cu``:
+# ``launch_pair_m``, ``launch_int8_m``, ``MMA_KC``).
 DECODE_M = 8
 XP_CHUNK = 64
 
+# K1/K6/K7's streaming kernel (``pair_stream_kernel``): a block of
+# STREAM_WARPS warps streams STREAM_COLS columns (``PAIR_COLS``) over its
+# slice of K; K is split in units of word rows (:func:`stream_units`) so
+# that the blocks come nearest to STREAM_BLOCKS_PER_SM an SM
+# (:func:`stream_plan`; the SM count is the device's, H100_SMS without
+# one).
+STREAM_COLS = 32
+STREAM_WARPS = 8
+STREAM_BLOCKS_PER_SM = 2
+H100_SMS = 132
+
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # (x, words, scale, bias, ln_scale, ln_bias, ln_bf16, residual, out, xp, rs,
-#  M, N, K, x_cols, kw, nbits, pre, a, b, eps)
+#  part, tickets, M, N, K, x_cols, kw, splits, nbits, pre, a, b, eps)
 K1 = CudaKernel(
     "K1", "dequant_matmul.cu", "pair_matmul",
-    [_P] * 6 + [_I] + [_P] * 4 + [_I] * 7 + [_F] * 3,
+    [_P] * 6 + [_I] + [_P] * 6 + [_I] * 8 + [_F] * 3,
     replaces="sleekit_tpu/ops/dequant_matmul.py:515 _pallas_pair_impl")
 # (x, words, scale, bias, ln_scale, ln_bias, ln_bf16, residual, out, xp, rs,
-#  M, N, K, x_cols, kw, pre, a, b, eps)
+#  part, tickets, M, N, K, x_cols, kw, splits, pre, a, b, eps)
 K6 = CudaKernel(
     "K6", "dequant_matmul.cu", "pair3x_matmul",
-    [_P] * 6 + [_I] + [_P] * 4 + [_I] * 6 + [_F] * 3,
+    [_P] * 6 + [_I] + [_P] * 6 + [_I] * 7 + [_F] * 3,
     replaces="sleekit_tpu/ops/dequant_matmul.py:515 _pallas_pair_impl "
              "(p3x=True)")
 K7 = CudaKernel(
     "K7", "dequant_matmul.cu", "pair3_matmul",
-    [_P] * 6 + [_I] + [_P] * 4 + [_I] * 6 + [_F] * 3,
+    [_P] * 6 + [_I] + [_P] * 6 + [_I] * 7 + [_F] * 3,
     replaces="sleekit_tpu/ops/dequant_matmul.py:515 _pallas_pair_impl "
              "(pair3=True)")
 # (x, w8, scale, bias, ln_scale, ln_bias, ln_bf16, residual, out, xp, rs,
@@ -276,21 +288,74 @@ def _ptr(t: Optional[torch.Tensor]) -> int:
     return 0 if t is None else t.data_ptr()
 
 
-def _xp_scratch(x: torch.Tensor, k: int):
-    """The prologue pass's scratch: pre(x) as bf16 with K rounded up to
-    XP_CHUNK columns, and its row sums."""
+def stream_units(kw: int, layout: str) -> int:
+    """Units of word rows that K1/K6/K7's streaming kernel walks K in, each
+    word loaded once for all its planes (``csrc`` ``stream_units``):
+    'pair' 8 word rows of a tile, 'pair3' half a tile's low words with its
+    high words, 'pair3x' six per 512-row group (four eights of 4-bit words,
+    the pair3 tile's two halves)."""
+    if layout == "pair":
+        return kw // 8
+    if layout == "pair3":
+        return kw // PAIR3_WORDS * 2
+    return kw // PAIR3X_WORDS * 6
+
+
+def stream_plan(n: int, kw: int, layout: str, sms: int = H100_SMS):
+    """(strips, splits) of K1/K6/K7's streaming kernel over (kw, n) words:
+    STREAM_COLS-column strips, and K split over blocks so that they come
+    nearest to STREAM_BLOCKS_PER_SM an SM (so at least one an SM), but
+    never so far that a warp of a slice has no unit (K too short: one
+    split). The partial sums' scratch is (splits, M, n) f32 with one int32
+    ticket a strip; none at one split."""
+    strips = -(-n // STREAM_COLS)
+    most = max(1, stream_units(kw, layout) // STREAM_WARPS)
+    want = (2 * STREAM_BLOCKS_PER_SM * sms + strips) // (2 * strips)
+    return strips, max(1, min(most, want))
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _scratch_layout(m: int, k: int, n: int = 0, kw: int = 0,
+                    layout: Optional[str] = None, sms: int = H100_SMS):
+    """(cols, splits, rs, part, tickets, size): one call's scratch, in
+    bytes from its start. pre(x) as bf16 (m, cols) at 0, cols = K rounded
+    up to XP_CHUNK (16-byte rows), its f32 row sums at ``rs``; for
+    K1/K6/K7 (``layout`` given) at m <= DECODE_M over more than one split
+    (:func:`stream_plan`), the f32 partials (splits, m, n) at ``part`` and
+    one int32 ticket a strip at ``tickets`` (0 where absent)."""
     cols = -(-k // XP_CHUNK) * XP_CHUNK
-    return (torch.empty((x.shape[0], cols), dtype=torch.bfloat16,
-                        device=x.device),
-            torch.empty(x.shape[0], dtype=torch.float32, device=x.device))
+    rs = m * cols * 2
+    size = rs + -(-m * 4 // 16) * 16
+    splits, part, tickets = 1, 0, 0
+    if layout is not None and m <= DECODE_M:
+        strips, splits = stream_plan(n, kw, layout, sms)
+        if splits > 1:
+            part, tickets = size, size + 4 * splits * m * n
+            size = tickets + 4 * strips
+    return cols, splits, rs, part, tickets, size
 
 
-def _prefill_scratch(x: torch.Tensor, k: int):
-    """The scratch of K1/K6/K7's tensor-core route (M > DECODE_M), from
-    :func:`_xp_scratch`; (None, None) at decode M, which reads neither."""
-    if x.shape[0] <= DECODE_M:
-        return None, None
-    return _xp_scratch(x, k)
+def _scratch(x: torch.Tensor, k: int, n: int = 0, kw: int = 0,
+             layout: Optional[str] = None):
+    """One device buffer for a call's scratch (:func:`_scratch_layout`,
+    with the device's SM count): (the buffer, splits, and the addresses
+    of xp, rs, the partials and the tickets, 0 where absent). One
+    allocation a call keeps the host's share of an eager decode step
+    small."""
+    m = x.shape[0]
+    sms = (_sms(x.device.index or 0) if layout is not None
+           and m <= DECODE_M else H100_SMS)
+    _, splits, rs, part, tickets, size = _scratch_layout(m, k, n, kw, layout,
+                                                          sms)
+    buf = torch.empty(size, dtype=torch.uint8, device=x.device)
+    p = buf.data_ptr()
+    return (buf, splits, p, p + rs, p + part if part else 0,
+            p + tickets if tickets else 0)
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -355,11 +420,12 @@ def pair_matmul(x, packed, scale, bias, *, nbits, k, a_aff, b_aff,
                             residual, n)
     m = x.shape[0]
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
-    xp, rs = _prefill_scratch(x, k)
+    _buf, splits, xp, rs, part, tickets = _scratch(x, k, n, kw, "pair")
     K1(x.data_ptr(), packed.data_ptr(), scale.data_ptr(), _ptr(bias),
        _ptr(ln_scale), _ptr(ln_bias), ln_bf16, _ptr(residual),
-       out.data_ptr(), _ptr(xp), _ptr(rs), m, n, k, x.shape[1], kw, nbits,
-       _PRE[pre], float(a_aff), _centred(a_aff, b_aff), float(eps))
+       out.data_ptr(), xp, rs, part, tickets, m, n, k, x.shape[1], kw,
+       splits, nbits, _PRE[pre], float(a_aff), _centred(a_aff, b_aff),
+       float(eps))
     return out
 
 
@@ -392,11 +458,11 @@ def pair3_matmul(x, packed, scale, bias, *, k, a_aff, b_aff, pre=None,
                             residual, n)
     m = x.shape[0]
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
-    xp, rs = _prefill_scratch(x, k)
+    _buf, splits, xp, rs, part, tickets = _scratch(x, k, n, kw, layout)
     kernel(x.data_ptr(), packed.data_ptr(), scale.data_ptr(), _ptr(bias),
            _ptr(ln_scale), _ptr(ln_bias), ln_bf16, _ptr(residual),
-           out.data_ptr(), _ptr(xp), _ptr(rs), m, n, k, x.shape[1], kw,
-           _PRE[pre], float(a_aff), _centred(a_aff, b_aff, layout),
+           out.data_ptr(), xp, rs, part, tickets, m, n, k, x.shape[1], kw,
+           splits, _PRE[pre], float(a_aff), _centred(a_aff, b_aff, layout),
            float(eps))
     return out
 
@@ -484,11 +550,11 @@ def int8_matmul(x, packed, scale, bias, *, k, out_n, a_aff, b_aff,
                             residual, out_n)
     m = x.shape[0]
     out = torch.empty((m, out_n), dtype=torch.bfloat16, device=x.device)
-    xp, rs = _xp_scratch(x, k)
+    _buf, _, xp, rs, _, _ = _scratch(x, k)
     K2(x.data_ptr(), packed.data_ptr(), scale.data_ptr(), _ptr(bias),
        _ptr(ln_scale), _ptr(ln_bias), ln_bf16, _ptr(residual),
-       out.data_ptr(), xp.data_ptr(), rs.data_ptr(), m, out_n, k, kp, np_,
-       _PRE[pre], float(a_aff), float(b_aff), float(eps))
+       out.data_ptr(), xp, rs, m, out_n, k, kp, np_, _PRE[pre],
+       float(a_aff), float(b_aff), float(eps))
     return out
 
 

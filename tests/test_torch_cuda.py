@@ -36,23 +36,33 @@ def _ulp_misses(got, ref):
     return int(((got - ref).abs() > tol).sum())
 
 
-@pytest.mark.parametrize("nbits", [2, 4, 7])
+# (nbits, m, N, glue) of K1's cases: the decode route (m <= 8) at every
+# nbits, N and glue; the tensor-core route at 2, 4 and 7 bits with glue.
+_K1_CASES = (
+    [(nb, m, N, glue) for nb in range(1, 8) for m in (1, 3, 8)
+     for N in (200, 198, 1029) for glue in (True, False)]
+    + [(nb, m, N, True) for nb in (2, 4, 7) for m in (9, 40, 64, 1024)
+       for N in (200, 198)])
+
+
+@pytest.mark.parametrize("nbits,m,N,glue", _K1_CASES)
 @pytest.mark.parametrize("pre", [None, "layernorm", "rmsnorm", "relu", "gelu",
                                  "silu_glu"])
-@pytest.mark.parametrize("m", [3, 9, 40, 64, 1024])
-@pytest.mark.parametrize("N", [200, 198])
-def test_k1_matches_plain(dev, nbits, pre, m, N):
-    """K1 against its plain version: the decode route (m = 3) and the
-    tensor-core route (m > 8, here in 32 x 64 tiles), K not a multiple of
-    the 64-row stage (400; with N = 198, 396: not a multiple of 8 either,
-    so the prologue pass takes one column a thread), N not a multiple of
-    4 at 198."""
+def test_k1_matches_plain(dev, nbits, pre, m, N, glue):
+    """K1 against its plain version: the decode route (m <= 8: the
+    prologue pass and the streaming kernel) and the tensor-core route (m >
+    8, here in 32 x 64 tiles), with and without (``glue``) a bias and a
+    residual. K ends inside a pair tile and is not a multiple of the
+    64-row stage (400; with N = 198, 396: not a multiple of 8 either, so
+    the prologue pass takes one column a thread); N is not a multiple of
+    the 32-column strip at 200 and 1029, nor of 4 at 198 and 1029 (4-byte
+    word loads), and odd at 1029 (one output column at a time)."""
     from sleekit_tpu_torch.ops.dequant_matmul import (
         K1, pair_matmul, pair_matmul_plain)
     from sleekit_tpu_torch.ops.pack import pack_indices
 
     g = torch.Generator().manual_seed(nbits)
-    K = 400 if N == 200 else 396
+    K = 396 if N == 198 else 400
     idx = torch.randint(0, 2 ** nbits, (K, N), generator=g)
     packed = pack_indices(idx, nbits, layout="pair").to(dev)
     x = torch.randn(m, 2 * K if pre == "silu_glu" else K, generator=g).to(
@@ -60,9 +70,10 @@ def test_k1_matches_plain(dev, nbits, pre, m, N):
     kw = dict(nbits=nbits, k=K, a_aff=0.125, b_aff=-1.0, pre=pre,
               ln_scale=torch.rand(K, generator=g).to(dev) + 0.5,
               ln_bias=torch.randn(K, generator=g).to(dev) * 0.1,
-              residual=torch.randn(m, N, generator=g).to(dev, torch.bfloat16))
+              residual=torch.randn(m, N, generator=g).to(dev, torch.bfloat16)
+              if glue else None)
     scale = torch.rand(N, generator=g).to(dev) + 0.5
-    bias = torch.randn(N, generator=g).to(dev)
+    bias = torch.randn(N, generator=g).to(dev) if glue else None
     before = K1.launches
     got = pair_matmul(x, packed, scale, bias, **kw)
     torch.cuda.synchronize()
@@ -107,18 +118,24 @@ def test_k1_k6_k7_tile_rules(dev, layout, m, N):
     _bf16_close(got, plain(x, packed, scale, bias, **kw))
 
 
-def test_k1_replays_in_cuda_graph(dev):
-    """K1 at M = 64 (the tensor-core route, whose wrapper allocates its
-    scratch) captured in a CUDA graph: the scratch is allocated under
-    capture, and a replay after x changes in place gives the eager call's
-    output for the new x."""
+@pytest.mark.parametrize("m", [8, 64])
+def test_k1_replays_in_cuda_graph(dev, m):
+    """K1 on both routes captured in a CUDA graph: the prologue's scratch
+    and, at M = 8 (2048 x 256: four K splits), the split-K partials and
+    tickets are set up under capture, and two replays after x changes in
+    place each give the eager call's output for the new x (the prologue
+    pass zeroes the tickets on every replay)."""
+    from sleekit_tpu_torch.ops import dequant_matmul as dm
     from sleekit_tpu_torch.ops.dequant_matmul import K1, pair_matmul
     from sleekit_tpu_torch.ops.pack import pack_indices
 
     g = torch.Generator().manual_seed(5)
-    K, N, m = 512, 256, 64
+    K, N = (2048, 256) if m <= dm.DECODE_M else (512, 256)
     packed = pack_indices(torch.randint(0, 16, (K, N), generator=g), 4,
                           layout="pair").to(dev)
+    if m <= dm.DECODE_M:
+        assert dm._scratch(torch.empty(m, K, device=dev), K, N,
+                           packed.shape[0], "pair")[1] > 1
     x = torch.randn(m, K, generator=g).to(dev, torch.bfloat16)
     scale = torch.rand(N, generator=g).to(dev) + 0.5
     kw = dict(nbits=4, k=K, a_aff=0.125, b_aff=-1.0, pre="layernorm",
@@ -134,19 +151,46 @@ def test_k1_replays_in_cuda_graph(dev):
     with torch.cuda.graph(graph):
         out = call()
     assert K1.launches == before + 1
-    x.copy_(torch.randn(m, K, generator=g).to(dev, torch.bfloat16))
-    graph.replay()
-    torch.cuda.synchronize()
-    assert torch.equal(out, call())
+    for _ in range(2):
+        x.copy_(torch.randn(m, K, generator=g).to(dev, torch.bfloat16))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, call())
 
 
-def test_k1_k6_k7_raise_without_scratch(dev):
-    """An M > 8 launch without the scratch pointers returns a CUDA error
-    that the kernel's binding raises; nothing falls back."""
+@pytest.mark.parametrize("m", [1, 8])
+@pytest.mark.parametrize("K,N", [(2048, 2048), (8192, 2048)])
+def test_k1_stream_is_deterministic(dev, m, K, N):
+    """K1's streaming route at OPT-1.3B's o and fc2 shapes, where K is
+    split over blocks: within the bf16 tolerance of the plain version, and
+    bit for bit the same on a second call (the warps' and the splits'
+    partial sums are added in a fixed order)."""
     from sleekit_tpu_torch.ops import dequant_matmul as dm
     from sleekit_tpu_torch.ops.pack import pack_indices
 
-    K, N, m = 512, 64, 16
+    g = torch.Generator().manual_seed(K + m)
+    packed = pack_indices(torch.randint(0, 16, (K, N), generator=g), 4,
+                          layout="pair").to(dev)
+    x = torch.randn(m, K, generator=g).to(dev, torch.bfloat16)
+    assert dm._scratch(x, K, N, packed.shape[0], "pair")[1] > 1
+    kw = dict(nbits=4, k=K, a_aff=0.125, b_aff=-1.0, pre="layernorm",
+              ln_scale=torch.rand(K, generator=g).to(dev) + 0.5,
+              residual=torch.randn(m, N, generator=g).to(dev, torch.bfloat16))
+    scale = torch.rand(N, generator=g).to(dev) + 0.5
+    got = dm.pair_matmul(x, packed, scale, None, **kw)
+    assert torch.equal(got, dm.pair_matmul(x, packed, scale, None, **kw))
+    _bf16_close(got, dm.pair_matmul_plain(x, packed, scale, None, **kw))
+
+
+@pytest.mark.parametrize("m", [4, 16])
+def test_k1_k6_k7_raise_without_scratch(dev, m):
+    """A launch without the prologue pass's scratch pointers, on the
+    streaming route (m = 4) and the tensor-core route (m = 16), returns a
+    CUDA error that the kernel's binding raises; nothing falls back."""
+    from sleekit_tpu_torch.ops import dequant_matmul as dm
+    from sleekit_tpu_torch.ops.pack import pack_indices
+
+    K, N = 512, 64
     x = torch.zeros(m, K, device=dev, dtype=torch.bfloat16)
     scale = torch.ones(N, device=dev)
     out = torch.empty(m, N, device=dev, dtype=torch.bfloat16)
@@ -155,7 +199,8 @@ def test_k1_k6_k7_raise_without_scratch(dev):
                                   (dm.K7, "pair3", 3)):
         packed = pack_indices(idx, nbits, layout=layout).to(dev)
         head = (x.data_ptr(), packed.data_ptr(), scale.data_ptr(), 0, 0, 0,
-                0, 0, out.data_ptr(), 0, 0, m, N, K, K, packed.shape[0])
+                0, 0, out.data_ptr(), 0, 0, 0, 0, m, N, K, K,
+                packed.shape[0], 1)
         tail = ((nbits,) if kernel is dm.K1 else ()) + (0, 1.0, 0.0, 1e-5)
         with pytest.raises(RuntimeError, match="CUDA error"):
             kernel(*head, *tail)
@@ -577,14 +622,16 @@ def test_k5_matches_plain_and_k3(dev, G, cache, ragged):
 
 
 @pytest.mark.parametrize("layout,K", [("pair3", 400), ("pair3", 1792),
-                                      ("pair3x", 1536)])
+                                      ("pair3x", 1536), ("pair3x", 3584)])
 @pytest.mark.parametrize("pre", [None, "layernorm", "relu", "silu_glu"])
 @pytest.mark.parametrize("m", [1, 8, 40, 1024])
-@pytest.mark.parametrize("N", [200, 198])
+@pytest.mark.parametrize("N", [200, 198, 1029])
 def test_k6_k7_match_plain(dev, layout, K, pre, m, N):
     """K7 ('pair3', K not a multiple of its 256-row tile at 400) and K6
-    ('pair3x') against their plain version, with a prologue and a
-    residual, N not a multiple of the 16- or 64-column block."""
+    ('pair3x'; at 3584 its 42 units of the streaming route do not divide
+    into its 5 K splits) against their plain version, with a prologue and
+    a residual, N not a multiple of the 32- or 64-column block (nor of 4,
+    at 198 and 1029)."""
     from sleekit_tpu_torch.ops import dequant_matmul as dm
     from sleekit_tpu_torch.ops.pack import pack_indices
 

@@ -5,6 +5,8 @@ mode; the reference path against ``dequant_matmul_xla`` (mirrors
 tests/test_fusion.py:52,67,98 and tests/test_ops.py:119,130,163,234,315,
 459,522)."""
 
+from pathlib import Path
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -314,32 +316,100 @@ def test_prefill_m_plain_matches_jax_kernel(layout, K, pre):
                f"{layout} {pre} M={M}")
 
 
-@pytest.mark.parametrize("m", [1, 8, 9, 520])
-def test_prefill_scratch_only_above_decode_m(m):
-    """K1/K6/K7's wrappers allocate the tensor-core route's scratch only
-    above DECODE_M rows: pre(x) in bf16 with K rounded up to XP_CHUNK
-    columns, and one f32 row sum a row."""
-    x = torch.zeros(m, 400, dtype=torch.bfloat16)
-    xp, rs = tdm._prefill_scratch(x, 400)
-    if m <= tdm.DECODE_M:
-        assert xp is None and rs is None
-    else:
-        assert xp.shape == (m, 448) and xp.dtype == torch.bfloat16
-        assert rs.shape == (m,) and rs.dtype == torch.float32
-
-
 @pytest.mark.parametrize("m,k,cols", [
     (1, 2048, 2048),    # decode: K2's streaming route reads it too
     (8, 200, 256),      # K rounded up to XP_CHUNK
     (9, 64, 64),
     (64, 4096, 4096),
     (520, 100, 128),
+    (1, 400, 448),      # on both sides of DECODE_M
+    (8, 400, 448),
+    (9, 400, 448),
+    (520, 400, 448),
 ])
 def test_xp_scratch_at_every_m(m, k, cols):
-    """K2's wrapper allocates the prologue pass's scratch at every M (K1's
-    only above DECODE_M): pre(x) in bf16 with K rounded up to XP_CHUNK
-    columns, and one f32 row sum a row."""
-    x = torch.zeros(m, k, dtype=torch.bfloat16)
-    xp, rs = tdm._xp_scratch(x, k)
-    assert xp.shape == (m, cols) and xp.dtype == torch.bfloat16
-    assert rs.shape == (m,) and rs.dtype == torch.float32
+    """The wrappers of K1, K6, K7 and K2 allocate the prologue pass's
+    scratch at every M, in one buffer: pre(x) in bf16 with K rounded up to
+    XP_CHUNK columns at its start, then one f32 row sum a row, 16-byte
+    aligned; K1/K6/K7 at M <= DECODE_M over more than one K split put
+    their f32 partials and one int32 ticket a 32-column strip after it."""
+    got, splits, rs, part, tickets, size = tdm._scratch_layout(m, k)
+    assert (got, splits, rs, part, tickets) == (cols, 1, m * cols * 2, 0, 0)
+    assert rs % 16 == 0 and size >= rs + 4 * m
+    n, kw = 2048, 256       # int4 'pair' words of a 2048 x 2048 matrix
+    strips, want = tdm.stream_plan(n, kw, "pair")
+    got, splits, rs, part, tickets, size = tdm._scratch_layout(
+        m, k, n, kw, "pair")
+    assert (got, rs) == (cols, m * cols * 2)
+    if m <= tdm.DECODE_M:
+        assert splits == want > 1 and part % 16 == 0 and part >= rs + 4 * m
+        assert tickets == part + 4 * splits * m * n
+        assert size == tickets + 4 * strips
+    else:
+        assert (splits, part, tickets) == (1, 0, 0)
+
+
+def _kw(K, layout):
+    """Word rows of K rows of 4-bit 'pair', 'pair3' or 'pair3x' words."""
+    if layout == "pair":
+        pg = tpack.pair_group(4)
+        return -(-K // (2 * pg * tpack.pair_planes(4))) * pg
+    if layout == "pair3":
+        return -(-K // tpack.PAIR3_TILE) * tpack.PAIR3_WORDS
+    return K // tpack.PAIR3X_GROUP * tpack.PAIR3X_WORDS
+
+
+def _unit_steps(u, layout):
+    """First K rows of the k16 steps of unit u, as the streaming kernel's
+    ``step_row`` walks them (4-bit 'pair': tiles of 256 rows, 32 word
+    rows; 8 word rows a unit, one step in each of 4 planes)."""
+    if layout == "pair":
+        w = 8 * u
+        return [w // 32 * 256 + 2 * (w % 32) + 64 * j for j in range(4)]
+    if layout == "pair3":
+        return [u // 2 * 256 + 16 * (2 * q + u % 2) for q in range(8)]
+    g, r = divmod(u, 6)
+    if r < 4:
+        return [g * 512 + 64 * j + 16 * r for j in range(4)]
+    return [g * 512 + 256 + 16 * (2 * q + r - 4) for q in range(8)]
+
+
+_PLAN_SHAPES = [
+    (2048, 6144), (2048, 2048), (2048, 8192), (8192, 2048),  # OPT-1.3B
+    (4096, 6144), (14336, 4096),    # llama3-8b: fused qkv, down
+    (2048, 198),                    # ragged N
+    (400, 2048),                    # K below one tile (not pair3x's K)
+]
+
+
+@pytest.mark.parametrize("layout,K,N", [
+    (layout, K, N) for layout in ("pair", "pair3", "pair3x")
+    for K, N in _PLAN_SHAPES if layout != "pair3x" or K % 512 == 0])
+def test_stream_plan_fills_the_card(layout, K, N):
+    """K1/K6/K7's streaming kernel at decode M: its strips of STREAM_COLS
+    columns (the source's PAIR_COLS, in blocks of STREAM_WARPS warps)
+    and K splits fill at least the H100's 132 SMs with blocks, or split
+    as far as K allows (one split where K is below a warp's unit in
+    each split); the splits cut the units without gap or overlap, and the
+    units' k16 steps below K tile K exactly, once each."""
+    src = (Path(tdm.__file__).parent.parent / "csrc"
+           / "dequant_matmul.cu").read_text()
+    assert f"constexpr int PAIR_COLS = {tdm.STREAM_COLS};" in src
+    assert "constexpr int THREADS = 256;" in src and tdm.STREAM_WARPS == 8
+    kw = _kw(K, layout)
+    units = tdm.stream_units(kw, layout)
+    strips, splits = tdm.stream_plan(N, kw, layout)
+    most = max(1, units // tdm.STREAM_WARPS)
+    assert strips == -(-N // tdm.STREAM_COLS)
+    assert 1 <= splits <= most
+    assert strips * splits >= tdm.H100_SMS or splits == most
+    if K == 400:
+        assert splits == 1
+    cuts = [(units * s // splits, units * (s + 1) // splits)
+            for s in range(splits)]    # the kernel's cut of the units
+    assert cuts[0][0] == 0 and cuts[-1][1] == units
+    assert all(a < b for a, b in cuts)
+    assert all(cuts[i][1] == cuts[i + 1][0] for i in range(splits - 1))
+    rows = sorted(r for u in range(units) for r in _unit_steps(u, layout)
+                  if r < K)
+    assert rows == list(range(0, K, 16))
