@@ -4,7 +4,9 @@
 
 1. builds the port's CUDA kernels (K1-K15) from ``sleekit_tpu_torch/csrc``,
    one nvcc per source, all at once, and prints ptxas's registers and
-   spills of K1/K6/K7's decode kernel (``pair_stream_kernel``);
+   spills of K1/K6/K7's decode kernel (``pair_stream_kernel``) and of the
+   main path's ``decode_kernel`` instantiations (K3 over the slot cache,
+   K5 over the pool: bf16 q, int8 cache, bf16 scales);
 2. holds each kernel against its plain PyTorch version on the card at the
    shapes OPT-1.3B serving gives it, and times the kernel, the plain
    version and, where one exists, one PyTorch library call computing the
@@ -131,18 +133,36 @@ def log(*a):
     print(*a, flush=True)
 
 
-def ptxas_report(build_log: str, kernel: str):
+def pair_rule(name: str) -> str:
+    """The tile rule of a ``pair_stream_kernel`` instantiation, read from
+    its mangled name: Pair<NB>, Pair3, Pair3x."""
+    rule = re.search(r"Pair3x|Pair3|PairILi(\d+)E", name)
+    return (rule.group(0) if rule and not rule.group(1)
+            else f"Pair<{rule.group(1)}>" if rule else name)
+
+
+def decode_rule(name: str):
+    """The main path's ``decode_kernel`` instantiations, read from the
+    mangled name: bf16 q, int8 cache, bf16 scales, FUSED_APPEND, one query
+    head a pass, head dim 64 - K3 over the slot cache, K5 over the pool;
+    None for the others."""
+    m = re.search(r"decode_kernelI13__nv_bfloat16aS\d*_Lb1ELi0ELb([01])"
+                  r"ELi1ELi64EE", name)
+    return None if m is None else ("K3 slot", "K5 pool")[int(m.group(1))]
+
+
+def ptxas_report(build_log: str, kernel: str, rule=pair_rule):
     """{instantiation: [registers, spill store bytes, spill load bytes]}
-    of each entry named ``kernel`` in nvcc's ``-Xptxas -v`` output (the
-    tile rule read from the mangled name: Pair<NB>, Pair3, Pair3x)."""
+    of each entry named ``kernel`` in nvcc's ``-Xptxas -v`` output, keyed
+    by ``rule`` of its mangled name (None: left out)."""
     out = {}
     for part in build_log.split("Compiling entry function '")[1:]:
         name = part.split("'")[0]
         if kernel not in name:
             continue
-        rule = re.search(r"Pair3x|Pair3|PairILi(\d+)E", name)
-        key = (rule.group(0) if rule and not rule.group(1)
-               else f"Pair<{rule.group(1)}>" if rule else name)
+        key = rule(name)
+        if key is None:
+            continue
         regs = re.search(r"Used (\d+) registers", part)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", part)
@@ -350,7 +370,9 @@ def check_k2(dev, g, cfg):
 
 def check_k3(dev, g, cfg):
     """K3 at serving decode (OPT-1.3B: B 8, H = KV 32, D 64, S 512, 24
-    layers of int8 cache with bf16 scales), scalar and ragged positions."""
+    layers of int8 cache with bf16 scales), scalar and ragged positions:
+    pos 256 (one split of the fused kernel's rows) and 280 (two, as in the
+    decode steps' positions 272-287)."""
     L, B, H, S, D = cfg.n_layers, 8, cfg.n_heads, 512, cfg.head_dim
     kq, ks = attn._quant_rows(torch.randn(L, B, H, S, D, device=dev))
     vq, vs = attn._quant_rows(torch.randn(L, B, H, S, D, device=dev))
@@ -362,7 +384,8 @@ def check_k3(dev, g, cfg):
     cases = []
     ragged = torch.tensor([17, 100, 200, 256, 300, 400, 511, 60],
                           dtype=torch.int32, device=dev)
-    for label, pos in (("pos 256", 256), ("ragged pos", ragged)):
+    for label, pos in (("pos 256", 256), ("pos 280", 280),
+                       ("ragged pos", ragged)):
         planes = [kq, vq, ks, vs]
         ref = [t.clone() for t in planes]
         got = attn.fused_decode_append(q, kn, vn, planes[0], planes[1], pos,
@@ -494,9 +517,9 @@ def check_paged(dev, g, cfg):
     kernels K10, K11, K12 (mha_mode 'ew') and K13 (batch fold) at serving
     decode (OPT-1.3B: B 8, H = KV 32, D 64, 24 layers of int8 cache with
     bf16 scales, PS 64, MAXP 8, a strided out-of-order table of distinct
-    pages), scalar and ragged positions. The pool holds the slot cache's
-    rows page by page, so K5 is held to K3 on the same logical rows: output
-    and written bytes equal. K13 computes K11's function on another grid,
+    pages), scalar (256 and 280, as in ``check_k3``) and ragged positions.
+    The pool holds the slot cache's rows page by page, so K5 is held to K3
+    on the same logical rows: output and written bytes equal. K13 computes K11's function on another grid,
     so its output equals K11's bit for bit. K12 keeps q, K, p and p @ V in
     f32 and rounds only its output, as its plain version does, so it is
     held within one bf16 step of it (``ulp_misses``); K11's output, with p
@@ -552,7 +575,8 @@ def check_paged(dev, g, cfg):
             if not torch.equal(a, b):
                 raise AssertionError(f"{what}: written bytes differ")
 
-    for label, pos in (("pos 256", 256), ("ragged pos", ragged)):
+    for label, pos in (("pos 256", 256), ("pos 280", 280),
+                       ("ragged pos", ragged)):
         p = torch.clamp(torch.as_tensor(pos, device=dev).expand(B), 0, S - 1)
         lib = label == "pos 256"
 
@@ -1369,6 +1393,18 @@ def main():
         stream_ptxas = None
         log("ptxas: dequant_matmul.cu was built before this run, no report "
             "(python -m sleekit_tpu_torch.kernels rebuilds with one)")
+    if "decode_attention.cu" in built:
+        decode_ptxas = ptxas_report(built["decode_attention.cu"]["log"],
+                                    "decode_kernel", decode_rule)
+        if set(decode_ptxas) != {"K3 slot", "K5 pool"}:
+            raise AssertionError(f"ptxas: the main path's decode_kernel "
+                                 f"instantiations not found: {decode_ptxas}")
+        log("ptxas, decode_kernel (K3/K5 on the main path: bf16 q, int8 "
+            "cache, bf16 scales): [registers, spill store bytes, spill load "
+            "bytes] " + json.dumps(decode_ptxas))
+    else:
+        decode_ptxas = None
+        log("ptxas: decode_attention.cu was built before this run, no report")
 
     cfg = opt_1b3(dtype=torch.bfloat16)
     g = torch.Generator().manual_seed(0)
@@ -1412,6 +1448,7 @@ def main():
             bound_by=main_cs[0]["bound_by"], library_ms=total("library_ms"),
             cases=cs))
     engine["ptxas_pair_stream_kernel"] = stream_ptxas
+    engine["ptxas_decode_kernel"] = decode_ptxas
     print(json.dumps({"kernels": rows, "engine": engine,
                       "benches": benches}))
     print(smi)

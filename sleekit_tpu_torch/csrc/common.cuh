@@ -42,14 +42,16 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// Raise a kernel's dynamic shared memory limit above the 48 KB default
-// once per kernel; returns the error of that call (0 on success).
+// Raise a kernel's dynamic shared memory limit above the 48 KB default to
+// ``bytes`` where it is not that high yet; *raised (0 at first) keeps the
+// limit raised so far, so a later launch that needs more raises it again.
+// Returns the error of that call (0 on success).
 template <typename Kernel>
-inline cudaError_t allow_smem(Kernel kernel, int bytes, bool* done) {
-  if (bytes <= 48 * 1024 || *done) return cudaSuccess;
+inline cudaError_t allow_smem(Kernel kernel, int bytes, int* raised) {
+  if (bytes <= 48 * 1024 || bytes <= *raised) return cudaSuccess;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess) *done = true;
+  if (err == cudaSuccess) *raised = bytes;
   return err;
 }
 

@@ -587,7 +587,7 @@ __global__ void __launch_bounds__(THREADS, MINB) pair_mma_kernel(Args g) {
 template <class P, int WM, int WN, int MINB>
 int launch_mma(const Args& g, cudaStream_t stream) {
   using T = MmaTile<WM, WN>;
-  static bool raised = false;
+  static int raised = 0;
   cudaError_t err =
       allow_smem(pair_mma_kernel<P, WM, WN, MINB>, T::SMEM, &raised);
   if (err != cudaSuccess) return (int)err;
@@ -1189,7 +1189,7 @@ __global__ void __launch_bounds__(THREADS, MINB) int8_mma_kernel(Args g) {
 template <int WM, int WN, int MINB, int ST>
 int launch_int8_mma(const Args& g, cudaStream_t stream) {
   using T = Int8Tile<WM, WN, ST>;
-  static bool raised = false;
+  static int raised = 0;
   cudaError_t err =
       allow_smem(int8_mma_kernel<WM, WN, MINB, ST>, T::SMEM, &raised);
   if (err != cudaSuccess) return (int)err;

@@ -229,7 +229,7 @@ int launch(const Args& g, cudaStream_t stream) {
   using P = Plane<NB>;
   constexpr int red = KSPLIT * BM * BN * NV;
   const int bytes = 4 * (P::CK * BM > red ? P::CK * BM : red);
-  static bool raised = false;
+  static int raised = 0;
   cudaError_t err = allow_smem(plane_kernel<NB, LUT, BM, NV>, bytes, &raised);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((g.N + BN * NV - 1) / (BN * NV), (g.M + BM - 1) / BM);

@@ -270,7 +270,7 @@ int launch_mma(const void* q, const void* k, const void* v,
                const float* slopes, void* out, int B, int Tn, int H, int KV,
                float scale, cudaStream_t stream) {
   constexpr int bytes = Tile<D>::SMEM;
-  static bool raised = false;
+  static int raised = 0;
   cudaError_t err = allow_smem(prefill_mma_kernel<D>, bytes, &raised);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(H, B, (Tn + BT - 1) / BT);
@@ -440,7 +440,7 @@ int launch_f32(const void* q, const void* k, const void* v,
                const float* slopes, void* out, int B, int Tn, int H, int KV,
                int D, float scale, cudaStream_t stream) {
   // The limit is raised once, for the largest D, so every D launches.
-  static bool raised = false;
+  static int raised = 0;
   cudaError_t err =
       allow_smem(prefill_f32_kernel, f32_smem_bytes(128), &raised);
   if (err != cudaSuccess) return (int)err;

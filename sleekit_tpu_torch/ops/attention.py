@@ -30,6 +30,7 @@ PLACE and the same tensors are returned.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional
 
@@ -58,11 +59,11 @@ FLASH_BATCH_FOLD = False
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # (q, k_new, v_new, cache_k, cache_v, k_scale, v_scale, slopes, pos, table,
-#  out, pos_scalar, layer, B, KV, G, P, PS, MAXP, D, scale, q_bf16,
-#  cache_kind, scale_bf16)
-FUSED_DECODE_ARGS = [_P] * 11 + [_I] * 9 + [_F] + [_I] * 3
+#  out, part, tickets, pos_scalar, layer, B, KV, G, P, PS, MAXP, D, R,
+#  splits, scale, q_bf16, cache_kind, scale_bf16)
+FUSED_DECODE_ARGS = [_P] * 13 + [_I] * 11 + [_F] + [_I] * 3
 # The same without k_new and v_new.
-FLASH_DECODE_ARGS = [_P] * 9 + [_I] * 9 + [_F] + [_I] * 3
+FLASH_DECODE_ARGS = [_P] * 11 + [_I] * 11 + [_F] + [_I] * 3
 # (k_new, v_new, cache_k, cache_v, k_scale, v_scale, pos, table,
 #  pos_scalar, layer, B, KV, P, PS, MAXP, D, new_bf16, cache_kind,
 #  scale_bf16)
@@ -89,6 +90,15 @@ K4 = CudaKernel(
     replaces="sleekit_tpu/ops/attention.py:1138 flash_prefill_pallas")
 
 _CACHE_KIND = {torch.int8: 0, torch.bfloat16: 1, torch.float32: 2}
+
+# The decode-attention kernels' split over the cache rows
+# (``csrc/decode_attention.cu``: THREADS, MIN_ROWS, MAX_ROWS): blocks of
+# DECODE_WARPS warps, a split of DECODE_MIN_ROWS to DECODE_MAX_ROWS logical
+# rows, as many as DECODE_SPLIT_BYTES of K rows hold (:func:`decode_plan`).
+DECODE_WARPS = 4
+DECODE_MIN_ROWS = 16
+DECODE_MAX_ROWS = 256
+DECODE_SPLIT_BYTES = 16384
 
 
 def _quant_rows(x: torch.Tensor):
@@ -280,6 +290,54 @@ def _geometry(cache_k, cache_v, k_scale, v_scale, page_table, B: int, dev):
             scale_bf16, page_table.data_ptr())
 
 
+def decode_lanes(D: int, itemsize: int) -> int:
+    """Lanes of a warp that read one cache row of D elements of
+    ``itemsize`` bytes, 16 bytes each: a power of two, at most 32 (the
+    source's ``lanes_per_row``)."""
+    chunks = -(-D * itemsize // 16)
+    lanes = 1
+    while lanes < chunks and lanes < 32:
+        lanes *= 2
+    return lanes
+
+
+@functools.lru_cache(maxsize=None)
+def decode_plan(B: int, KV: int, G: int, D: int, itemsize: int,
+                capacity: int):
+    """``(R, splits, scratch_bytes)`` of a decode-attention launch over a
+    cache of ``capacity`` logical rows (S for a slot cache, MAXP*PS for a
+    pool) of D elements of ``itemsize`` bytes. A split is R rows, a
+    multiple of ``step`` (16 and one block step's rows, DECODE_WARPS warps
+    of 32 / lanes rows): as many as DECODE_SPLIT_BYTES of K rows (16-byte
+    chunks) hold, at most DECODE_MAX_ROWS, at least one step. R depends on
+    D and the cache dtype alone, never on B, KV, G or the row rule, so a
+    split's arithmetic depends only on its logical rows. ``splits`` cover
+    the capacity; the scratch holds each split's (acc[D], m, l) per query
+    head in f32, (B, KV, splits, G, D + 2)."""
+    step = max(DECODE_MIN_ROWS,
+               DECODE_WARPS * (32 // decode_lanes(D, itemsize)))
+    row_bytes = -(-D * itemsize // 16) * 16
+    fit = min(DECODE_MAX_ROWS, DECODE_SPLIT_BYTES // row_bytes)
+    R = max(step, fit // step * step)
+    splits = -(-capacity // R)
+    return R, splits, 4 * B * KV * splits * G * (D + 2)
+
+
+# One int32 ticket per (batch row, KV head) a device, zero between launches:
+# the block that takes a (b, h)'s last ticket resets it, so a graph replays
+# with no reset pass. Launches that share them run on one stream. A buffer
+# outgrown is kept, since a captured graph may still point at it.
+_TICKETS: dict = {}
+
+
+def _tickets(n: int, dev) -> torch.Tensor:
+    held = _TICKETS.setdefault(dev, [])
+    if not held or held[-1].numel() < n:
+        held.append(torch.zeros(max(n, 4096), dtype=torch.int32,
+                                device=dev))
+    return held[-1]
+
+
 def launch_decode(kernel: CudaKernel, q, k_new, v_new, cache_k, cache_v,
                   pos, layer: int, scale: float, alibi_slopes, k_scale,
                   v_scale, page_table=None):
@@ -309,7 +367,14 @@ def launch_decode(kernel: CudaKernel, q, k_new, v_new, cache_k, cache_v,
                and alibi_slopes.is_contiguous(),
                "alibi_slopes must be a contiguous f32 (H,) on q's device")
     pos_ptr, pos_scalar = _pos_arg(pos, B, dev)
-    out = torch.empty((B, H, D), dtype=q.dtype, device=dev)
+    R, splits, nbytes = decode_plan(B, KV, H // KV, D,
+                                    cache_k.element_size(), MAXP * PS)
+    # One allocation a call: out, then the partials from a 16-byte boundary
+    # (as_strided: the cheapest view on the host).
+    size = q.element_size()
+    at = -(-B * H * D * size // 16) * 16
+    buf = torch.empty((at + nbytes) // size, dtype=q.dtype, device=dev)
+    out = buf.as_strided((B, H, D), (H * D, D, 1))
     ptrs = [q.data_ptr()]
     if k_new is not None:
         ptrs += [k_new.data_ptr(), v_new.data_ptr()]
@@ -317,9 +382,11 @@ def launch_decode(kernel: CudaKernel, q, k_new, v_new, cache_k, cache_v,
              k_scale.data_ptr() if k_scale is not None else 0,
              v_scale.data_ptr() if v_scale is not None else 0,
              0 if alibi_slopes is None else alibi_slopes.data_ptr(),
-             pos_ptr, table, out.data_ptr()]
-    kernel(*ptrs, pos_scalar, layer, B, KV, H // KV, P, PS, MAXP, D,
-           float(scale), int(q.dtype == torch.bfloat16), kind, scale_bf16)
+             pos_ptr, table, out.data_ptr(), buf.data_ptr() + at,
+             _tickets(B * KV, dev).data_ptr()]
+    kernel(*ptrs, pos_scalar, layer, B, KV, H // KV, P, PS, MAXP, D, R,
+           splits, float(scale), int(q.dtype == torch.bfloat16), kind,
+           scale_bf16)
     return out
 
 
@@ -487,10 +554,9 @@ def flash_decode(q, cache_k, cache_v, pos, layer: int, scale: float,
     dtype. Kernel K11, or K12 / K13 as :func:`decode_route` selects.
 
     ``block_s`` and ``kv_chunk`` are the TPU kernel's block sizes; the
-    CUDA kernels have their own (one group of 128 threads per KV head and
-    batch row, 128-row chunks), so every value of them gives the same
-    answer. A CUDA tensor launches the kernel; a CPU tensor takes its
-    plain version."""
+    CUDA kernels have their own (splits of :func:`decode_plan`'s R rows),
+    so every value of them gives the same answer. A CUDA tensor launches
+    the kernel; a CPU tensor takes its plain version."""
     del block_s, kv_chunk
     kernel, plain = decode_route(q, cache_k, mha_mode, batch_fold)
     if not q.is_cuda:

@@ -181,8 +181,9 @@ def paged_fused_decode_append(q, k_new, v_new, pool_k, pool_v, page_table,
     so its output and written bytes equal K3's on the same logical rows.
 
     ``page_fold`` is the TPU kernel's pages per program (``PAGED_FOLD``),
-    a schedule: the CUDA kernel walks 128-row logical chunks whatever the
-    page size, so it accepts any value and ignores it. A CUDA tensor
+    a schedule: the CUDA kernel splits the logical rows as over a slot
+    cache whatever the page size, so it accepts any value and ignores
+    it. A CUDA tensor
     launches the kernel; a CPU tensor takes the plain version."""
     if not q.is_cuda:
         return paged_fused_decode_append_plain(

@@ -4,7 +4,10 @@
 versions, which the wrappers take for CPU tensors, against the JAX Pallas
 kernels in interpret mode; the port's oracle against the XLA oracle; the
 schedule knobs' dispatch (mirrors tests/test_attention.py:64,334,386,484,
-518,563)."""
+518,563); the decode kernels' split plan."""
+
+import re
+from pathlib import Path
 
 import numpy as np
 import jax.numpy as jnp
@@ -490,3 +493,111 @@ def test_decode_attention_split_route_matches_fused(monkeypatch, quant,
     for a, b, w in zip(split[1:], fused[1:], want[1:]):
         np.testing.assert_array_equal(f32(a), f32(b))
         np.testing.assert_array_equal(f32(a), f32(w))
+
+
+_DECODE_SRC = (Path(tattn.__file__).resolve().parents[1] / "csrc"
+               / "decode_attention.cu")
+
+
+@pytest.mark.parametrize("D", [8, 16, 48, 64, 80, 128, 256])
+@pytest.mark.parametrize("itemsize", [1, 2, 4])
+def test_decode_plan_tiles_the_capacity(D, itemsize):
+    """The decode-attention kernels' split (``decode_plan``): R rows a
+    split, a multiple of 16 and of a block step's rows (the source's
+    THREADS / 32 warps of 32 / lanes rows), from MIN_ROWS to MAX_ROWS, as
+    many as DECODE_SPLIT_BYTES of K rows hold where a step fits, a function
+    of D and the cache dtype alone; the splits tile every capacity once;
+    the scratch holds (B, KV, splits, G, D + 2) f32, the last element the
+    kernel indexes included."""
+    src = _DECODE_SRC.read_text()
+    assert "constexpr int THREADS = 128;" in src
+    assert tattn.DECODE_WARPS == 128 // 32
+    assert f"constexpr int MIN_ROWS = {tattn.DECODE_MIN_ROWS};" in src
+    assert f"constexpr int MAX_ROWS = {tattn.DECODE_MAX_ROWS};" in src
+    lanes = tattn.decode_lanes(D, itemsize)
+    assert lanes in (1, 2, 4, 8, 16, 32)
+    assert lanes * 16 >= min(D * itemsize, 32 * 16)
+    step = max(16, tattn.DECODE_WARPS * (32 // lanes))
+    row_bytes = -(-D * itemsize // 16) * 16
+    plans = set()
+    for B, KV, G in [(1, 1, 1), (8, 32, 1), (3, 8, 4), (5, 2, 8)]:
+        for capacity in (1, 63, 64, 65, 300, 512, 4096):
+            R, splits, nbytes = tattn.decode_plan(B, KV, G, D, itemsize,
+                                                  capacity)
+            plans.add(R)
+            assert R % 16 == 0 and R % step == 0
+            assert tattn.DECODE_MIN_ROWS <= R <= tattn.DECODE_MAX_ROWS
+            assert R == step or R * row_bytes <= tattn.DECODE_SPLIT_BYTES
+            assert (R + step > tattn.DECODE_MAX_ROWS or (R + step) * row_bytes
+                    > tattn.DECODE_SPLIT_BYTES)
+            cuts = [(c * R, min((c + 1) * R, capacity))
+                    for c in range(splits)]
+            assert cuts[0][0] == 0 and cuts[-1][1] == capacity
+            assert all(a < b for a, b in cuts)
+            assert all(cuts[i][1] == cuts[i + 1][0]
+                       for i in range(splits - 1))
+            assert nbytes == 4 * B * KV * splits * G * (D + 2)
+            last = (((((B - 1) * KV + KV - 1) * splits + splits - 1) * G
+                     + G - 1) * (D + 2) + D + 1)
+            assert 4 * (last + 1) == nbytes
+    assert len(plans) == 1
+
+
+def test_decode_plan_slot_and_pool_agree(monkeypatch):
+    """A slot cache and a page pool of the same capacity (S = MAXP * PS)
+    get the same plan from the wrappers, which hand it to the kernel: R,
+    splits, and one allocation a call that holds the output, then the
+    plan's scratch from a 16-byte boundary."""
+    seen = []
+
+    class Spy:
+        def __call__(self, *args):
+            seen.append(args[-6:-4])    # (R, splits)
+
+    empty = torch.empty
+    sizes = []
+
+    def spy_empty(*shape, **kw):
+        sizes.append(shape[0] if len(shape) == 1 else shape)
+        return empty(*shape, **kw)
+
+    monkeypatch.setattr(tattn.torch, "empty", spy_empty)
+    L, B, KV, G, D, PS, MAXP = 2, 3, 2, 4, 64, 16, 20
+    S = PS * MAXP
+    q = torch.zeros(B, KV * G, D, dtype=torch.bfloat16)
+    slot = torch.zeros(L, B, KV, S, D, dtype=torch.int8)
+    sc = torch.ones(L, B, KV, S, dtype=torch.bfloat16)
+    pool = torch.zeros(L, B * MAXP + 1, KV, PS, D, dtype=torch.int8)
+    psc = torch.ones(L, B * MAXP + 1, KV, PS, dtype=torch.bfloat16)
+    table = torch.arange(1, B * MAXP + 1, dtype=torch.int32).reshape(B, MAXP)
+    tattn.launch_decode(Spy(), q, None, None, slot, slot, 7, 1, 0.125, None,
+                        sc, sc)
+    tattn.launch_decode(Spy(), q, None, None, pool, pool, 7, 1, 0.125, None,
+                        psc, psc, table)
+    R, splits, nbytes = tattn.decode_plan(B, KV, G, D, 1, S)
+    assert seen == [(R, splits), (R, splits)]
+    out_bytes = -(-B * KV * G * D * 2 // 16) * 16
+    assert sizes == [(out_bytes + nbytes) // 2] * 2
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("pos", [256, 272, 287])
+def test_decode_plan_fills_the_card(pos, fused):
+    """At OPT-1.3B decode (batch 8, 32 KV heads, D 64, an int8 cache of 512
+    rows), the live splits give at least 2 blocks an SM of the H100's 132
+    at the decode step's positions 272-287, for the flash kernels (rows
+    s <= pos) and the fused ones (s < pos: the token comes from
+    registers), and at pos 256 for the flash kernels. The fused kernels
+    at pos 256 read exactly one split of R = 256 rows: 256 blocks, 1.94 an
+    SM. R = 128 would give them two splits, but measured slower on the
+    main path at pos 256 and 280 and in the graph-replayed step on an
+    H100 (PERF.md, the decode-attention findings), so the plan keeps 256
+    and this case states the count."""
+    B, KV = 8, 32
+    R, splits, _ = tattn.decode_plan(B, KV, 1, 64, 1, 512)
+    blocks = B * KV * -(-(pos if fused else pos + 1) // R)
+    if fused and pos == 256:
+        assert R == 256 and blocks == B * KV
+    else:
+        assert blocks >= 2 * 132
+    assert splits * R >= 512

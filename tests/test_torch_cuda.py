@@ -36,6 +36,50 @@ def _ulp_misses(got, ref):
     return int(((got - ref).abs() > tol).sum())
 
 
+# Positions at the decode kernels' split edges (R rows a split,
+# ``ops/attention.py`` ``decode_plan``): 0, R - 1, R, R + 1, the last row of
+# the capacity, and a ragged vector that mixes them (with one past the
+# capacity, clamped to its last row).
+_EDGES = ["0", "R-1", "R", "R+1", "last", "ragged"]
+
+# Head dims and query heads a KV head of the decode kernels' tests. The
+# lanes that read a row (``decode_lanes``) run from 1 to 32, with two
+# 16-byte chunks a lane in f32 rows at D 256; D 36 leaves int8 and bf16
+# rows off the 16-byte grid (the element-by-element loads); G 8 takes two
+# passes of 4 query heads.
+_DECODE_D = [36, 64, 80, 128, 256]
+_DECODE_G = [1, 4, 8]
+
+
+def _edge_pos(edge, B, KV, G, D, itemsize, capacity):
+    from sleekit_tpu_torch.ops.attention import decode_plan
+
+    R = decode_plan(B, KV, G, D, itemsize, capacity)[0]
+    vals = {"0": 0, "R-1": R - 1, "R": R, "R+1": R + 1,
+            "last": capacity - 1}
+    if edge != "ragged":
+        return vals[edge]
+    mix = [0, R - 1, R, R + 1, capacity - 1, 10 * capacity]
+    return torch.tensor([mix[i % len(mix)] for i in range(B)],
+                        dtype=torch.int32)
+
+
+def _to_pool(x, table, PS):
+    """A slot-cache plane (L, B, KV, S[, D]) laid out page by page into a
+    pool (L, B*S/PS + 1, KV, PS[, D]) through ``table`` (B, S/PS); page 0
+    stays unused."""
+    if x is None:
+        return None
+    L, B, KV, S = x.shape[:4]
+    MAXP = S // PS
+    pages = x.reshape(L, B, KV, MAXP, PS, *x.shape[4:]).transpose(2, 3)
+    pages = pages.reshape(L, B * MAXP, KV, PS, *x.shape[4:])
+    pool = torch.zeros((L, B * MAXP + 1) + pages.shape[2:], dtype=x.dtype,
+                       device=x.device)
+    pool[:, table.reshape(-1).long()] = pages
+    return pool
+
+
 # (nbits, m, N, glue) of K1's cases: the decode route (m <= 8) at every
 # nbits, N and glue; the tensor-core route at 2, 4 and 7 bits with glue.
 _K1_CASES = (
@@ -344,15 +388,19 @@ def test_k2_raises_without_scratch(dev):
                out.data_ptr(), 0, 0, m, N, K, K, N, 0, 1.0, 0.0, 1e-5)
 
 
-@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("G", _DECODE_G)
 @pytest.mark.parametrize("cache", ["int8", "bf16", "f32"])
-@pytest.mark.parametrize("ragged", [False, True])
-def test_k3_matches_plain(dev, G, cache, ragged):
+@pytest.mark.parametrize("edge", _EDGES)
+@pytest.mark.parametrize("D", _DECODE_D)
+def test_k3_matches_plain(dev, G, cache, edge, D):
+    """K3 against its plain version at the split edges (``_edge_pos``) and
+    the head dims of ``_DECODE_D``: output within the bf16 tolerance,
+    written bytes equal."""
     from sleekit_tpu_torch.ops.attention import (
         _quant_rows, fused_decode_append, fused_decode_append_plain)
 
-    g = torch.Generator().manual_seed(G)
-    L, B, KV, S, D = 2, 3, 2, 300, 64
+    g = torch.Generator().manual_seed(G + D)
+    L, B, KV, S = 2, 6, 2, 320
     k = torch.randn(L, B, KV, S, D, generator=g)
     v = torch.randn(L, B, KV, S, D, generator=g)
     ks = vs = None
@@ -366,7 +414,7 @@ def test_k3_matches_plain(dev, G, cache, ragged):
     q = torch.randn(B, KV * G, D, generator=g).bfloat16()
     kn = torch.randn(B, KV, D, generator=g).bfloat16()
     vn = torch.randn(B, KV, D, generator=g).bfloat16()
-    pos = torch.tensor([0, 137, S + 3], dtype=torch.int32) if ragged else 200
+    pos = _edge_pos(edge, B, KV, G, D, k.element_size(), S)
     slopes = torch.linspace(0.05, 0.9, KV * G)
     args = [q, kn, vn, k, v]
     planes = [ks, vs]
@@ -375,8 +423,8 @@ def test_k3_matches_plain(dev, G, cache, ragged):
         *[None if p is None else p.clone() for p in planes])
     on = lambda a: None if a is None else a.to(dev)  # noqa: E731
     got = fused_decode_append(
-        *[on(a) for a in args], on(pos) if ragged else pos, 1,
-        1 / math.sqrt(D), on(slopes), *[on(p) for p in planes])
+        *[on(a) for a in args], _on(dev, pos) if edge == "ragged" else pos,
+        1, 1 / math.sqrt(D), on(slopes), *[on(p) for p in planes])
     torch.cuda.synchronize()
     _bf16_close(got[0], want[0])
     for a, b in zip(got[1:], want[1:]):
@@ -512,40 +560,50 @@ def test_kv_append_matches_plain(dev, cache, ragged, paged):
             assert torch.equal(a.cpu(), b)
 
 
-@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("G", _DECODE_G)
 @pytest.mark.parametrize("cache", ["int8", "bf16", "f32"])
-@pytest.mark.parametrize("ragged", [False, True])
+@pytest.mark.parametrize("edge", _EDGES)
 @pytest.mark.parametrize("paged", [False, True])
-def test_flash_decode_matches_plain(dev, G, cache, ragged, paged):
-    """K11 (slot cache) and K15 (page pool) against their plain versions:
-    rows s <= pos, ALiBi, GQA; bf16 q within the bf16 tolerance, f32 q
-    (f32 cache) within 1e-5."""
+@pytest.mark.parametrize("D", _DECODE_D)
+def test_flash_decode_matches_plain(dev, G, cache, edge, paged, D):
+    """K11 (slot cache) and K15 (page pool) against their plain versions
+    at the split edges and the head dims of ``_DECODE_D``: rows s <= pos,
+    ALiBi, GQA; bf16 q within the bf16 tolerance, f32 q (f32 cache) within
+    1e-5. The pool holds the slot cache's rows through a table of distinct
+    pages out of order, so K15's output equals K11's bit for bit."""
     from sleekit_tpu_torch.ops import attention as at
     from sleekit_tpu_torch.ops import paged_attention as pa
 
-    g = torch.Generator().manual_seed(G)
-    L, B, KV, D, PS, MAXP = 2, 3, 2, 64, 64, 5
-    P = B * MAXP + 1 if paged else B
-    planes = _cache(g, (L, P, KV, PS if paged else 300, D), cache)
+    g = torch.Generator().manual_seed(G + D)
+    L, B, KV, PS, MAXP = 2, 6, 2, 64, 5
+    S = PS * MAXP
+    planes = _cache(g, (L, B, KV, S, D), cache)
     dt = torch.float32 if cache == "f32" else torch.bfloat16
     q = torch.randn(B, KV * G, D, generator=g).to(dt)
-    pos = torch.tensor([0, 137, 1000], dtype=torch.int32) if ragged else 200
+    pos = _edge_pos(edge, B, KV, G, D, planes[0].element_size(), S)
     slopes = torch.linspace(0.05, 0.9, KV * G)
     scale = 1 / math.sqrt(D)
     dplanes = [_on(dev, p) for p in planes]
-    tpos = _on(dev, pos) if ragged else pos
+    tpos = _on(dev, pos) if edge == "ragged" else pos
+    k11 = at.flash_decode(q.to(dev), dplanes[0], dplanes[1], tpos, 1, scale,
+                          slopes.to(dev), dplanes[2], dplanes[3])
     if paged:
-        table = (1 + torch.randperm(P - 1, generator=g)).to(torch.int32)
+        table = (1 + torch.randperm(B * MAXP, generator=g)).to(torch.int32)
         table = table.reshape(B, MAXP)
-        got = pa.paged_flash_decode(q.to(dev), dplanes[0], dplanes[1],
+        pool = [_to_pool(p, table, PS) for p in planes]
+        dpool = [_on(dev, p) for p in pool]
+        before = pa.K15.launches
+        got = pa.paged_flash_decode(q.to(dev), dpool[0], dpool[1],
                                     table.to(dev), tpos, 1, scale,
-                                    slopes.to(dev), dplanes[2], dplanes[3])
-        want = pa.paged_flash_decode_plain(q, planes[0], planes[1], table,
-                                           pos, 1, scale, slopes, planes[2],
-                                           planes[3])
+                                    slopes.to(dev), dpool[2], dpool[3])
+        torch.cuda.synchronize()
+        assert pa.K15.launches == before + 1
+        assert torch.equal(got, k11)
+        want = pa.paged_flash_decode_plain(q, pool[0], pool[1], table, pos,
+                                           1, scale, slopes, pool[2],
+                                           pool[3])
     else:
-        got = at.flash_decode(q.to(dev), dplanes[0], dplanes[1], tpos, 1,
-                              scale, slopes.to(dev), dplanes[2], dplanes[3])
+        got = k11
         want = at.flash_decode_plain(q, planes[0], planes[1], pos, 1, scale,
                                      slopes, planes[2], planes[3])
     torch.cuda.synchronize()
@@ -557,49 +615,37 @@ def test_flash_decode_matches_plain(dev, G, cache, ragged, paged):
 
 @pytest.mark.parametrize("G", [1, 4])
 @pytest.mark.parametrize("cache", ["int8", "bf16", "f32"])
-@pytest.mark.parametrize("ragged", [False, True])
-def test_k5_matches_plain_and_k3(dev, G, cache, ragged):
+@pytest.mark.parametrize("edge", _EDGES)
+def test_k5_matches_plain_and_k3(dev, G, cache, edge):
     """K5 against its plain version (output within the bf16 tolerance,
     written bytes equal), and against K3 on the same logical rows: output
-    and written bytes bit-identical."""
+    and written bytes bit-identical, at the split edges."""
     from sleekit_tpu_torch.ops import attention as at
     from sleekit_tpu_torch.ops import paged_attention as pa
 
     g = torch.Generator().manual_seed(10 + G)
-    L, B, KV, D, PS, MAXP = 2, 3, 2, 64, 64, 5
+    L, B, KV, D, PS, MAXP = 2, 6, 2, 64, 64, 5
     S = PS * MAXP
     slot = _cache(g, (L, B, KV, S, D), cache)
     dt = torch.float32 if cache == "f32" else torch.bfloat16
     q = torch.randn(B, KV * G, D, generator=g).to(dt)
     kn = torch.randn(B, KV, D, generator=g).to(dt)
     vn = torch.randn(B, KV, D, generator=g).to(dt)
-    pos = (torch.tensor([0, PS, S + 3], dtype=torch.int32) if ragged
-           else PS - 1)
+    pos = _edge_pos(edge, B, KV, G, D, slot[0].element_size(), S)
     slopes = torch.linspace(0.05, 0.9, KV * G)
     scale = 1 / math.sqrt(D)
     # Row b's logical page j lives in physical page table[b, j], out of
     # order; page 0 stays unused.
     table = (1 + torch.randperm(B * MAXP, generator=g)).to(torch.int32)
     table = table.reshape(B, MAXP)
-
-    def to_pool(x):
-        if x is None:
-            return None
-        pages = x.reshape(L, B, KV, MAXP, PS, *x.shape[4:]).transpose(2, 3)
-        pages = pages.reshape(L, B * MAXP, KV, PS, *x.shape[4:])
-        pool = torch.zeros((L, B * MAXP + 1) + pages.shape[2:],
-                           dtype=x.dtype)
-        pool[:, table.reshape(-1).long()] = pages
-        return pool
-
-    pool = [to_pool(x) for x in slot]
+    pool = [_to_pool(x, table, PS) for x in slot]
     want = pa.paged_fused_decode_append_plain(
         q, kn, vn, *[None if p is None else p.clone() for p in pool[:2]],
         table, pos, 1, scale, slopes,
         *[None if p is None else p.clone() for p in pool[2:]])
     dpool = [_on(dev, p) for p in pool]
     dslot = [_on(dev, p) for p in slot]
-    tpos = _on(dev, pos) if ragged else pos
+    tpos = _on(dev, pos) if edge == "ragged" else pos
     before = pa.K5.launches
     got = pa.paged_fused_decode_append(
         q.to(dev), kn.to(dev), vn.to(dev), dpool[0], dpool[1],
@@ -618,7 +664,7 @@ def test_k5_matches_plain_and_k3(dev, G, cache, ragged):
         assert torch.equal(a.cpu(), b)
     assert torch.equal(got[0], k3[0])
     for a, b in zip(got[1:], k3[1:]):
-        assert torch.equal(a.cpu(), to_pool(b.cpu()))
+        assert torch.equal(a.cpu(), _to_pool(b.cpu(), table, PS))
 
 
 @pytest.mark.parametrize("layout,K", [("pair3", 400), ("pair3", 1792),
@@ -705,27 +751,27 @@ def test_k8_k9_match_plain(dev, codebook, m, N):
 @pytest.mark.parametrize("G", [1, 4])
 @pytest.mark.parametrize("alibi", [False, True])
 @pytest.mark.parametrize("cache", ["int8", "bf16", "f32", "int8 f32 q"])
-@pytest.mark.parametrize("ragged", [False, True])
-def test_k12_k13_match_plain(dev, G, alibi, cache, ragged):
-    """K13 (batch fold; B = 10 rows over a block's 8 groups) against its
+@pytest.mark.parametrize("edge", _EDGES)
+def test_k12_k13_match_plain(dev, G, alibi, cache, edge):
+    """K13 (batch fold; B = 10 rows over a block's groups) against its
     plain version (K11's) and K11 bit for bit; K12 (mha_mode='ew', G = 1)
-    against its plain version. f32 q (over an f32 or int8 cache) within
-    1e-5; bf16 q: K13 within the bf16 tolerance, K12 within one bf16 step
-    (K12 and its plain version keep everything in f32 and round only the
-    output), a bound K11's bf16 numerics miss."""
+    against its plain version, at the split edges. f32 q (over an f32 or
+    int8 cache) within 1e-5; bf16 q: K13 within the bf16 tolerance, K12
+    within one bf16 step (K12 and its plain version keep everything in f32
+    and round only the output), a bound K11's bf16 numerics miss where
+    more than one row is read."""
     from sleekit_tpu_torch.ops import attention as at
 
     g = torch.Generator().manual_seed(20 + G)
-    L, B, KV, S, D = 2, 10, 2, 300, 64
+    L, B, KV, S, D = 2, 10, 2, 320, 64
     planes = _cache(g, (L, B, KV, S, D), cache.split()[0])
     dt = torch.bfloat16 if cache in ("int8", "bf16") else torch.float32
     q = torch.randn(B, KV * G, D, generator=g).to(dt)
-    pos = (torch.tensor([0, 137, 1000, 5, 128, 299, 64, 200, 1, 255],
-                        dtype=torch.int32) if ragged else 200)
+    pos = _edge_pos(edge, B, KV, G, D, planes[0].element_size(), S)
     slopes = torch.linspace(0.05, 0.9, KV * G) if alibi else None
     scale = 1 / math.sqrt(D)
     dplanes = [_on(dev, p) for p in planes]
-    tpos = _on(dev, pos) if ragged else pos
+    tpos = _on(dev, pos) if edge == "ragged" else pos
     args = (q.to(dev), dplanes[0], dplanes[1], tpos, 1, scale,
             _on(dev, slopes), dplanes[2], dplanes[3])
     plain_args = (q, planes[0], planes[1], pos, 1, scale, slopes, planes[2],
@@ -745,7 +791,8 @@ def test_k12_k13_match_plain(dev, G, alibi, cache, ragged):
             torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
         elif mode == "ew":
             assert _ulp_misses(got, want) == 0
-            assert _ulp_misses(k11, want) > 0
+            # At pos 0 one row is read: p = 1, and K11 is exact too.
+            assert _ulp_misses(k11, want) > 0 or edge == "0"
         else:
             _bf16_close(got, want)
         if mode == "bfold":
@@ -784,3 +831,143 @@ def test_k12_k13_replay_in_cuda_graph(dev, mode):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(out, call())
+
+
+@pytest.mark.parametrize("kernel", ["K3", "K5", "K11", "K13"])
+def test_decode_attention_is_deterministic(dev, kernel):
+    """Two launches on the same inputs give the same bits (output and, for
+    K3 and K5, written bytes): the splits are combined in a fixed order,
+    without float atomics, over many splits and ragged rows."""
+    from sleekit_tpu_torch.ops import attention as at
+    from sleekit_tpu_torch.ops import paged_attention as pa
+
+    g = torch.Generator().manual_seed(5)
+    L, B, KV, G, D, PS, MAXP = 2, 8, 4, 1, 64, 64, 8
+    S = PS * MAXP
+    planes = _cache(g, (L, B, KV, S, D), "int8")
+    q = torch.randn(B, KV * G, D, generator=g).to(dev, torch.bfloat16)
+    kn = torch.randn(B, KV, D, generator=g).to(dev, torch.bfloat16)
+    vn = torch.randn(B, KV, D, generator=g).to(dev, torch.bfloat16)
+    pos = torch.tensor([511, 3, 300, 64, 0, 127, 450, 256],
+                       dtype=torch.int32, device=dev)
+    table = (1 + torch.randperm(B * MAXP, generator=g)).to(torch.int32)
+    table = table.reshape(B, MAXP)
+    if kernel == "K5":
+        planes = [_to_pool(p, table, PS) for p in planes]
+    planes = [_on(dev, p) for p in planes]
+    dtable = table.to(dev)
+
+    def call():
+        c = [p.clone() for p in planes]
+        if kernel == "K3":
+            return at.fused_decode_append(q, kn, vn, c[0], c[1], pos, 1,
+                                          0.125, None, c[2], c[3])
+        if kernel == "K5":
+            return pa.paged_fused_decode_append(q, kn, vn, c[0], c[1],
+                                                dtable, pos, 1, 0.125, None,
+                                                c[2], c[3])
+        return (at.flash_decode(q, c[0], c[1], pos, 1, 0.125, None, c[2],
+                                c[3], batch_fold=kernel == "K13"),)
+
+    first, second = call(), call()
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_k3_replays_in_cuda_graph(dev):
+    """K3 captured once in a CUDA graph with a device pos, replayed at
+    successive positions across split edges, gives the eager calls' output
+    and cache bytes at every step: the per-(row, head) tickets are back at
+    0 after every launch, with no reset pass."""
+    from sleekit_tpu_torch.ops import attention as at
+
+    g = torch.Generator().manual_seed(9)
+    L, B, KV, S, D = 2, 4, 2, 320, 64
+    planes = _cache(g, (L, B, KV, S, D), "int8")
+    q = torch.randn(B, KV, D, generator=g).to(dev, torch.bfloat16)
+    kn = torch.randn(B, KV, D, generator=g).to(dev, torch.bfloat16)
+    vn = torch.randn(B, KV, D, generator=g).to(dev, torch.bfloat16)
+    start = torch.tensor([253, 126, 0, 61], dtype=torch.int32)
+    graph_c = [_on(dev, p) for p in planes]
+    eager_c = [p.clone() for p in graph_c]
+    pos = start.to(dev)
+
+    def call(c, p):
+        return at.fused_decode_append(q, kn, vn, c[0], c[1], p, 1, 0.125,
+                                      None, c[2], c[3])
+
+    call([p.clone() for p in graph_c], pos)    # warm-up, on copies
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = at.K3.launches
+    with torch.cuda.graph(graph):
+        out = call(graph_c, pos)[0]
+    assert at.K3.launches == before + 1
+    for step in range(6):
+        p = (start + step).to(dev)
+        pos.copy_(p)
+        graph.replay()
+        want = call(eager_c, p)[0]
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+        for a, b in zip(graph_c, eager_c):
+            assert torch.equal(a, b)
+
+
+def test_k13_grows_its_shared_memory(dev):
+    """K13's block holds a group of 128 threads per batch row, up to the
+    card's shared memory, so its bytes grow with B: in a fresh process, a
+    call at B 2 (two groups, above the 48 KB default) then at B 8 (six)
+    launches both, each equal to K11 bit for bit. The limit is raised
+    again when a launch needs more than the last raise."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    code = """
+import torch
+from sleekit_tpu_torch.ops import attention as at
+dev = torch.device("cuda")
+g = torch.Generator().manual_seed(4)
+for B in (2, 8):
+    k, ks = at._quant_rows(torch.randn(1, B, 2, 512, 64, generator=g))
+    v, vs = at._quant_rows(torch.randn(1, B, 2, 512, 64, generator=g))
+    args = [t.to(dev) for t in (k, v, ks[..., 0].bfloat16(),
+                                 vs[..., 0].bfloat16())]
+    q = torch.randn(B, 2, 64, generator=g).to(dev, torch.bfloat16)
+    before = at.K13.launches
+    got = at.flash_decode(q, args[0], args[1], 400, 0, 0.125, None,
+                          args[2], args[3], batch_fold=True)
+    want = at.flash_decode(q, args[0], args[1], 400, 0, 0.125, None,
+                           args[2], args[3])
+    torch.cuda.synchronize()
+    assert at.K13.launches == before + 1
+    assert torch.equal(got, want), B
+print("ok")
+"""
+    root = Path(__file__).resolve().parents[1]
+    run = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0 and run.stdout.strip() == "ok", run.stderr
+
+
+def test_decode_attention_raises_without_scratch(dev):
+    """A decode-attention launch without the plan's scratch and tickets,
+    or with a split that is not decode_plan's, is refused: the entry
+    returns an error and the wrapper raises."""
+    from sleekit_tpu_torch.ops import attention as at
+
+    B, KV, S, D = 2, 2, 128, 64
+    q = torch.zeros(B, KV, D, device=dev, dtype=torch.bfloat16)
+    cache = torch.zeros(1, B, KV, S, D, device=dev, dtype=torch.bfloat16)
+    out = torch.empty_like(q)
+    R, splits, nbytes = at.decode_plan(B, KV, 1, D, 2, S)
+    part = torch.empty(nbytes // 4, device=dev)
+    tickets = torch.zeros(B * KV, dtype=torch.int32, device=dev)
+    for p, t, r in ((0, tickets.data_ptr(), R), (part.data_ptr(), 0, R),
+                    (part.data_ptr(), tickets.data_ptr(), R - 16)):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            at.K11(q.data_ptr(), cache.data_ptr(), cache.data_ptr(), 0, 0, 0,
+                   0, 0, out.data_ptr(), p, t, 7, 0, B, KV, 1, B, S, 1, D, r,
+                   splits, 0.125, 1, 1, 0)
