@@ -3,10 +3,12 @@
     python3 chip_smoke.py
 
 1. builds the port's CUDA kernels (K1-K15) from ``sleekit_tpu_torch/csrc``,
-   one nvcc per source, all at once, and prints ptxas's registers and
-   spills of K1/K6/K7's decode kernel (``pair_stream_kernel``) and of the
-   main path's ``decode_kernel`` instantiations (K3 over the slot cache,
-   K5 over the pool: bf16 q, int8 cache, bf16 scales);
+   one nvcc per source, all at once, and prints the build's time and
+   ptxas's registers and spills of K1/K6/K7's decode kernel
+   (``pair_stream_kernel``), of the main path's ``decode_kernel``
+   instantiations (K3 over the slot cache, K5 over the pool: bf16 q, int8
+   cache, bf16 scales) and of the 4-bit 'plane' instantiations of both
+   routes that the NF4 (K8) and int4 'plane' (K9) paths run;
 2. holds each kernel against its plain PyTorch version on the card at the
    shapes OPT-1.3B serving gives it, and times the kernel, the plain
    version and, where one exists, one PyTorch library call computing the
@@ -65,9 +67,12 @@
 8. runs the decode-side benches at OPT-1.3B, briefly: ``attn_bench`` under
    each flash-decode schedule (K11, K12, K13), ``profile_decode``'s split
    of the int4 'pair' step at positions 272-287 (the last 16 rows of a
-   288-row cache, inside the ctx 256-288 at which 3 times decode; with a ``torch.profiler`` trace written under the
-   git-ignored ``traces/profile_decode``; its residual must be positive)
-   and its attn_only variant on the 'ew' and batch-folded split routes,
+   288-row cache, inside the ctx 256-288 at which 3 times decode; with a
+   ``torch.profiler`` trace written under the git-ignored
+   ``traces/profile_decode``; its residual must be positive), the same
+   split of the NF4 'plane' step (K8; trace under
+   ``traces/profile_decode_nf4``), and the attn_only variant on the 'ew'
+   and batch-folded split routes,
    ``kernel_bench`` on the four decode shapes, and ``prefill_bench`` on
    the int4 model's 256-bucket group (with a trace of one prefill under
    ``traces/prefill``); their result lines go to stdout;
@@ -149,6 +154,19 @@ def decode_rule(name: str):
     m = re.search(r"decode_kernelI13__nv_bfloat16aS\d*_Lb1ELi0ELb([01])"
                   r"ELi1ELi64EE", name)
     return None if m is None else ("K3 slot", "K5 pool")[int(m.group(1))]
+
+
+def plane_rule(name: str):
+    """The 4-bit 'plane' instantiations of the two routes, read from the
+    mangled name: "K8 stream" (Plane<4, true>: the NF4 table), "K9 mma
+    4x4x2" (Plane<4, false>, WM x WN x MINB), ...; None for the others."""
+    m = re.search(r"PlaneILi4ELb([01])EEE(?:Li(\d+)ELi(\d+)ELi(\d+)E)?",
+                  name)
+    if m is None:
+        return None
+    kern = "K8" if m.group(1) == "1" else "K9"
+    return (f"{kern} mma {m.group(2)}x{m.group(3)}x{m.group(4)}"
+            if m.group(2) else f"{kern} stream")
 
 
 def ptxas_report(build_log: str, kernel: str, rule=pair_rule):
@@ -1205,7 +1223,8 @@ def run_ew_engine(dev, cfg, state):
 def run_benches(cfg, trace_dir):
     """The benches at OPT-1.3B, briefly: attn_bench under each
     flash-decode schedule (K11, K12, K13), profile_decode's split of the
-    int4 'pair' step (trace into ``trace_dir``/profile_decode) and its
+    int4 'pair' step (trace into ``trace_dir``/profile_decode) and of the
+    NF4 'plane' step (``trace_dir``/profile_decode_nf4), and its
     attn_only variant on the 'ew' and batch-folded split routes, at
     positions 272-287 (the last 16 rows of a 288-row cache; phase 3 times
     decode at ctx 256-288), kernel_bench on the four decode shapes, and
@@ -1221,12 +1240,15 @@ def run_benches(cfg, trace_dir):
             out[f"attn_bench_{mode}"] = attn_bench.main(
                 ["--model", "opt-1.3b", "--iters", "16"])
     at_ctx = ["--model", "opt-1.3b", "--steps", "16", "--ctx", "288"]
-    out["profile_decode"] = profile = profile_decode.main(
-        at_ctx + ["--trace", os.path.join(trace_dir, "profile_decode")])
-    if not profile["ms_per_step"]["residual"] > 0:
-        raise AssertionError(f"profile_decode: residual "
-                             f"{profile['ms_per_step']['residual']:.3f} ms "
-                             "is not positive")
+    for key, extra in (("profile_decode", []),
+                       ("profile_decode_nf4",
+                        ["--layout", "plane", "--codebook", "nf4"])):
+        out[key] = profile = profile_decode.main(
+            at_ctx + extra + ["--trace", os.path.join(trace_dir, key)])
+        if not profile["ms_per_step"]["residual"] > 0:
+            raise AssertionError(f"{key}: residual "
+                                 f"{profile['ms_per_step']['residual']:.3f} "
+                                 "ms is not positive")
     for mode, knobs in (("ew", {"FLASH_MHA_MODE": "ew"}),
                         ("bfold", {"FLASH_BATCH_FOLD": True})):
         with split_route(**knobs):
@@ -1405,6 +1427,20 @@ def main():
     else:
         decode_ptxas = None
         log("ptxas: decode_attention.cu was built before this run, no report")
+    if "plane_matmul.cu" in built:
+        plane_log = built["plane_matmul.cu"]["log"]
+        plane_ptxas = {
+            **ptxas_report(plane_log, "pair_stream_kernel", plane_rule),
+            **ptxas_report(plane_log, "pair_mma_kernel", plane_rule)}
+        if len(plane_ptxas) != 8:
+            raise AssertionError(f"ptxas: the 4-bit plane instantiations "
+                                 f"not found: {plane_ptxas}")
+        log("ptxas, 4-bit 'plane' routes (K8 NF4, K9 int4; mma WM x WN x "
+            "MINB): [registers, spill store bytes, spill load bytes] "
+            + json.dumps(plane_ptxas))
+    else:
+        plane_ptxas = None
+        log("ptxas: plane_matmul.cu was built before this run, no report")
 
     cfg = opt_1b3(dtype=torch.bfloat16)
     g = torch.Generator().manual_seed(0)
@@ -1449,6 +1485,7 @@ def main():
             cases=cs))
     engine["ptxas_pair_stream_kernel"] = stream_ptxas
     engine["ptxas_decode_kernel"] = decode_ptxas
+    engine["ptxas_plane"] = plane_ptxas
     print(json.dumps({"kernels": rows, "engine": engine,
                       "benches": benches}))
     print(smi)

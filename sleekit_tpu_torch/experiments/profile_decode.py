@@ -29,7 +29,8 @@ the JAX bench's stacked-tree split and merge are a loop over
 Usage:
   python -m sleekit_tpu_torch.experiments.profile_decode [--model opt-1.3b]
       [--batch 8] [--steps 64] [--ctx 256] [--nbits 4] [--dense]
-      [--layout pair] [--kv int8|bf16] [--no-fuse]
+      [--layout pair|plane] [--codebook uniform|nf4] [--kv int8|bf16]
+      [--no-fuse]
       [--variants full,no_unembed,linears_only,attn_only]
       [--device cuda|cpu] [--trace DIR]
 """
@@ -63,6 +64,11 @@ def main(argv=None):
     ap.add_argument("--layout", default="pair",
                     help="packed layout (pair/plane), default = serving "
                     "default")
+    ap.add_argument("--codebook", default="uniform",
+                    choices=("uniform", "nf4"),
+                    help="packed models: the uniform grid of --nbits "
+                    "(K1, or K9 over 'plane') or the NF4 table (4 bits, "
+                    "'plane' only: K8)")
     ap.add_argument("--kv", default="int8", choices=("bf16", "int8"),
                     help="KV-cache dtype (packed models; dense: bf16)")
     ap.add_argument("--no-fuse", action="store_true",
@@ -74,7 +80,7 @@ def main(argv=None):
                     help="directory for a torch.profiler trace of 'full'")
     args = ap.parse_args(argv)
 
-    from sleekit_tpu_torch.codebooks import UniformCodebook
+    from sleekit_tpu_torch.codebooks import Codebook, UniformCodebook
     from sleekit_tpu_torch.device import resolve_device
     from sleekit_tpu_torch.models import transformer as tr
     from sleekit_tpu_torch.models.fake_quant import random_packed_params
@@ -92,16 +98,20 @@ def main(argv=None):
     pos0 = ctx - steps
     kv_dtype = torch.bfloat16 if args.dense or args.kv == "bf16" \
         else torch.int8
-    tag = "bf16 dense" if args.dense else \
-        f"int{args.nbits} packed ({args.layout})"
+    if args.codebook == "nf4" and (args.nbits != 4 or args.layout != "plane"):
+        raise ValueError("--codebook nf4 takes --nbits 4 --layout plane")
+    codebook = Codebook.nf4() if args.codebook == "nf4" \
+        else UniformCodebook(2 ** args.nbits, -1.0, 1.0)
+    name = "nf4" if args.codebook == "nf4" else f"int{args.nbits}"
+    tag = "bf16 dense" if args.dense else f"{name} packed ({args.layout})"
     params = None
     if {"full", "no_unembed", "linears_only"} & set(variants):
         if args.dense:
             params = tr.init_params(cfg, 0, device=dev)
         else:
             params, _ = random_packed_params(
-                cfg, 0, UniformCodebook(2 ** args.nbits, -1.0, 1.0),
-                fuse_qkv=not args.no_fuse, layout=args.layout, device=dev)
+                cfg, 0, codebook, fuse_qkv=not args.no_fuse,
+                layout=args.layout, device=dev)
             params = pack_lm_head(cfg, params, nbits=8)
     where = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
              else "the CPU (plain versions)")

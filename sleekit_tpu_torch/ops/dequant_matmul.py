@@ -17,7 +17,8 @@ packed words streamed from device memory and decoded on chip.
 * Kernels K8 and K9, :func:`plane_lut_matmul` and
   :func:`plane_affine_matmul` - the 'plane' layout (``_pallas_impl``:
   ``_kernel`` over a table, ``_mantissa_kernel`` over an affine grid),
-  one body in ``csrc/plane_matmul.cu``.
+  K1's two routes (``csrc/dequant_routes.cuh``) under the 'plane' tile
+  rules in ``csrc/plane_matmul.cu``.
 
 K1, K2, K6 and K7 fuse the prologue (layernorm/rmsnorm masked to the
 valid K, relu, gelu, silu_glu) and the epilogue ``(a*acc + b*rowsum)*scale
@@ -34,16 +35,16 @@ not folded.
 
 The JAX package chunks prefill-size M through its kernel
 (``PREFILL_CHUNK_M``, a TPU VMEM limit); the CUDA kernels tile M
-themselves, so the port has no chunking. K1, K6, K7 and K2 share one
+themselves, so the port has no chunking. K1, K2 and K6-K9 share one
 route rule, and one call is still one counted launch: a prologue pass
-writes pre(x) and its row sums once into scratch that the wrappers
-allocate at every M (:func:`_scratch`); then above ``DECODE_M`` rows
-a tensor-core kernel tiles the product (K2 converts its int8 bytes to
-bf16 tiles in shared memory), and up to ``DECODE_M`` rows a kernel
-streams the weight with 16-byte loads into tensor-core products whose N
-is the tokens, K split over a block's warps and, for K1/K6/K7 where the
-column strips alone leave SMs idle, over blocks (:func:`stream_plan`),
-the slices summed in a fixed order.
+writes pre(x) (for K8 and K9, x itself) and its row sums once into
+scratch that the wrappers allocate at every M (:func:`_scratch`); then
+above ``DECODE_M`` rows a tensor-core kernel tiles the product (K2
+converts its int8 bytes to bf16 tiles in shared memory), and up to
+``DECODE_M`` rows a kernel streams the weight with 16-byte loads into
+tensor-core products whose N is the tokens, K split over a block's warps
+and, for K1 and K6-K9 where the column strips alone leave SMs idle,
+over blocks (:func:`stream_plan`), the slices summed in a fixed order.
 ``LUT_POLY`` and ``PAIR_TUNE`` are the TPU kernels' schedules of the
 same functions; the port accepts and ignores them.
 """
@@ -70,14 +71,15 @@ PAIR_TUNE = {"kb": 0, "split": False, "dim_sem": False, "bn": 0, "p3m": 2}
 _PRE = {None: 0, "layernorm": 1, "rmsnorm": 2, "relu": 3, "gelu": 4,
         "silu_glu": 5}
 
-# K1/K6/K7 and K2 run a prologue pass into scratch (K rounded up to
+# K1, K2 and K6-K9 run a prologue pass into scratch (K rounded up to
 # XP_CHUNK columns) at every M, then their streaming kernel up to DECODE_M
-# rows and their tensor-core kernel above (``csrc/dequant_matmul.cu``:
-# ``launch_pair_m``, ``launch_int8_m``, ``MMA_KC``).
+# rows and their tensor-core kernel above (``csrc/dequant_routes.cuh``:
+# ``launch_pair_m``, ``MMA_KC``; ``csrc/dequant_matmul.cu``:
+# ``launch_int8_m``).
 DECODE_M = 8
 XP_CHUNK = 64
 
-# K1/K6/K7's streaming kernel (``pair_stream_kernel``): a block of
+# K1/K6-K9's streaming kernel (``pair_stream_kernel``): a block of
 # STREAM_WARPS warps streams STREAM_COLS columns (``PAIR_COLS``) over its
 # slice of K; K is split in units of word rows (:func:`stream_units`) so
 # that the blocks come nearest to STREAM_BLOCKS_PER_SM an SM
@@ -113,16 +115,18 @@ K2 = CudaKernel(
     "K2", "dequant_matmul.cu", "int8_matmul",
     [_P] * 6 + [_I] + [_P] * 4 + [_I] * 6 + [_F] * 3,
     replaces="sleekit_tpu/ops/dequant_matmul.py:664 _pallas_int8_impl")
-# (x, words, scale, bias, lut, out, M, N, K, kw, nbits, ksize, step, zero)
+# (x, words, scale, bias, lut, out, xp, rs, part, tickets, M, N, K, kw,
+#  splits, nbits, ksize, step, zero)
 K8 = CudaKernel(
     "K8", "plane_matmul.cu", "plane_lut_matmul",
-    [_P] * 6 + [_I] * 6 + [_F] * 2,
+    [_P] * 10 + [_I] * 7 + [_F] * 2,
     replaces="sleekit_tpu/ops/dequant_matmul.py:771 _pallas_impl "
              "(_kernel, table)")
-# (x, words, scale, bias, out, M, N, K, kw, nbits, a, b)
+# (x, words, scale, bias, out, xp, rs, part, tickets, M, N, K, kw, splits,
+#  nbits, a, b)
 K9 = CudaKernel(
     "K9", "plane_matmul.cu", "plane_affine_matmul",
-    [_P] * 5 + [_I] * 5 + [_F] * 2,
+    [_P] * 9 + [_I] * 6 + [_F] * 2,
     replaces="sleekit_tpu/ops/dequant_matmul.py:771 _pallas_impl "
              "(_mantissa_kernel)")
 
@@ -288,28 +292,42 @@ def _ptr(t: Optional[torch.Tensor]) -> int:
     return 0 if t is None else t.data_ptr()
 
 
-def stream_units(kw: int, layout: str) -> int:
-    """Units of word rows that K1/K6/K7's streaming kernel walks K in, each
-    word loaded once for all its planes (``csrc`` ``stream_units``):
-    'pair' 8 word rows of a tile, 'pair3' half a tile's low words with its
-    high words, 'pair3x' six per 512-row group (four eights of 4-bit words,
-    the pair3 tile's two halves)."""
+def plane_unit_steps(nbits: int) -> int:
+    """Fields (k16 steps) a unit of the 'plane' streaming kernel takes of
+    its 16 word rows: all of a word's fields, but 8 at 1 and 2 bits
+    (``csrc/plane_matmul.cu`` ``Plane::STEPS``)."""
+    vpw = vals_per_word(nbits)
+    return 8 if vpw > 10 else vpw
+
+
+def stream_units(kw: int, layout: str, nbits: int = 0) -> int:
+    """Units of word rows that the streaming kernel of K1, K6-K9 walks K
+    in, each word loaded once for all the unit's steps (``csrc``
+    ``stream_units``): 'pair' 8 word rows of a tile, 'pair3' half a tile's
+    low words with its high words, 'pair3x' six per 512-row group (four
+    eights of 4-bit words, the pair3 tile's two halves), 'plane' (of
+    ``nbits``) half a tile's 16 word rows by :func:`plane_unit_steps`
+    fields."""
     if layout == "pair":
         return kw // 8
     if layout == "pair3":
         return kw // PAIR3_WORDS * 2
+    if layout == "plane":
+        return kw // 16 * (vals_per_word(nbits) // plane_unit_steps(nbits))
     return kw // PAIR3X_WORDS * 6
 
 
-def stream_plan(n: int, kw: int, layout: str, sms: int = H100_SMS):
-    """(strips, splits) of K1/K6/K7's streaming kernel over (kw, n) words:
+def stream_plan(n: int, kw: int, layout: str, sms: int = H100_SMS,
+                nbits: int = 0):
+    """(strips, splits) of the streaming kernel of K1, K6-K9 over (kw, n)
+    words (``nbits`` for 'plane'):
     STREAM_COLS-column strips, and K split over blocks so that they come
     nearest to STREAM_BLOCKS_PER_SM an SM (so at least one an SM), but
     never so far that a warp of a slice has no unit (K too short: one
     split). The partial sums' scratch is (splits, M, n) f32 with one int32
     ticket a strip; none at one split."""
     strips = -(-n // STREAM_COLS)
-    most = max(1, stream_units(kw, layout) // STREAM_WARPS)
+    most = max(1, stream_units(kw, layout, nbits) // STREAM_WARPS)
     want = (2 * STREAM_BLOCKS_PER_SM * sms + strips) // (2 * strips)
     return strips, max(1, min(most, want))
 
@@ -321,19 +339,21 @@ def _sms(index: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def _scratch_layout(m: int, k: int, n: int = 0, kw: int = 0,
-                    layout: Optional[str] = None, sms: int = H100_SMS):
+                    layout: Optional[str] = None, sms: int = H100_SMS,
+                    nbits: int = 0):
     """(cols, splits, rs, part, tickets, size): one call's scratch, in
     bytes from its start. pre(x) as bf16 (m, cols) at 0, cols = K rounded
-    up to XP_CHUNK (16-byte rows), its f32 row sums at ``rs``; for
-    K1/K6/K7 (``layout`` given) at m <= DECODE_M over more than one split
-    (:func:`stream_plan`), the f32 partials (splits, m, n) at ``part`` and
-    one int32 ticket a strip at ``tickets`` (0 where absent)."""
+    up to XP_CHUNK (16-byte rows), its f32 row sums at ``rs``; for K1 and
+    K6-K9 (``layout`` given, with ``nbits`` for 'plane') at m <= DECODE_M
+    over more than one split (:func:`stream_plan`), the f32 partials
+    (splits, m, n) at ``part`` and one int32 ticket a strip at
+    ``tickets`` (0 where absent)."""
     cols = -(-k // XP_CHUNK) * XP_CHUNK
     rs = m * cols * 2
     size = rs + -(-m * 4 // 16) * 16
     splits, part, tickets = 1, 0, 0
     if layout is not None and m <= DECODE_M:
-        strips, splits = stream_plan(n, kw, layout, sms)
+        strips, splits = stream_plan(n, kw, layout, sms, nbits)
         if splits > 1:
             part, tickets = size, size + 4 * splits * m * n
             size = tickets + 4 * strips
@@ -341,7 +361,7 @@ def _scratch_layout(m: int, k: int, n: int = 0, kw: int = 0,
 
 
 def _scratch(x: torch.Tensor, k: int, n: int = 0, kw: int = 0,
-             layout: Optional[str] = None):
+             layout: Optional[str] = None, nbits: int = 0):
     """One device buffer for a call's scratch (:func:`_scratch_layout`,
     with the device's SM count): (the buffer, splits, and the addresses
     of xp, rs, the partials and the tickets, 0 where absent). One
@@ -351,7 +371,7 @@ def _scratch(x: torch.Tensor, k: int, n: int = 0, kw: int = 0,
     sms = (_sms(x.device.index or 0) if layout is not None
            and m <= DECODE_M else H100_SMS)
     _, splits, rs, part, tickets, size = _scratch_layout(m, k, n, kw, layout,
-                                                          sms)
+                                                          sms, nbits)
     buf = torch.empty(size, dtype=torch.uint8, device=x.device)
     p = buf.data_ptr()
     return (buf, splits, p, p + rs, p + part if part else 0,
@@ -484,9 +504,10 @@ def plane_lut_matmul(x, packed, scale, bias, lut, *, nbits, k,
                      affine=None):
     """Kernel K8: ``bf16((x @ bf16(v[idx])) * scale + bias)`` over 'plane'
     words, with v the codebook ``lut`` (any size up to 2^nbits, any order)
-    or, for an affine codebook (8 bits), ``idx*step + zero``. A CUDA tensor
-    launches the kernel; a CPU tensor takes
-    :func:`plane_lut_matmul_plain`."""
+    or, for an affine codebook (8 bits), ``idx*step + zero``; one counted
+    launch of the prologue pass and the streaming (M <= DECODE_M) or
+    tensor-core kernel. A CUDA tensor launches the kernel; a CPU tensor
+    takes :func:`plane_lut_matmul_plain`."""
     if not x.is_cuda:
         return plane_lut_matmul_plain(x, packed, scale, bias, lut,
                                       nbits=nbits, k=k, affine=affine)
@@ -500,17 +521,19 @@ def plane_lut_matmul(x, packed, scale, bias, lut, *, nbits, k,
     step, zero = affine if affine is not None else (0.0, 0.0)
     m = x.shape[0]
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    _buf, splits, xp, rs, part, tickets = _scratch(x, k, n, kw, "plane",
+                                                   nbits)
     K8(x.data_ptr(), packed.data_ptr(), scale.data_ptr(), _ptr(bias),
-       0 if affine is not None else lut.data_ptr(), out.data_ptr(), m, n, k,
-       kw, nbits, 0 if affine is not None else lut.shape[0], float(step),
-       float(zero))
+       0 if affine is not None else lut.data_ptr(), out.data_ptr(), xp, rs,
+       part, tickets, m, n, k, kw, splits, nbits,
+       0 if affine is not None else lut.shape[0], float(step), float(zero))
     return out
 
 
 def plane_affine_matmul(x, packed, scale, bias, *, nbits, k, a_aff, b_aff):
     """Kernel K9: ``bf16((a*(x @ C) + b*rowsum(x))*scale + bias)`` over
-    'plane' words, ``C = 1 + idx/2^nbits`` (nbits <= 7). A CUDA tensor
-    launches the kernel; a CPU tensor takes
+    'plane' words, ``C = 1 + idx/2^nbits`` (nbits <= 7), launched as K8
+    is. A CUDA tensor launches the kernel; a CPU tensor takes
     :func:`plane_affine_matmul_plain`."""
     if not x.is_cuda:
         return plane_affine_matmul_plain(x, packed, scale, bias, nbits=nbits,
@@ -519,9 +542,11 @@ def plane_affine_matmul(x, packed, scale, bias, *, nbits, k, a_aff, b_aff):
     kw, n = _check_plane(x, packed, scale, bias, nbits, k)
     m = x.shape[0]
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    _buf, splits, xp, rs, part, tickets = _scratch(x, k, n, kw, "plane",
+                                                   nbits)
     K9(x.data_ptr(), packed.data_ptr(), scale.data_ptr(), _ptr(bias),
-       out.data_ptr(), m, n, k, kw, nbits, float(a_aff),
-       _centred(a_aff, b_aff, "plane"))
+       out.data_ptr(), xp, rs, part, tickets, m, n, k, kw, splits, nbits,
+       float(a_aff), _centred(a_aff, b_aff, "plane"))
     return out
 
 

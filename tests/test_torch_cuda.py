@@ -162,39 +162,69 @@ def test_k1_k6_k7_tile_rules(dev, layout, m, N):
     _bf16_close(got, plain(x, packed, scale, bias, **kw))
 
 
-@pytest.mark.parametrize("m", [8, 64])
-def test_k1_replays_in_cuda_graph(dev, m):
-    """K1 on both routes captured in a CUDA graph: the prologue's scratch
-    and, at M = 8 (2048 x 256: four K splits), the split-K partials and
-    tickets are set up under capture, and two replays after x changes in
-    place each give the eager call's output for the new x (the prologue
-    pass zeroes the tickets on every replay)."""
+def _decode_call(dev, g, kernel, K, N, m, nbits=4):
+    """(kernel, call, plain): a call of K1 (int4 'pair', layernorm
+    prologue and a residual), K8 (NF4 'plane') or K9 (uniform int4
+    'plane') on random (K, N) words and x (m, K), and its plain version;
+    ``call(x)`` and ``plain(x)`` take the input."""
+    from sleekit_tpu_torch.codebooks import Codebook
     from sleekit_tpu_torch.ops import dequant_matmul as dm
-    from sleekit_tpu_torch.ops.dequant_matmul import K1, pair_matmul
     from sleekit_tpu_torch.ops.pack import pack_indices
+
+    layout = "pair" if kernel == "K1" else "plane"
+    packed = pack_indices(torch.randint(0, 2 ** nbits, (K, N), generator=g),
+                          nbits, layout=layout).to(dev)
+    scale = torch.rand(N, generator=g).to(dev) + 0.5
+    if kernel == "K1":
+        kw = dict(nbits=nbits, k=K, a_aff=0.125, b_aff=-1.0,
+                  pre="layernorm",
+                  ln_scale=torch.rand(K, generator=g).to(dev) + 0.5,
+                  residual=torch.randn(m, N, generator=g).to(
+                      dev, torch.bfloat16))
+        fn, plain, args = dm.pair_matmul, dm.pair_matmul_plain, ()
+    elif kernel == "K8":
+        kw = dict(nbits=nbits, k=K)
+        fn, plain = dm.plane_lut_matmul, dm.plane_lut_matmul_plain
+        args = (Codebook.nf4().values.to(dev),)
+    else:
+        kw = dict(nbits=nbits, k=K, a_aff=0.125, b_aff=-1.0)
+        fn, plain, args = dm.plane_affine_matmul, \
+            dm.plane_affine_matmul_plain, ()
+    return (getattr(dm, kernel),
+            lambda x: fn(x, packed, scale, None, *args, **kw),
+            lambda x: plain(x, packed, scale, None, *args, **kw))
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K8", "K9"])
+@pytest.mark.parametrize("m", [8, 64])
+def test_k1_replays_in_cuda_graph(dev, kernel, m):
+    """K1, K8 and K9 on both routes captured in a CUDA graph: the
+    prologue's scratch and, at M = 8 (2048 x 256: K split over blocks),
+    the split-K partials and tickets are set up under capture, and two
+    replays after x changes in place each give the eager call's output
+    for the new x (the prologue pass zeroes the tickets on every
+    replay)."""
+    from sleekit_tpu_torch.ops import dequant_matmul as dm
 
     g = torch.Generator().manual_seed(5)
     K, N = (2048, 256) if m <= dm.DECODE_M else (512, 256)
-    packed = pack_indices(torch.randint(0, 16, (K, N), generator=g), 4,
-                          layout="pair").to(dev)
-    if m <= dm.DECODE_M:
-        assert dm._scratch(torch.empty(m, K, device=dev), K, N,
-                           packed.shape[0], "pair")[1] > 1
+    kern, call_x, _ = _decode_call(dev, g, kernel, K, N, m)
+    if m <= dm.DECODE_M:   # 4-bit words: K/8 word rows in both layouts
+        layout = "pair" if kernel == "K1" else "plane"
+        assert dm._scratch(torch.empty(m, K, device=dev), K, N, K // 8,
+                           layout, 4)[1] > 1
     x = torch.randn(m, K, generator=g).to(dev, torch.bfloat16)
-    scale = torch.rand(N, generator=g).to(dev) + 0.5
-    kw = dict(nbits=4, k=K, a_aff=0.125, b_aff=-1.0, pre="layernorm",
-              ln_scale=torch.rand(K, generator=g).to(dev) + 0.5)
 
     def call():
-        return pair_matmul(x, packed, scale, None, **kw)
+        return call_x(x)
 
     call()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    before = K1.launches
+    before = kern.launches
     with torch.cuda.graph(graph):
         out = call()
-    assert K1.launches == before + 1
+    assert kern.launches == before + 1
     for _ in range(2):
         x.copy_(torch.randn(m, K, generator=g).to(dev, torch.bfloat16))
         graph.replay()
@@ -202,41 +232,39 @@ def test_k1_replays_in_cuda_graph(dev, m):
         assert torch.equal(out, call())
 
 
+@pytest.mark.parametrize("kernel", ["K1", "K8", "K9"])
 @pytest.mark.parametrize("m", [1, 8])
 @pytest.mark.parametrize("K,N", [(2048, 2048), (8192, 2048)])
-def test_k1_stream_is_deterministic(dev, m, K, N):
-    """K1's streaming route at OPT-1.3B's o and fc2 shapes, where K is
-    split over blocks: within the bf16 tolerance of the plain version, and
-    bit for bit the same on a second call (the warps' and the splits'
-    partial sums are added in a fixed order)."""
+def test_k1_stream_is_deterministic(dev, kernel, m, K, N):
+    """K1's, K8's and K9's streaming route at OPT-1.3B's o and fc2 shapes,
+    where K is split over blocks: within the bf16 tolerance of the plain
+    version, and bit for bit the same on a second call (the warps' and
+    the splits' partial sums are added in a fixed order)."""
     from sleekit_tpu_torch.ops import dequant_matmul as dm
-    from sleekit_tpu_torch.ops.pack import pack_indices
 
     g = torch.Generator().manual_seed(K + m)
-    packed = pack_indices(torch.randint(0, 16, (K, N), generator=g), 4,
-                          layout="pair").to(dev)
+    _, call, plain = _decode_call(dev, g, kernel, K, N, m)
     x = torch.randn(m, K, generator=g).to(dev, torch.bfloat16)
-    assert dm._scratch(x, K, N, packed.shape[0], "pair")[1] > 1
-    kw = dict(nbits=4, k=K, a_aff=0.125, b_aff=-1.0, pre="layernorm",
-              ln_scale=torch.rand(K, generator=g).to(dev) + 0.5,
-              residual=torch.randn(m, N, generator=g).to(dev, torch.bfloat16))
-    scale = torch.rand(N, generator=g).to(dev) + 0.5
-    got = dm.pair_matmul(x, packed, scale, None, **kw)
-    assert torch.equal(got, dm.pair_matmul(x, packed, scale, None, **kw))
-    _bf16_close(got, dm.pair_matmul_plain(x, packed, scale, None, **kw))
+    layout = "pair" if kernel == "K1" else "plane"
+    assert dm._scratch(x, K, N, K // 8, layout, 4)[1] > 1
+    got = call(x)
+    assert torch.equal(got, call(x))
+    _bf16_close(got, plain(x))
 
 
 @pytest.mark.parametrize("m", [4, 16])
 def test_k1_k6_k7_raise_without_scratch(dev, m):
-    """A launch without the prologue pass's scratch pointers, on the
-    streaming route (m = 4) and the tensor-core route (m = 16), returns a
-    CUDA error that the kernel's binding raises; nothing falls back."""
+    """A launch of K1, K6, K7, K8 or K9 without the prologue pass's
+    scratch pointers, on the streaming route (m = 4) and the tensor-core
+    route (m = 16), returns a CUDA error that the kernel's binding raises;
+    nothing falls back."""
     from sleekit_tpu_torch.ops import dequant_matmul as dm
     from sleekit_tpu_torch.ops.pack import pack_indices
 
     K, N = 512, 64
     x = torch.zeros(m, K, device=dev, dtype=torch.bfloat16)
     scale = torch.ones(N, device=dev)
+    lut = torch.linspace(-1, 1, 16, device=dev)
     out = torch.empty(m, N, device=dev, dtype=torch.bfloat16)
     idx = torch.zeros(K, N, dtype=torch.int64)
     for kernel, layout, nbits in ((dm.K1, "pair", 4), (dm.K6, "pair3x", 3),
@@ -248,6 +276,15 @@ def test_k1_k6_k7_raise_without_scratch(dev, m):
         tail = ((nbits,) if kernel is dm.K1 else ()) + (0, 1.0, 0.0, 1e-5)
         with pytest.raises(RuntimeError, match="CUDA error"):
             kernel(*head, *tail)
+    packed = pack_indices(idx, 4, layout="plane").to(dev)
+    kw = packed.shape[0]
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        dm.K8(x.data_ptr(), packed.data_ptr(), scale.data_ptr(), 0,
+              lut.data_ptr(), out.data_ptr(), 0, 0, 0, 0, m, N, K, kw, 1, 4,
+              16, 0.0, 0.0)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        dm.K9(x.data_ptr(), packed.data_ptr(), scale.data_ptr(), 0,
+              out.data_ptr(), 0, 0, 0, 0, m, N, K, kw, 1, 4, 1.0, 0.0)
 
 
 def _k2_head(g, dev, K, N, narrow):
@@ -701,25 +738,33 @@ def test_k6_k7_match_plain(dev, layout, K, pre, m, N):
 
 
 @pytest.mark.parametrize("codebook", ["nf4", "table3", "table8", "affine8",
-                                      "uniform3", "uniform4"])
-@pytest.mark.parametrize("m", [1, 8, 1024])
-@pytest.mark.parametrize("N", [200, 198])
-def test_k8_k9_match_plain(dev, codebook, m, N):
-    """K8 (tables: NF4, a k = 3 table at 2 bits, an unsorted 8-entry
-    table; and the 8-bit affine grid) and K9 (uniform 3 and 4 bits) on
-    'plane' words against their plain versions, K (700) not a multiple of
-    any plane tile, N not a multiple of the block."""
+                                      "uniform3", "uniform4", "table1",
+                                      "uniform1", "uniform2"])
+@pytest.mark.parametrize("m", [1, 8, 9, 64, 1024])
+@pytest.mark.parametrize("K,N", [(700, 200), (700, 198), (2048, 2052),
+                                 (2048, 1030)])
+def test_k8_k9_match_plain(dev, codebook, m, K, N):
+    """K8 (tables: NF4, a k = 3 table at 2 bits, an unsorted 8-entry table
+    at 3 bits, a 2-entry table at 1 bit; and the 8-bit affine grid) and K9
+    (uniform 1-4 bits) on 'plane' words against their plain versions, on
+    the streaming route (m <= 8) and the tensor-core route (m = 9 in 32 x
+    64 tiles, 64 and 1024 in 128 x 128), with K (700) not a multiple of any
+    plane tile and, at 3 bits, K = 2048 ending inside the last 320-row tile
+    (OPT-1.3B's K); N not a multiple of the 32-column strip, nor of 4 at
+    198 and 1030 (4-byte word loads)."""
     from sleekit_tpu_torch.codebooks import Codebook
     from sleekit_tpu_torch.ops import dequant_matmul as dm
     from sleekit_tpu_torch.ops.pack import bits_for_codebook, pack_indices
 
-    g = torch.Generator().manual_seed(N)
-    K = 700
+    g = torch.Generator().manual_seed(N + K)
     lut = {"nf4": Codebook.nf4().values,
            "table3": torch.tensor([-1.0, 0.1, 1.0]),
            "table8": torch.tensor([0.3, -1.0, 0.7, 0.05, -0.4, 1.0, -0.1,
                                    0.5]),
+           "table1": torch.tensor([0.25, -0.5]),
            "affine8": torch.linspace(-1, 1, 256),
+           "uniform1": torch.linspace(-1, 1, 2),
+           "uniform2": torch.linspace(-1, 1, 4),
            "uniform3": torch.linspace(-1, 1, 8),
            "uniform4": torch.linspace(-1, 1, 16)}[codebook]
     nbits = bits_for_codebook(lut.numel())

@@ -328,29 +328,62 @@ def test_prefill_m_plain_matches_jax_kernel(layout, K, pre):
     (520, 400, 448),
 ])
 def test_xp_scratch_at_every_m(m, k, cols):
-    """The wrappers of K1, K6, K7 and K2 allocate the prologue pass's
+    """The wrappers of K1, K2 and K6-K9 allocate the prologue pass's
     scratch at every M, in one buffer: pre(x) in bf16 with K rounded up to
     XP_CHUNK columns at its start, then one f32 row sum a row, 16-byte
-    aligned; K1/K6/K7 at M <= DECODE_M over more than one K split put
-    their f32 partials and one int32 ticket a 32-column strip after it."""
+    aligned; K1 and K6-K9 at M <= DECODE_M over more than one K split put
+    their f32 partials and one int32 ticket a 32-column strip after it
+    ('pair' and 'plane' int4 words of a 2048 x 2048 matrix)."""
     got, splits, rs, part, tickets, size = tdm._scratch_layout(m, k)
     assert (got, splits, rs, part, tickets) == (cols, 1, m * cols * 2, 0, 0)
     assert rs % 16 == 0 and size >= rs + 4 * m
-    n, kw = 2048, 256       # int4 'pair' words of a 2048 x 2048 matrix
-    strips, want = tdm.stream_plan(n, kw, "pair")
-    got, splits, rs, part, tickets, size = tdm._scratch_layout(
-        m, k, n, kw, "pair")
-    assert (got, rs) == (cols, m * cols * 2)
-    if m <= tdm.DECODE_M:
-        assert splits == want > 1 and part % 16 == 0 and part >= rs + 4 * m
-        assert tickets == part + 4 * splits * m * n
-        assert size == tickets + 4 * strips
-    else:
-        assert (splits, part, tickets) == (1, 0, 0)
+    n, kw = 2048, 256       # int4 words of a 2048 x 2048 matrix
+    for layout in ("pair", "plane"):
+        strips, want = tdm.stream_plan(n, kw, layout, nbits=4)
+        got, splits, rs, part, tickets, size = tdm._scratch_layout(
+            m, k, n, kw, layout, nbits=4)
+        assert (got, rs) == (cols, m * cols * 2)
+        if m <= tdm.DECODE_M:
+            assert splits == want > 1 and part % 16 == 0
+            assert part >= rs + 4 * m
+            assert tickets == part + 4 * splits * m * n
+            assert size == tickets + 4 * strips
+        else:
+            assert (splits, part, tickets) == (1, 0, 0)
+
+
+def _plane_rule(nbits):
+    """(fields a word, K rows a tile, fields a decode unit, units a 16 word
+    rows, 64-row chunks a tile) of the 'plane' tile rule
+    (``csrc/plane_matmul.cu`` ``Plane``)."""
+    vpw = tpack.vals_per_word(nbits)
+    steps = tdm.plane_unit_steps(nbits)
+    return vpw, 32 * vpw, steps, vpw // steps, vpw // 2
+
+
+def _plane_step(u, s, t4, nbits):
+    """(first K row, the lane's word rows, field) of step s of the 'plane'
+    streaming kernel's unit u for lane t4 (``Plane::step_row``,
+    ``unit_rows`` and ``stream_unit``)."""
+    _, bk, steps, sub, _ = _plane_rule(nbits)
+    q = u // sub
+    k0 = q // 2 * bk + 16 * (q % 2) + 32 * (u % sub * steps + s)
+    return k0, [q * 16 + 4 * t4 + i for i in range(4)], u % sub * steps + s
+
+
+def _layout_bits(layout):
+    """('plane', 3) for 'plane3'; (layout, 4) for the others."""
+    if layout.startswith("plane"):
+        return "plane", int(layout[5:])
+    return layout, 4
 
 
 def _kw(K, layout):
-    """Word rows of K rows of 4-bit 'pair', 'pair3' or 'pair3x' words."""
+    """Word rows of K rows of 4-bit 'pair', 'pair3' or 'pair3x' words, or
+    of 'plane<nbits>' words."""
+    if layout.startswith("plane"):
+        bk = _plane_rule(_layout_bits(layout)[1])[1]
+        return -(-K // bk) * 32
     if layout == "pair":
         pg = tpack.pair_group(4)
         return -(-K // (2 * pg * tpack.pair_planes(4))) * pg
@@ -363,6 +396,10 @@ def _unit_steps(u, layout):
     """First K rows of the k16 steps of unit u, as the streaming kernel's
     ``step_row`` walks them (4-bit 'pair': tiles of 256 rows, 32 word
     rows; 8 word rows a unit, one step in each of 4 planes)."""
+    if layout.startswith("plane"):
+        nbits = _layout_bits(layout)[1]
+        return [_plane_step(u, s, 0, nbits)[0]
+                for s in range(_plane_rule(nbits)[2])]
     if layout == "pair":
         w = 8 * u
         return [w // 32 * 256 + 2 * (w % 32) + 64 * j for j in range(4)]
@@ -383,22 +420,25 @@ _PLAN_SHAPES = [
 
 
 @pytest.mark.parametrize("layout,K,N", [
-    (layout, K, N) for layout in ("pair", "pair3", "pair3x")
+    (layout, K, N) for layout in ("pair", "pair3", "pair3x", "plane4",
+                                  "plane3")
     for K, N in _PLAN_SHAPES if layout != "pair3x" or K % 512 == 0])
 def test_stream_plan_fills_the_card(layout, K, N):
-    """K1/K6/K7's streaming kernel at decode M: its strips of STREAM_COLS
-    columns (the source's PAIR_COLS, in blocks of STREAM_WARPS warps)
-    and K splits fill at least the H100's 132 SMs with blocks, or split
-    as far as K allows (one split where K is below a warp's unit in
-    each split); the splits cut the units without gap or overlap, and the
-    units' k16 steps below K tile K exactly, once each."""
+    """The streaming kernel of K1, K6, K7 and K8/K9 ('plane' at 4 and 3
+    bits) at decode M: its strips of STREAM_COLS columns (the source's
+    PAIR_COLS, in blocks of STREAM_WARPS warps) and K splits fill at least
+    the H100's 132 SMs with blocks, or split as far as K allows (one split
+    where K is below a warp's unit in each split); the splits cut the
+    units without gap or overlap, and the units' k16 steps below K tile K
+    exactly, once each."""
     src = (Path(tdm.__file__).parent.parent / "csrc"
-           / "dequant_matmul.cu").read_text()
+           / "dequant_routes.cuh").read_text()
     assert f"constexpr int PAIR_COLS = {tdm.STREAM_COLS};" in src
     assert "constexpr int THREADS = 256;" in src and tdm.STREAM_WARPS == 8
     kw = _kw(K, layout)
-    units = tdm.stream_units(kw, layout)
-    strips, splits = tdm.stream_plan(N, kw, layout)
+    name, nbits = _layout_bits(layout)
+    units = tdm.stream_units(kw, name, nbits)
+    strips, splits = tdm.stream_plan(N, kw, name, nbits=nbits)
     most = max(1, units // tdm.STREAM_WARPS)
     assert strips == -(-N // tdm.STREAM_COLS)
     assert 1 <= splits <= most
@@ -413,3 +453,60 @@ def test_stream_plan_fills_the_card(layout, K, N):
     rows = sorted(r for u in range(units) for r in _unit_steps(u, layout)
                   if r < K)
     assert rows == list(range(0, K, 16))
+
+
+@pytest.mark.parametrize("nbits", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("K", [700, 2048])
+def test_plane_routes_read_every_k_row_once(nbits, K):
+    """The 'plane' tile rule of K8/K9 (a Python mirror of
+    ``csrc/plane_matmul.cu`` ``Plane``) against the packer's words: on the
+    streaming route, lane t4's word rows and field of each step hold the
+    indices of its K rows 4*t4 .. 4*t4 + 3 of the step; on the tensor-core
+    route, B register h of lane t4 at step s of chunk c holds K rows 64c +
+    16s + 8h + 2*t4 and + 1 in field 2(c % CPT) + s/2 of the chunk's word
+    rows (s%2)*16 + 8h + 2*t4 and + 1; each route reads every K row below
+    K exactly once (at 3 bits, K = 2048 ends inside the last 320-row
+    tile; K = 700 inside a tile at every width), and the streaming route's
+    rows grow with the step, so it may stop at the first step past K."""
+    vpw, bk, steps, sub, cpt = _plane_rule(nbits)
+    rng = np.random.RandomState(K + nbits)
+    idx = rng.randint(0, 2 ** nbits, (K, 4))
+    words = tpack.pack_indices(torch.as_tensor(idx), nbits,
+                               layout="plane").long() & 0xFFFFFFFF
+    kw = words.shape[0]
+    assert kw == _kw(K, f"plane{nbits}")
+
+    def field(r, j):
+        return (words[r] >> (nbits * j)) & (2 ** nbits - 1)
+
+    seen = []
+    for u in range(tdm.stream_units(kw, "plane", nbits)):
+        firsts = [_plane_step(u, s, 0, nbits)[0] for s in range(steps)]
+        assert firsts == sorted(firsts)
+        for s in range(steps):
+            for t4 in range(4):
+                k0, rows, j = _plane_step(u, s, t4, nbits)
+                if k0 >= K:
+                    continue
+                for i, r in enumerate(rows):
+                    k = k0 + 4 * t4 + i
+                    if k < K:
+                        assert torch.equal(field(r, j),
+                                           torch.as_tensor(idx[k])), (u, s)
+                        seen.append(k)
+    assert sorted(seen) == list(range(K))
+    seen = []
+    for c in range(-(-K // tdm.XP_CHUNK)):   # the chunks of xp_cols(K)
+        first = c // cpt * 32                # chunk_words
+        for s in range(4):
+            for h in range(2):
+                for t4 in range(4):
+                    for e in range(2):
+                        k = 64 * c + 16 * s + 8 * h + 2 * t4 + e
+                        r = first + (s % 2) * 16 + 8 * h + 2 * t4 + e
+                        if k < K:
+                            assert torch.equal(
+                                field(r, 2 * (c % cpt) + s // 2),
+                                torch.as_tensor(idx[k])), (c, s)
+                            seen.append(k)
+    assert sorted(seen) == list(range(K))

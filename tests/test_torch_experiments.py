@@ -46,7 +46,8 @@ def test_attn_bench_runs_on_cpu(monkeypatch, capsys, knobs, kernel, kv,
 
 
 @pytest.mark.parametrize("extra", [[], ["--layout", "plane", "--kv", "bf16"],
-                                   ["--dense", "--no-fuse"]])
+                                   ["--dense", "--no-fuse"],
+                                   ["--layout", "plane", "--codebook", "nf4"]])
 def test_profile_decode_runs_on_cpu(capsys, extra):
     """Every variant runs; unembed and residual are derived from them."""
     out = profile_decode.main(["--model", "tiny", "--batch", "2", "--steps",
