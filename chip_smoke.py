@@ -7,8 +7,9 @@
    ptxas's registers and spills of K1/K6/K7's decode kernel
    (``pair_stream_kernel``), of the main path's ``decode_kernel``
    instantiations (K3 over the slot cache, K5 over the pool: bf16 q, int8
-   cache, bf16 scales) and of the 4-bit 'plane' instantiations of both
-   routes that the NF4 (K8) and int4 'plane' (K9) paths run;
+   cache, bf16 scales), of the 4-bit 'plane' instantiations of both
+   routes that the NF4 (K8) and int4 'plane' (K9) paths run, and of the
+   main path's ``append_kernel`` instantiations (K10 at prefill and T = 1);
 2. holds each kernel against its plain PyTorch version on the card at the
    shapes OPT-1.3B serving gives it, and times the kernel, the plain
    version and, where one exists, one PyTorch library call computing the
@@ -16,7 +17,12 @@
    (the int8 head) at M = 8 (its streaming route), 64 and 1024 (its
    tensor-core route); K4 (causal flash prefill, bf16 on the tensor
    cores) at OPT-1.3B's 256-bucket group, at BLOOM-560m's with ALiBi and
-   at llama3-8b's GQA over a 1024-token prompt. The page-pool kernels (K5, K14, K15) run over a strided, out-of-order table
+   at llama3-8b's GQA over a 1024-token prompt; K10 over a prompt's rows
+   (the prefill's KV write: int8 rows, bf16 scales and the dequantized
+   K/V) at the 256-bucket group's and llama3-8b's shapes, bit for bit
+   with its plain version (the PyTorch path it replaced, timed beside
+   it), and at one row (B 1, KV 1), the launch floor. The page-pool
+   kernels (K5, K14, K15) run over a strided, out-of-order table
    of distinct 64-row pages; K5 is held bit for bit to K3 on the same
    logical rows, and K13 (the batch-folded flash decode) to K11; K12 (the
    f32 elementwise flash decode) is held within one bf16 step of its plain
@@ -25,7 +31,8 @@
    Engine with OPT-1.3B at full width and depth (random int4 'pair'
    weights from a seed, fused q|k|v, int8 head, int8 KV cache with bf16
    scales), with the time its prefills take, checks that every kernel
-   launched and the launches of one decode step, checks the prefill
+   launched (K10 once a layer in each prefill) and the launches of one
+   decode step, checks the prefill
    logits against the kernels' plain versions on the card (bf16
    tolerance through the first layer, relative L2 through all of them)
    and one decode step's logits from two copies of the Engine's cache
@@ -75,7 +82,8 @@
    and batch-folded split routes,
    ``kernel_bench`` on the four decode shapes, and ``prefill_bench`` on
    the int4 model's 256-bucket group (with a trace of one prefill under
-   ``traces/prefill``); their result lines go to stdout;
+   ``traces/prefill``, which must show 24 K10 and no PyTorch quantizer
+   op); their result lines go to stdout;
 9. prints the kernels line, the card's name and power limit, and, last,
    the result line.
 
@@ -167,6 +175,17 @@ def plane_rule(name: str):
     kern = "K8" if m.group(1) == "1" else "K9"
     return (f"{kern} mma {m.group(2)}x{m.group(3)}x{m.group(4)}"
             if m.group(2) else f"{kern} stream")
+
+
+def append_rule(name: str):
+    """The main path's ``append_kernel`` instantiations, read from the
+    mangled name: bf16 rows into an int8 cache with bf16 scales, one chunk
+    a lane of 8 elements (the prefill's 16-byte loads) or of 2 (T = 1 at
+    D 64); None for the others."""
+    m = re.search(r"append_kernelI13__nv_bfloat16aS\d*_Lb1ELi([28])ELi1EE",
+                  name)
+    return None if m is None else {"8": "K10 prefill", "2": "K10/K14 T=1"}[
+        m.group(1)]
 
 
 def ptxas_report(build_log: str, kernel: str, rule=pair_rule):
@@ -700,6 +719,79 @@ def check_paged(dev, g, cfg):
     return cases
 
 
+def check_k10_prefill(dev):
+    """K10 over T rows (``attention.kv_prefill_write``) in
+    ``prefill_bench.K10_PREFILL_CASES``, held equal to its plain version -
+    the model's PyTorch quantization, the path before it - bit for bit:
+    int8 rows, scales and the dequantized K/V. The kernel is timed as a
+    CUDA graph over rotating copies larger than L2, the plain version
+    eagerly. Then K10 at T = 1, B 1, KV 1 (the split route's append of
+    one row), the launch floor a single-row append cannot beat. Returns
+    K10's cases."""
+    gd = torch.Generator(device=dev).manual_seed(12)
+    cases = []
+    for label, B, T, H, KV, D in prefill_bench.K10_PREFILL_CASES:
+        nbytes = prefill_bench.kv_write_bytes(B, T, KV, D)
+        n_copy = copies_for(nbytes)
+        sets = prefill_bench.kv_write_inputs(B, T, H, KV, D, dev, n_copy)
+        rows = [(k, v) for k, v, _ in sets]
+        caches = [c for _, _, c in sets]
+        ref = [t.clone() for t in caches[0]]
+        got = attn.kv_prefill_write(*rows[0], *caches[0][:2], 0,
+                                    *caches[0][2:])
+        want = attn.kv_prefill_write_plain(*rows[0], *ref[:2], 0, *ref[2:])
+        torch.cuda.synchronize()
+        for a, b in zip([*got, *caches[0]], [*want, *ref]):
+            if not torch.equal(a, b):
+                raise AssertionError(f"K10 {label}: differs from its plain "
+                                     "version")
+        ms = cuda_ms(lambda i: attn.kv_prefill_write(
+            *rows[i], *caches[i][:2], 0, *caches[i][2:]), n_copy)
+        plain_ms = cuda_ms(lambda i: attn.kv_prefill_write_plain(
+            *rows[i], *caches[i][:2], 0, *caches[i][2:]), n_copy, iters=5,
+            warmup=1, graph=False)
+        b_ms, b_by = bound(nbytes, 0.0)
+        cases.append(dict(case=label, max_abs_err=0.0, ms=ms,
+                          plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+                          bound_by=b_by, bytes=nbytes))
+        log(f"K10 {label} KV={KV} D={D} (int8, bf16 scales): int8 rows, "
+            f"scales and dequantized K/V equal the plain version's | kernel "
+            f"{ms:.4f} ms, today's path (plain, eager) {plain_ms:.3f} ms, "
+            f"{nbytes} bytes, bound {b_ms:.5f} ms ({b_by})")
+        del sets, rows, caches, ref, got, want
+
+    # The floor: one row of K and one of V.
+    D = 64
+    kn = torch.randn(1, 1, D, device=dev, generator=gd).bfloat16()
+    vn = torch.randn(1, 1, D, device=dev, generator=gd).bfloat16()
+    one = [torch.zeros(1, 1, 1, 512, D, dtype=torch.int8, device=dev)
+           for _ in "kv"]
+    one += [torch.zeros(1, 1, 1, 512, dtype=torch.bfloat16, device=dev)
+            for _ in "kv"]
+    ref = [t.clone() for t in one]
+    attn.kv_append(kn, vn, one[0], one[1], 256, 0, one[2], one[3])
+    attn.kv_append_plain(kn, vn, ref[0], ref[1], 256, 0, ref[2], ref[3])
+    torch.cuda.synchronize()
+    for a, b in zip(one, ref):
+        if not torch.equal(a, b):
+            raise AssertionError("K10 B=1 KV=1: differs from its plain "
+                                 "version")
+    ms = cuda_ms(lambda i: attn.kv_append(kn, vn, one[0], one[1], 256, 0,
+                                          one[2], one[3]), 1, iters=64)
+    plain_ms = cuda_ms(lambda i: attn.kv_append_plain(
+        kn, vn, ref[0], ref[1], 256, 0, ref[2], ref[3]), 1, iters=5,
+        warmup=1, graph=False)
+    nbytes = 2 * D * 2 + 2 * (D + 2)
+    b_ms, b_by = bound(nbytes, 0.0)
+    cases.append(dict(case="floor B=1 KV=1 T=1", max_abs_err=0.0, ms=ms,
+                      plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+                      bound_by=b_by, bytes=nbytes))
+    log(f"K10 floor (B 1, KV 1, T 1, D 64: one K and one V row) equals its "
+        f"plain version | kernel {ms:.4f} ms (graph replay, 64 launches), "
+        f"plain {plain_ms:.3f} ms, bound {b_ms:.7f} ms ({b_by})")
+    return cases
+
+
 # ---- phase 3: the Engine ------------------------------------------------------
 
 
@@ -731,7 +823,8 @@ def run_engine(dev, cfg, card: str):
 @contextlib.contextmanager
 def timed_prefills(seconds):
     """Every prefill the Engine runs inside the block, timed by the host
-    clock between synchronizations; their total goes to ``seconds[0]``."""
+    clock between synchronizations; their total goes to ``seconds[0]``,
+    their number to ``seconds[1]``."""
     inner = engine_mod.prefill
 
     def timed(*a, **kw):
@@ -740,6 +833,7 @@ def timed_prefills(seconds):
         out = inner(*a, **kw)
         torch.cuda.synchronize()
         seconds[0] += time.perf_counter() - t0
+        seconds[1] += 1
         return out
     engine_mod.prefill = timed
     try:
@@ -751,9 +845,10 @@ def timed_prefills(seconds):
 def serve(dev, cfg, card, what, params, kernel, prompts, n_new, hold=True):
     """Serve the prompts (greedy, ``n_new`` tokens each) through the slot
     Engine on ``params``, whose linears all run ``kernel``, with the time
-    its prefills take; check the launches of the run and of one decode
-    step through the public entry point (exactly 4 per layer of
-    ``kernel``: qkv, o, fc1, fc2; one K2 head; one K3 per layer), the
+    its prefills take; check the launches of the run (one K10 a layer in
+    each prefill) and of one decode step through the public entry point
+    (exactly 4 per layer of ``kernel``: qkv, o, fc1, fc2; one K2 head;
+    one K3 per layer), the
     prefill logits (kernels vs plain versions; ``hold``: see
     check_prefill) and each layer; time a full-depth prefill of the
     256-bucket group (4 rows x 256, eager between CUDA events) and
@@ -763,7 +858,7 @@ def serve(dev, cfg, card, what, params, kernel, prompts, n_new, hold=True):
                     cache_dtype=torch.int8, device=dev, use_kernel=True)
     reqs = [Request(prompt=p, max_new_tokens=n_new) for p in prompts]
     kernels.reset_launch_counts()
-    prefill_s = [0.0]
+    prefill_s = [0.0, 0]
     t0 = time.perf_counter()
     with timed_prefills(prefill_s):
         comps = engine.run(reqs)
@@ -771,9 +866,12 @@ def serve(dev, cfg, card, what, params, kernel, prompts, n_new, hold=True):
     run_s = time.perf_counter() - t0
     launches = {k: n for k, n in counts().items() if n}
     log(f"{what} Engine: 8 requests x {n_new} tokens in {run_s:.2f} s, of "
-        f"which its prefills {prefill_s[0]:.3f} s; launches {launches}")
-    if set(launches) != {kernel.name, "K2", "K3", "K4"}:
-        raise AssertionError(f"{what}: the Engine launched {launches}")
+        f"which its {prefill_s[1]} prefills {prefill_s[0]:.3f} s; launches "
+        f"{launches}")
+    if (set(launches) != {kernel.name, "K2", "K3", "K4", "K10"}
+            or launches["K10"] != cfg.n_layers * prefill_s[1]):
+        raise AssertionError(f"{what}: the Engine launched {launches} in "
+                             f"{prefill_s[1]} prefills (one K10 a layer)")
     check_completions(comps, prompts, cfg, f"{what} Engine", n_new)
     dec_rel, dec_agree = check_decode(
         cfg, params, engine.cache, last_tokens(comps, dev),
@@ -1005,9 +1103,9 @@ def run_paged_engine(dev, cfg, card: str, state):
         f"{ {k: n for k, n in launches.items() if n} }")
     if queued:
         raise AssertionError("run A: the default pool did not admit all 8")
-    for name in ("K1", "K2", "K4", "K5"):
-        if launches[name] <= 0:
-            raise AssertionError(f"{name} never launched on the paged path")
+    if {k for k, n in launches.items() if n} != {"K1", "K2", "K4", "K5",
+                                                  "K10"}:
+        raise AssertionError(f"the paged path launched {launches}")
     want = {"K1": 4 * cfg.n_layers, "K2": 1, "K5": cfg.n_layers}
     if {k: n for k, n in step.items() if n} != want:
         raise AssertionError(f"one paged decode step launched {step}")
@@ -1255,9 +1353,18 @@ def run_benches(cfg, trace_dir):
             out[f"profile_decode_attn_only_{mode}"] = profile_decode.main(
                 at_ctx + ["--variants", "attn_only"])
     out["kernel_bench"] = kernel_bench.main(["--iters", "64"])
-    out["prefill_bench"] = prefill_bench.main(
+    out["prefill_bench"] = pre = prefill_bench.main(
         ["--model", "opt-1.3b", "--batch", "4", "--seq", "256", "--reps",
          "3", "--trace", os.path.join(trace_dir, "prefill")])
+    k10 = [row for row in pre["trace"]["kernels"]
+           if "append_kernel" in row[0]]
+    if (len(k10) != 1 or k10[0][2] != cfg.n_layers
+            or any(pre["trace"]["quant_ops"].values())):
+        raise AssertionError(f"prefill_bench trace: K10 {k10}, the "
+                             f"quantizer's ops {pre['trace']['quant_ops']}")
+    log(f"prefill_bench trace: K10 (append_kernel) {k10[0][1]:.4f} ms in "
+        f"{k10[0][2]} launches of {pre['trace']['device_ms']:.3f} ms of "
+        f"device time; no PyTorch quantizer op ran")
     log(f"benches (OPT-1.3B, {cfg.n_layers} layers): "
         f"{json.dumps(out, default=str)}")
     return out
@@ -1359,6 +1466,9 @@ def run_layouts(dev, cfg, card, state):
     got = prefill_logits(dev, cfg, plane, toks, cfg.n_layers, True)
     torch.cuda.synchronize()
     pre_launches = counts()["K9"]
+    if counts()["K10"] != cfg.n_layers:
+        raise AssertionError(f"int4 plane: the prefill launched "
+                             f"{counts()['K10']} K10")
     want = prefill_logits(dev, cfg, state["params"], toks, cfg.n_layers,
                           True)
     rel, agree = rel_l2(got, want, "int4 plane vs pair prefill logits")
@@ -1427,6 +1537,18 @@ def main():
     else:
         decode_ptxas = None
         log("ptxas: decode_attention.cu was built before this run, no report")
+    if "kv_append.cu" in built:
+        append_ptxas = ptxas_report(built["kv_append.cu"]["log"],
+                                    "append_kernel", append_rule)
+        if set(append_ptxas) != {"K10 prefill", "K10/K14 T=1"}:
+            raise AssertionError(f"ptxas: the main path's append_kernel "
+                                 f"instantiations not found: {append_ptxas}")
+        log("ptxas, append_kernel (K10/K14: bf16 rows, int8 cache, bf16 "
+            "scales): [registers, spill store bytes, spill load bytes] "
+            + json.dumps(append_ptxas))
+    else:
+        append_ptxas = None
+        log("ptxas: kv_append.cu was built before this run, no report")
     if "plane_matmul.cu" in built:
         plane_log = built["plane_matmul.cu"]["log"]
         plane_ptxas = {
@@ -1447,12 +1569,15 @@ def main():
     cases = {**check_linears(dev, cfg, ["K1"]), "K2": check_k2(dev, g, cfg),
              "K3": check_k3(dev, g, cfg), "K4": check_k4(dev),
              **check_paged(dev, g, cfg)}
+    # K10's first case, the one its row reports, is the main path's.
+    cases["K10"] = check_k10_prefill(dev) + cases["K10"]
     launches, engine, state = run_engine(dev, cfg, smi)
     paged_launches, paged_metrics, pool = run_paged_engine(dev, cfg, smi,
                                                            state)
     launches["K5"] = paged_launches["K5"]
     split_launches, split_metrics = run_split(dev, cfg, state, pool)
-    launches.update(split_launches)
+    for name, n in split_launches.items():   # K10: the main path's count
+        launches.setdefault(name, n)
     engine.update(paged_metrics, **split_metrics)
     engine.update(run_ew_engine(dev, cfg, state))
     cases.update(check_linears(dev, cfg, ["K6", "K7", "K8", "K9"]))
@@ -1486,13 +1611,13 @@ def main():
     engine["ptxas_pair_stream_kernel"] = stream_ptxas
     engine["ptxas_decode_kernel"] = decode_ptxas
     engine["ptxas_plane"] = plane_ptxas
+    engine["ptxas_append_kernel"] = append_ptxas
     print(json.dumps({"kernels": rows, "engine": engine,
                       "benches": benches}))
     print(smi)
-    # The run uses one card, whatever the machine holds.
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": 1}}))
+        "count": torch.cuda.device_count()}}))
 
 
 if __name__ == "__main__":

@@ -10,21 +10,32 @@ model is random (seed 0), fused q|k|v, with an int8 head.
 
 On the card the prefills run eagerly between CUDA events (Python issues
 the launches, as in the Engine); ``--trace DIR`` records one more prefill
-with ``torch.profiler`` into ``DIR/trace.json`` and logs the top device
-ops. With ``--device cpu`` the plain versions run, timed by the host
-clock. The JAX bench's matmul section and its attention-route A/B are
-not ported (ROADMAP queue 1, item 8).
+with ``torch.profiler`` into ``DIR/trace.json``, logs the top device ops
+and returns the trace's device time by kernel (``trace``: K10, the KV
+write, is ``append_kernel``) and its calls of the int8 KV quantizer's
+PyTorch ops (``quant_ops``: ``aten::round``, ``aten::amax``, none when
+K10 writes the cache). With ``--device cpu`` the plain versions run, timed
+by the host clock. The JAX bench's matmul section and its attention-route
+A/B are not ported (they come with the experiment CLIs,
+``experiments/``).
 
 ``--attention`` times K4 (``flash_prefill``) alone instead, in the cases
 of :data:`K4_CASES` (``--models`` picks some of them; bf16 inputs from a
 seed; on the card a CUDA graph of its launches replayed between CUDA
-events). Run as a file with another checkout's package first on
-``PYTHONPATH``, it times that checkout's K4 on the same inputs.
+events). ``--kv-write`` times K10 alone: over a prompt's rows
+(``kv_prefill_write``, the prefill's KV write) in the cases of
+:data:`K10_PREFILL_CASES`, beside its plain version (eager), and at one
+row a (batch row, head) - K10 and K14, the split route's append at
+serving decode, and K10 at B 1, KV 1. Run as a file with another
+checkout's package first on ``PYTHONPATH``, either mode times that
+checkout's kernels on the same inputs (a package without
+``kv_prefill_write`` times only its appends).
 
 Usage:
   python -m sleekit_tpu_torch.experiments.prefill_bench [--model opt-1.3b]
       [--batch 4] [--seq 512] [--reps 5] [--layout pair|pair3x|pair3]
       [--device cuda|cpu] [--trace DIR] [--attention [--models M,...]]
+      [--kv-write]
 """
 
 from __future__ import annotations
@@ -41,6 +52,26 @@ import torch
 # D 64) and llama3-8b's GQA at a 1024-token prompt (H 32, KV 8, D 128).
 K4_CASES = (("opt-1.3b", 4, 256), ("bloom-560m", 4, 256),
             ("llama3-8b", 1, 1024))
+
+
+# K10 over a prompt's rows, (label, B, T, H, KV, D): OPT-1.3B's 256-bucket
+# group and llama3-8b's GQA at a 1024-token prompt, bf16 K/V sliced out of
+# the fused qkv output into an int8 cache of the prompt's rows with bf16
+# scales, as the Engine prefills a bucket.
+K10_PREFILL_CASES = (("prefill opt-1.3b B=4 T=256", 4, 256, 32, 32, 64),
+                     ("prefill llama3-8b B=1 T=1024", 1, 1024, 32, 8, 128))
+
+# K10 at one row a (batch row, KV head), (label, B, KV, positions, with
+# K14): OPT-1.3B serving decode and the one-row floor, over APPEND_LAYERS
+# layers of an APPEND_ROWS-row int8 cache of head dim APPEND_D (bf16
+# scales), the pool's pages APPEND_PAGE rows.
+K10_APPEND_CASES = (("T=1 B=8 KV=32", 8, 32, (256, 280), True),
+                    ("T=1 B=1 KV=1", 1, 1, (256,), False))
+APPEND_LAYERS, APPEND_ROWS, APPEND_D, APPEND_PAGE = 24, 512, 64, 64
+
+# The PyTorch ops of the int8 KV quantizer (``ops/attention.py``
+# ``_quant_rows``) that nothing else of a prefill calls.
+QUANT_OPS = ("aten::round", "aten::amax")
 
 
 def log(*a):
@@ -66,6 +97,87 @@ def k4_inputs(model: str, batch: int, seq: int, device, seed: int = 0):
               if cfg.positional == "alibi" else None)
     return (normal(batch, seq, H, D), normal(batch, KV, seq, D),
             normal(batch, KV, seq, D), 1.0 / D ** 0.5, slopes)
+
+
+def kv_write_bytes(B: int, T: int, KV: int, D: int) -> int:
+    """Bytes the prefill's KV write must move: bf16 K/V read, int8 rows,
+    bf16 scales and the bf16 dequantized K/V written."""
+    return 2 * B * T * KV * (2 * D + D + 2 + 2 * D)
+
+
+def kv_write_inputs(B: int, T: int, H: int, KV: int, D: int, device,
+                    copies: int = 1, seed: int = 0):
+    """``copies`` argument sets of the prefill's KV write: k and v (B, T,
+    KV, D) bf16 sliced out of a fused qkv output (B, T, (H + 2 KV) D) from
+    ``seed``, and a zeroed one-layer int8 cache [k, v, k_scale, v_scale]
+    of T rows with bf16 scale planes."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(copies):
+        qkv = torch.as_tensor(rng.standard_normal(
+            (B, T, (H + 2 * KV) * D), np.float32)).to(device, torch.bfloat16)
+        k = qkv[..., H * D:(H + KV) * D].reshape(B, T, KV, D)
+        v = qkv[..., (H + KV) * D:].reshape(B, T, KV, D)
+        cache = [torch.zeros(1, B, KV, T, D, dtype=torch.int8, device=device)
+                 for _ in range(2)]
+        cache += [torch.zeros(1, B, KV, T, dtype=torch.bfloat16,
+                              device=device) for _ in range(2)]
+        out.append((k, v, cache))
+    return out
+
+
+def time_kv_write(device, reps: int):
+    """K10's times: over a prompt's rows in :data:`K10_PREFILL_CASES`
+    (kernel and plain version), then one row a (batch row, head) in
+    :data:`K10_APPEND_CASES`, K14's through a table of pages in reverse
+    order. Each call writes the next layer's rows."""
+    from sleekit_tpu_torch.ops import attention as at
+    from sleekit_tpu_torch.ops import paged_attention as pa
+    from sleekit_tpu_torch.utils.profiling import time_ms
+
+    rows = []
+
+    def record(case, fn, n_args, graph=True):
+        ms = time_ms(fn, n_args, device, iters=reps, graph=graph)
+        rows.append({"case": case, "ms": ms})
+        log(f"{case}: {ms:.4f} ms")
+
+    if hasattr(at, "kv_prefill_write"):
+        for label, B, T, H, KV, D in K10_PREFILL_CASES:
+            # Copies beyond twice the 50 MB L2, as the layers arrive.
+            nbytes = kv_write_bytes(B, T, KV, D)
+            sets = kv_write_inputs(B, T, H, KV, D, device,
+                                   max(1, -(-100 * 2 ** 20 // nbytes)))
+            for name, fn, graph in (
+                    ("kernel", at.kv_prefill_write, True),
+                    ("plain", at.kv_prefill_write_plain, False)):
+                record(f"K10 {label} {name}", lambda i, fn=fn: fn(
+                    sets[i][0], sets[i][1], *sets[i][2][:2], 0,
+                    *sets[i][2][2:]), len(sets), graph)
+            del sets
+    rng = np.random.default_rng(1)
+    L, S, D, PS = APPEND_LAYERS, APPEND_ROWS, APPEND_D, APPEND_PAGE
+    for label, B, KV, positions, with_k14 in K10_APPEND_CASES:
+        new = [torch.as_tensor(rng.standard_normal((B, KV, D), np.float32)
+                               ).to(device, torch.bfloat16) for _ in "kv"]
+        slot = [torch.zeros(L, B, KV, S, D, dtype=torch.int8, device=device)
+                for _ in "kv"]
+        slot += [torch.zeros(L, B, KV, S, dtype=torch.bfloat16,
+                             device=device) for _ in "kv"]
+        pages = B * S // PS
+        table = (pages - torch.arange(pages)).reshape(B, S // PS).to(
+            device, torch.int32)
+        pool = [torch.zeros((L, 1 + pages, KV, PS) + x.shape[4:],
+                            dtype=x.dtype, device=device) for x in slot]
+        for pos in positions:
+            record(f"K10 {label} pos {pos}", lambda i, pos=pos: at.kv_append(
+                *new, slot[0], slot[1], pos, i, slot[2], slot[3]), L)
+            if with_k14:
+                record(f"K14 {label} pos {pos}",
+                       lambda i, pos=pos: pa.paged_kv_append(
+                           *new, pool[0], pool[1], table, pos, i, pool[2],
+                           pool[3]), L)
+    return rows
 
 
 def time_attention(device, reps: int, models=None):
@@ -121,6 +233,9 @@ def main(argv=None):
     ap.add_argument("--models", default=None,
                     help="with --attention: the K4 cases to time, by model "
                     "(comma-separated; default all)")
+    ap.add_argument("--kv-write", action="store_true",
+                    help="time K10 alone, over a prompt's rows and at one "
+                    "row (and K14)")
     args = ap.parse_args(argv)
 
     from sleekit_tpu_torch.codebooks import UniformCodebook
@@ -138,6 +253,10 @@ def main(argv=None):
         models = args.models.split(",") if args.models else None
         out = {"attention": time_attention(dev, args.reps, models),
                "device": where}
+        print(out)
+        return out
+    if args.kv_write:
+        out = {"kv_write": time_kv_write(dev, args.reps), "device": where}
         print(out)
         return out
     cfg = get_config(args.model, dtype=torch.bfloat16)
@@ -167,9 +286,19 @@ def main(argv=None):
         log(f"  trace of one prefill: {args.trace}/trace.json; top ops by "
             f"{by}:")
         log(prof.key_averages().table(sort_by=by, row_limit=20))
-
+        # Imported here: another checkout's package, run by this file in
+        # the --attention and --kv-write modes, may not have it.
+        from sleekit_tpu_torch.utils.profiling import trace_summary
+        trace = trace_summary(prof)
+        trace["quant_ops"] = {op: trace["ops"].get(op, 0)
+                              for op in QUANT_OPS}
+        del trace["ops"]
+        log(f"  device time {trace['device_ms']:.3f} ms; by kernel: "
+            f"{trace['kernels']}; quantizer ops {trace['quant_ops']}")
     out = {"ms": ms, "tokens": n, "tokens_per_s": n / ms * 1e3,
            "layout": args.layout, "device": where}
+    if args.trace:
+        out["trace"] = trace
     print(out)
     return out
 

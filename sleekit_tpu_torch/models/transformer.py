@@ -10,15 +10,16 @@ and decode. ``lax.scan`` over layers and decode steps becomes a Python loop.
 
 The packed bf16 projections go through K1/K2 (with the norm, activation
 and residual fused when M <= 1024), decode attention through K3 (K5 over a
-page pool; K10/K11 or K14/K15 on the split route) and 128-aligned prefill
-of >= 256 tokens through K4, as the JAX package routes them to its Pallas
-kernels on the TPU. ``use_kernel`` (default: the tokens
+page pool; K10/K11 or K14/K15 on the split route), the prefill's KV write
+through K10 over the prompt's rows, and 128-aligned prefill of >= 256
+tokens through K4, as the JAX package routes them to its Pallas kernels
+(and the KV write to XLA) on the TPU. ``use_kernel`` (default: the tokens
 are on CUDA) launches the kernels; ``use_kernel=False`` runs their plain
 PyTorch versions instead, on any device. Everything else (f32
 activations, dense weights, short prompts' attention) is PyTorch code.
 
-The calibration capture (``LayerStats``) comes with the quantizer (ROADMAP
-queue 1, item 10).
+The calibration capture (``LayerStats``) comes with the quantizer's
+modules (``models/quantize.py``).
 """
 
 from __future__ import annotations
@@ -33,7 +34,8 @@ import torch.nn.functional as F
 
 from sleekit_tpu_torch.device import resolve_device
 from sleekit_tpu_torch.ops.attention import (
-    _quant_rows, decode_attention, flash_prefill, flash_prefill_plain)
+    decode_attention, flash_prefill, flash_prefill_plain, kv_prefill_write,
+    kv_prefill_write_plain)
 from sleekit_tpu_torch.ops.dequant_matmul import (
     can_fuse_glue, fused_quantized_matmul, quantized_matmul)
 from sleekit_tpu_torch.ops.pack import PackedLinear, concat_packed
@@ -342,24 +344,9 @@ def _block(cfg, layer, x, positions, kv, slopes, use_kernel: bool):
         attn = res[0][:, None]
     else:
         cache, lidx = kv[1], kv[2]
-        kt, vt = k.transpose(1, 2), v.transpose(1, 2)     # (B, KV, T, D)
-        ck, cv = cache["k"][lidx], cache["v"][lidx]       # views
-        if "k_scale" in cache:
-            kq, ks = _quant_rows(kt.float())
-            vq, vs = _quant_rows(vt.float())
-            ck[:, :, :t] = kq.to(ck.dtype)
-            cv[:, :, :t] = vq.to(cv.dtype)
-            kscale, vscale = cache["k_scale"][lidx], cache["v_scale"][lidx]
-            kscale[:, :, :t] = ks[..., 0].to(kscale.dtype)
-            vscale[:, :, :t] = vs[..., 0].to(vscale.dtype)
-            attn_k = (ck[:, :, :t].float()
-                      * kscale[:, :, :t, None].float()).to(x.dtype)
-            attn_v = (cv[:, :, :t].float()
-                      * vscale[:, :, :t, None].float()).to(x.dtype)
-        else:
-            ck[:, :, :t] = kt.to(ck.dtype)
-            cv[:, :, :t] = vt.to(cv.dtype)
-            attn_k, attn_v = ck[:, :, :t], cv[:, :, :t]
+        write = kv_prefill_write if use_kernel else kv_prefill_write_plain
+        attn_k, attn_v = write(k, v, cache["k"], cache["v"], lidx,
+                               cache.get("k_scale"), cache.get("v_scale"))
         attn = _causal_attention(cfg, q, attn_k, attn_v, positions, slopes,
                                  use_kernel)
 

@@ -16,6 +16,9 @@ kernels take a layer index, so no per-layer slice is ever copied.
   :data:`FLASH_BATCH_FOLD` select: K11 (``_decode_kernel``), K12 (the
   elementwise MHA numerics, ``_decode_kernel_ew``) or K13 (the batch
   folded into each block, ``_decode_kernel_bfold``).
+* Kernel K10 over a prompt's T rows, :func:`kv_prefill_write` - the
+  prefill's KV write (the JAX model's XLA ops: ``_quant_rows``, the slice
+  writes, the dequantized rows the prefill attends).
 * Kernel K4, :func:`flash_prefill` - causal flash attention with native
   GQA and ALiBi (``flash_prefill_pallas``), CUDA in
   ``csrc/prefill_attention.cu``.
@@ -64,10 +67,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 FUSED_DECODE_ARGS = [_P] * 13 + [_I] * 11 + [_F] + [_I] * 3
 # The same without k_new and v_new.
 FLASH_DECODE_ARGS = [_P] * 11 + [_I] * 11 + [_F] + [_I] * 3
-# (k_new, v_new, cache_k, cache_v, k_scale, v_scale, pos, table,
-#  pos_scalar, layer, B, KV, P, PS, MAXP, D, new_bf16, cache_kind,
-#  scale_bf16)
-KV_APPEND_ARGS = [_P] * 8 + [_I] * 11
+_LL = ctypes.c_longlong
+# (k, v, cache_k, cache_v, k_scale, v_scale, out_k, out_v, pos, table, sb,
+#  st, sh, pos_scalar, layer, B, T, KV, P, PS, MAXP, D, vec, in_bf16,
+#  cache_kind, scale_bf16)
+KV_APPEND_ARGS = [_P] * 10 + [_LL] * 3 + [_I] * 13
 K3 = CudaKernel(
     "K3", "decode_attention.cu", "fused_decode_append", FUSED_DECODE_ARGS,
     replaces="sleekit_tpu/ops/attention.py:704 fused_decode_append_pallas")
@@ -390,30 +394,72 @@ def launch_decode(kernel: CudaKernel, q, k_new, v_new, cache_k, cache_v,
     return out
 
 
-def launch_append(kernel: CudaKernel, k_new, v_new, cache_k, cache_v, pos,
-                  layer: int, k_scale, v_scale, page_table=None) -> None:
+def append_vec(D: int, strides, ptrs) -> int:
+    """Elements a lane of ``csrc/kv_append.cu`` moves at once: the most,
+    up to 16 bytes of the input, that divide D and every input stride
+    (``strides``, in elements) and that keep every pointer of ``ptrs``,
+    ``(address, itemsize)`` pairs, aligned to its chunk (at most 16
+    bytes). ``ptrs[0]`` is the input's."""
+    e = 16 // ptrs[0][1]
+    while e > 1 and (D % e or any(s % e for s in strides)
+                     or any(p % min(16, e * size) for p, size in ptrs)):
+        e //= 2
+    return e
+
+
+def launch_append(kernel: CudaKernel, k, v, cache_k, cache_v, pos,
+                  layer: int, k_scale, v_scale, page_table=None,
+                  out=None) -> None:
     """Launches ``csrc/kv_append.cu`` (K10, K14) after checking its
-    arguments."""
-    B, KV, D = k_new.shape
+    arguments: the rows k/v (B, T, KV, D), of any batch, token and head
+    strides and unit stride along D, written at cache rows pos + t
+    (``pos`` an int or a (B,) int32 tensor, clamped to the last T rows);
+    ``out`` (2, B, KV, T, D) in k's dtype, or None, takes the dequantized
+    rows of an int8 cache. T > 1 takes a slot cache and an int ``pos``
+    with pos + T within its rows."""
+    B, T, KV, D = k.shape
     L = cache_k.shape[0]
-    dev = k_new.device
-    for t in (k_new, v_new):
-        _check(t.dtype in (torch.bfloat16, torch.float32)
-               and t.dtype == k_new.dtype and t.shape == (B, KV, D)
-               and t.is_contiguous() and t.device == dev,
-               "k_new/v_new must be contiguous (B, KV, D) bf16/f32 of one "
-               "dtype and device")
+    dev = k.device
+    _check(k.dtype in (torch.bfloat16, torch.float32)
+           and v.dtype == k.dtype and v.shape == k.shape
+           and v.stride() == k.stride() and k.stride(3) == 1
+           and k.device == v.device,
+           "k and v must be (B, T, KV, D) bf16/f32 of one dtype, device and "
+           "strides, with unit stride along D")
     _check(cache_k.shape[2] == KV and cache_k.shape[4] == D,
-           "the cache must be (L, P, KV, PS, D) of k_new's KV and D")
+           "the cache must be (L, P, KV, PS, D) of k's KV and D")
     _check(0 <= layer < L, f"layer {layer} out of range")
     (P, PS, MAXP), kind, scale_bf16, table = _geometry(
         cache_k, cache_v, k_scale, v_scale, page_table, B, dev)
     pos_ptr, pos_scalar = _pos_arg(pos, B, dev)
-    kernel(k_new.data_ptr(), v_new.data_ptr(), cache_k.data_ptr(),
+    if T > 1:
+        _check(page_table is None and not pos_ptr
+               and 0 <= pos_scalar and pos_scalar + T <= PS,
+               f"{T} rows from pos {pos_scalar} take a slot cache of at "
+               f"least pos + T rows ({PS})")
+    ptrs = [(k.data_ptr(), k.element_size()), (v.data_ptr(), k.element_size()),
+            (cache_k.data_ptr(), cache_k.element_size()),
+            (cache_v.data_ptr(), cache_k.element_size())]
+    if out is not None:
+        _check(kind == 0 and out.dtype == k.dtype
+               and out.shape == (2, B, KV, T, D) and out.is_contiguous()
+               and out.device == dev,
+               "out takes an int8 cache's dequantized rows: a contiguous "
+               "(2, B, KV, T, D) in k's dtype")
+        ptrs.append((out.data_ptr(), k.element_size()))
+    strides = k.stride()[:3]
+    vec = append_vec(D, strides, ptrs)
+    _check(D // vec <= 256, f"rows of {D} elements in chunks of {vec} take "
+           "more than 8 chunks a lane")
+    out_k = out_v = 0
+    if out is not None:
+        out_k, out_v = out[0].data_ptr(), out[1].data_ptr()
+    kernel(k.data_ptr(), v.data_ptr(), cache_k.data_ptr(),
            cache_v.data_ptr(), k_scale.data_ptr() if k_scale is not None
            else 0, v_scale.data_ptr() if v_scale is not None else 0,
-           pos_ptr, table, pos_scalar, layer, B, KV, P, PS, MAXP, D,
-           int(k_new.dtype == torch.bfloat16), kind, scale_bf16)
+           out_k, out_v, pos_ptr, table, *strides, pos_scalar, layer, B, T,
+           KV, P, PS, MAXP, D, vec, int(k.dtype == torch.bfloat16), kind,
+           scale_bf16)
 
 
 def _updated(cache_k, cache_v, k_scale, v_scale):
@@ -458,9 +504,60 @@ def kv_append(k_new, v_new, cache_k, cache_v, pos, layer: int,
     if not k_new.is_cuda:
         return kv_append_plain(k_new, v_new, cache_k, cache_v, pos, layer,
                                k_scale, v_scale)
-    launch_append(K10, k_new, v_new, cache_k, cache_v, pos, layer, k_scale,
-                  v_scale)
+    launch_append(K10, k_new[:, None], v_new[:, None], cache_k, cache_v,
+                  pos, layer, k_scale, v_scale)
     return _updated(cache_k, cache_v, k_scale, v_scale)
+
+
+def kv_prefill_write_plain(k, v, cache_k, cache_v, layer: int,
+                           k_scale=None, v_scale=None):
+    """Plain PyTorch version of :func:`kv_prefill_write`: the JAX model's
+    prefill write at position 0 (``_quant_rows``, the slice writes, the
+    scale planes, the dequantized cache rows), op by op."""
+    t = k.shape[1]
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)         # (B, KV, T, D)
+    ck, cv = cache_k[layer], cache_v[layer]               # views
+    if k_scale is None:
+        ck[:, :, :t] = kt.to(ck.dtype)
+        cv[:, :, :t] = vt.to(cv.dtype)
+        return ck[:, :, :t], cv[:, :, :t]
+    kq, ks = _quant_rows(kt.float())
+    vq, vs = _quant_rows(vt.float())
+    ck[:, :, :t] = kq.to(ck.dtype)
+    cv[:, :, :t] = vq.to(cv.dtype)
+    kscale, vscale = k_scale[layer], v_scale[layer]
+    kscale[:, :, :t] = ks[..., 0].to(kscale.dtype)
+    vscale[:, :, :t] = vs[..., 0].to(vscale.dtype)
+    attn_k = (ck[:, :, :t].float() * kscale[:, :, :t, None].float()).to(
+        k.dtype)
+    attn_v = (cv[:, :, :t].float() * vscale[:, :, :t, None].float()).to(
+        k.dtype)
+    return attn_k, attn_v
+
+
+def kv_prefill_write(k, v, cache_k, cache_v, layer: int, k_scale=None,
+                     v_scale=None):
+    """Kernel K10 over T rows: write a prompt's k/v (B, T, KV, D) - views
+    of any batch, token and head strides, unit stride along D, such as
+    slices of the fused qkv output - at rows [0, T) of ``layer`` of the
+    (L, B, KV, S, D) slot cache IN PLACE, int8 caches quantized with a
+    per-(token, head) scale. Returns the K/V the prefill attends, (B, KV,
+    T, D): for an int8 cache the rows dequantized with the stored scales,
+    in k's dtype (contiguous), else views of the cache rows. A CUDA tensor
+    launches the kernel; a CPU tensor takes
+    :func:`kv_prefill_write_plain`."""
+    if not k.is_cuda:
+        return kv_prefill_write_plain(k, v, cache_k, cache_v, layer,
+                                      k_scale, v_scale)
+    B, T, KV, D = k.shape
+    out = None
+    if k_scale is not None:
+        out = torch.empty((2, B, KV, T, D), dtype=k.dtype, device=k.device)
+    launch_append(K10, k, v, cache_k, cache_v, 0, layer, k_scale, v_scale,
+                  out=out)
+    if out is None:
+        return cache_k[layer, :, :, :T], cache_v[layer, :, :, :T]
+    return out[0], out[1]
 
 
 def flash_decode_plain(q, cache_k, cache_v, pos, layer: int, scale: float,

@@ -119,8 +119,8 @@ def paged_kv_append(k_new, v_new, pool_k, pool_v, page_table, pos,
         return paged_kv_append_plain(k_new, v_new, pool_k, pool_v,
                                      page_table, pos, layer, k_scale,
                                      v_scale)
-    launch_append(K14, k_new, v_new, pool_k, pool_v, pos, layer, k_scale,
-                  v_scale, page_table)
+    launch_append(K14, k_new[:, None], v_new[:, None], pool_k, pool_v, pos,
+                  layer, k_scale, v_scale, page_table)
     return _updated(pool_k, pool_v, k_scale, v_scale)
 
 

@@ -3,7 +3,8 @@
 * :class:`Timer` - named wall-clock sections with a JSON-able report;
   ``timed`` waits for a tensor's device where JAX blocks until ready.
 * :func:`device_trace` - a ``torch.profiler`` trace (CPU, and the card's
-  kernels where there is one) written as a Chrome trace.
+  kernels where there is one) written as a Chrome trace;
+  :func:`trace_summary` sums its device time by kernel.
 * :func:`cuda_ms` - a function's device time between CUDA events, its calls
   captured in a CUDA graph and replayed; :func:`time_ms` takes it on the
   card and the host clock on the CPU. The benches and ``chip_smoke.py``
@@ -91,6 +92,23 @@ def device_trace(logdir: str):
     with torch.profiler.profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+def trace_summary(prof, top: int = 12) -> dict:
+    """What a :func:`device_trace` saw: ``device_ms``, the self time of
+    every device entry (kernels, copies, sets); ``kernels``, the ``top``
+    of them as ``[name, ms, calls]`` by time; ``ops``, the calls of each
+    host-side ``aten::`` op. Without device entries (the CPU) ``device_ms``
+    is 0 and ``kernels`` empty."""
+    device, ops = [], {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            device.append([e.key, e.self_device_time_total / 1e3, e.count])
+        elif e.key.startswith("aten::"):
+            ops[e.key] = ops.get(e.key, 0) + e.count
+    device.sort(key=lambda row: -row[1])
+    return {"device_ms": sum(row[1] for row in device),
+            "kernels": device[:top], "ops": ops}
 
 
 def cuda_ms(fn: Callable[[int], object], n_args: int, iters: int = 20,

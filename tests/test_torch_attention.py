@@ -249,6 +249,150 @@ def test_kv_append_plain_matches_jax_kernel(cache, pos_kind):
         np.testing.assert_array_equal(f32(g), f32(w))
 
 
+# ---- K10 over T rows: the prefill's KV write --------------------------------
+
+
+# (cache dtype, scale plane dtype, input dtype) of the prefill write: int8
+# with bf16 planes (the serving default) from bf16 and f32 models, int8
+# with f32 planes, and the bf16 and f32 caches.
+_PREFILL_CACHES = [("int8", "bf16", "bf16"), ("int8", "bf16", "f32"),
+                   ("int8", "f32", "f32"), ("bf16", None, "bf16"),
+                   ("f32", None, "f32")]
+
+
+def _jax_prefill_write(k, v, entry, xdt):
+    """The JAX model's prefill branch at write_pos 0, composed as
+    ``sleekit_tpu/models/transformer.py`` composes it, on one layer's
+    entry {'k', 'v'[, 'k_scale', 'v_scale']}: returns the written entry
+    and the K/V the attention reads, (B, KV, T, D)."""
+    from jax import lax
+
+    t = k.shape[1]
+    kt, vt = k.transpose(0, 2, 1, 3), v.transpose(0, 2, 1, 3)
+    cache_k, cache_v = entry["k"], entry["v"]
+    new = {}
+    if "k_scale" in entry:
+        kq, ks = jattn._quant_rows(kt.astype(jnp.float32))
+        vq, vs = jattn._quant_rows(vt.astype(jnp.float32))
+        cache_k = lax.dynamic_update_slice(cache_k, kq.astype(cache_k.dtype),
+                                           (0, 0, 0, 0))
+        cache_v = lax.dynamic_update_slice(cache_v, vq.astype(cache_v.dtype),
+                                           (0, 0, 0, 0))
+        new["k_scale"] = lax.dynamic_update_slice(
+            entry["k_scale"], ks[..., 0].astype(entry["k_scale"].dtype),
+            (0, 0, 0))
+        new["v_scale"] = lax.dynamic_update_slice(
+            entry["v_scale"], vs[..., 0].astype(entry["v_scale"].dtype),
+            (0, 0, 0))
+        attn_k = (cache_k.astype(jnp.float32)
+                  * new["k_scale"][..., None]).astype(xdt)
+        attn_v = (cache_v.astype(jnp.float32)
+                  * new["v_scale"][..., None]).astype(xdt)
+    else:
+        cache_k = lax.dynamic_update_slice(cache_k, kt.astype(cache_k.dtype),
+                                           (0, 0, 0, 0))
+        cache_v = lax.dynamic_update_slice(cache_v, vt.astype(cache_v.dtype),
+                                           (0, 0, 0, 0))
+        attn_k, attn_v = cache_k, cache_v
+    new["k"], new["v"] = cache_k, cache_v
+    return new, attn_k[:, :, :t], attn_v[:, :, :t]
+
+
+@pytest.mark.parametrize("cache,sdt,xdt", _PREFILL_CACHES)
+@pytest.mark.parametrize("H,KV", [(4, 4), (8, 2)])
+@pytest.mark.parametrize("T", [1, 17, 64])
+def test_kv_prefill_write_plain_matches_jax(cache, sdt, xdt, H, KV, T):
+    """K10's T-row plain version (the wrapper on CPU tensors) against the
+    JAX model's prefill write on the same K/V, taken as strided slices of
+    a fused qkv tensor (MHA and GQA): the written cache rows, the scale
+    planes and the dequantized K/V the attention reads equal JAX's bit for
+    bit, the rows past T untouched."""
+    L, B, S, D, layer = 2, 3, 64, 16, 1
+    d, kvd = H * D, KV * D
+    jx = jnp.bfloat16 if xdt == "bf16" else jnp.float32
+    rng = np.random.RandomState(T + H)
+    qkv = rng.randn(B, T, d + 2 * kvd) * rng.uniform(0.01, 4, (B, T, 1))
+    qkv[0, 0, d:d + D] = 0.0                  # a zero row: the scale floor
+    qkv = np.asarray(jnp.asarray(qkv, jx))
+    k = qkv[..., d:d + kvd].reshape(B, T, KV, D)
+    v = qkv[..., d + kvd:].reshape(B, T, KV, D)
+    if cache == "int8":
+        ck = rng.randint(-127, 128, (L, B, KV, S, D)).astype(np.int8)
+        cv = rng.randint(-127, 128, (L, B, KV, S, D)).astype(np.int8)
+        sj = jnp.bfloat16 if sdt == "bf16" else jnp.float32
+        ks = np.asarray(jnp.asarray(rng.rand(L, B, KV, S), sj))
+        vs = np.asarray(jnp.asarray(rng.rand(L, B, KV, S), sj))
+    else:
+        cj = jnp.bfloat16 if cache == "bf16" else jnp.float32
+        ck = np.asarray(jnp.asarray(rng.randn(L, B, KV, S, D), cj))
+        cv = np.asarray(jnp.asarray(rng.randn(L, B, KV, S, D), cj))
+        ks = vs = None
+    entry = {"k": jnp.asarray(ck[layer]), "v": jnp.asarray(cv[layer])}
+    if ks is not None:
+        entry.update(k_scale=jnp.asarray(ks[layer]),
+                     v_scale=jnp.asarray(vs[layer]))
+    want, want_k, want_v = _jax_prefill_write(jnp.asarray(k), jnp.asarray(v),
+                                              entry, jx)
+
+    tqkv = t(qkv)
+    tk = tqkv[..., d:d + kvd].reshape(B, T, KV, D)
+    tv = tqkv[..., d + kvd:].reshape(B, T, KV, D)
+    assert tk.stride(0) == T * (d + 2 * kvd) and tk.stride()[2:] == (D, 1)
+    assert T == 1 or tk.stride(1) == d + 2 * kvd
+    planes = _torch(ck, cv, ks, vs)
+    got_k, got_v = tattn.kv_prefill_write(tk, tv, planes[0], planes[1],
+                                          layer, planes[2], planes[3])
+    np.testing.assert_array_equal(f32(got_k), f32(want_k))
+    np.testing.assert_array_equal(f32(got_v), f32(want_v))
+    assert got_k.dtype == tk.dtype and got_k.shape == (B, KV, T, D)
+    names = ["k", "v", "k_scale", "v_scale"]
+    for name, plane, before in zip(names, planes, (ck, cv, ks, vs)):
+        if plane is None:
+            continue
+        np.testing.assert_array_equal(f32(plane[layer]), f32(want[name]))
+        np.testing.assert_array_equal(f32(plane[0]), f32(before[0]))
+
+
+def test_launch_append_checks_the_rows():
+    """K10's launch checks its rows before any launch: T rows from pos
+    must fit the slot cache, and T > 1 takes neither a page table nor a
+    position vector."""
+    L, B, KV, S, D = 1, 2, 2, 16, 8
+    ck = torch.zeros(L, B, KV, S, D, dtype=torch.int8)
+    ks = torch.zeros(L, B, KV, S, dtype=torch.bfloat16)
+    k = torch.randn(B, S + 1, KV, D)
+    before = tattn.K10.launches
+    with pytest.raises(ValueError, match="slot cache"):
+        tattn.launch_append(tattn.K10, k, k, ck, ck.clone(), 0, 0, ks,
+                            ks.clone())
+    with pytest.raises(ValueError, match="slot cache"):
+        tattn.launch_append(tattn.K10, k[:, :S], k[:, :S], ck, ck.clone(),
+                            torch.zeros(B, dtype=torch.int32), 0, ks,
+                            ks.clone())
+    with pytest.raises(ValueError, match="unit stride"):
+        tattn.launch_append(tattn.K10, k.transpose(2, 3), k.transpose(2, 3),
+                            ck, ck.clone(), 0, 0, ks, ks.clone())
+    assert tattn.K10.launches == before
+
+
+@pytest.mark.parametrize("D,itemsize,strides,offsets,want", [
+    (64, 2, (4096, 1024, 64), (0, 4096), 8),     # bf16 rows of 128 bytes
+    (128, 4, (8192, 1024, 128), (0, 4096), 4),   # f32 rows: 16 bytes, 4
+    (36, 2, (72, 72, 36), (0, 16), 4),           # 72-byte rows: 8 bytes
+    (64, 2, (4096, 1024, 64), (2, 4098), 1),     # 2-byte aligned pointers
+    (64, 2, (4098, 1026, 64), (0, 4096), 2),     # odd token stride / 2
+    (37, 4, (37, 37, 37), (0, 0), 1)])
+def test_append_vec_width(D, itemsize, strides, offsets, want):
+    """A lane of K10 moves the most elements, up to 16 bytes, that divide
+    the row, every stride and every pointer's alignment; an int8 cache
+    needs its pointer aligned to the chunk's elements."""
+    base = 1 << 20
+    ptrs = [(base + o, itemsize) for o in offsets]
+    assert tattn.append_vec(D, strides, ptrs) == want
+    cache = [(base + 4, 1)]                       # int8: aligned to 4 only
+    assert tattn.append_vec(D, strides, ptrs + cache) == min(want, 4)
+
+
 @pytest.mark.parametrize("dtype,G", [("f32", 1), ("f32", 4), ("bf16", 4)])
 @pytest.mark.parametrize("alibi", [False, True])
 @pytest.mark.parametrize("quant", [False, True])

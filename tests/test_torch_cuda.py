@@ -597,6 +597,100 @@ def test_kv_append_matches_plain(dev, cache, ragged, paged):
             assert torch.equal(a.cpu(), b)
 
 
+def _prefill_rows(g, dev, B, T, H, KV, D, dtype, offset=0):
+    """k and v (B, T, KV, D) on ``dev`` as the model slices them out of a
+    fused qkv output (B, T, H*D + 2*KV*D), which starts ``offset``
+    elements into its storage (1 leaves the rows 2- or 4-byte aligned
+    only)."""
+    d, kvd = H * D, KV * D
+    n = d + 2 * kvd
+    flat = torch.randn(B * T * n + offset, generator=g)
+    flat *= torch.rand(B * T * n + offset, generator=g) * 4
+    qkv = flat.to(dev, dtype)[offset:].reshape(B, T, n)
+    return (qkv[..., d:d + kvd].reshape(B, T, KV, D),
+            qkv[..., d + kvd:].reshape(B, T, KV, D))
+
+
+def _prefill_planes(g, L, B, KV, S, D, cache):
+    """Random (L, B, KV, S, D) caches of ``cache`` ('int8' with bf16
+    planes, 'int8-f32' with f32 planes, 'bf16', 'f32') and their planes."""
+    planes = _cache(g, (L, B, KV, S, D), cache.split("-")[0])
+    if cache == "int8-f32":
+        planes[2:] = [p.float() for p in planes[2:]]
+    return planes
+
+
+@pytest.mark.parametrize("T", [1, 17, 256, 1024])
+@pytest.mark.parametrize("D", [64, 128, 36])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("cache", ["int8", "int8-f32", "bf16", "f32"])
+@pytest.mark.parametrize("heads", ["mha", "gqa", "unaligned"])
+def test_kv_prefill_write_matches_plain(dev, T, D, dtype, cache, heads):
+    """K10 over T rows (the prefill's KV write) against its plain version,
+    bit for bit: the written cache rows and scale planes, the dequantized
+    K/V of an int8 cache (else the cache views), and the rows past T
+    untouched; K/V as strided slices of a fused qkv output, OPT's H = KV
+    and 32/8 GQA, and rows 2- or 4-byte aligned (the narrower loads)."""
+    from sleekit_tpu_torch.ops import attention as at
+
+    g = torch.Generator().manual_seed(T + D)
+    H, KV = {"mha": (8, 8), "gqa": (32, 8), "unaligned": (4, 2)}[heads]
+    L, B, S = 2, 2, 1024
+    k, v = _prefill_rows(g, dev, B, T, H, KV, D, dtype,
+                         offset=1 if heads == "unaligned" else 0)
+    assert not k.is_contiguous() or T == 1
+    planes = _prefill_planes(g, L, B, KV, S, D, cache)
+    got = [_on(dev, p) for p in planes]
+    want = [None if p is None else p.clone() for p in planes]
+    before = at.K10.launches
+    got_kv = at.kv_prefill_write(k, v, got[0], got[1], 1, got[2], got[3])
+    want_kv = at.kv_prefill_write_plain(k.cpu(), v.cpu(), want[0], want[1],
+                                        1, want[2], want[3])
+    torch.cuda.synchronize()
+    assert at.K10.launches == before + 1
+    for a, b in zip(got_kv, want_kv):
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
+    for a, b in zip(got, want):
+        if b is not None:
+            assert torch.equal(a.cpu(), b)
+
+
+def test_kv_prefill_write_replays_in_cuda_graph(dev):
+    """The prefill write captured once in a CUDA graph, replayed on new
+    K/V copied into its inputs, writes the eager call's cache rows, scales
+    and dequantized K/V at every replay."""
+    from sleekit_tpu_torch.ops import attention as at
+
+    g = torch.Generator().manual_seed(11)
+    L, B, T, H, KV, D = 2, 4, 256, 32, 32, 64
+    k, v = _prefill_rows(g, dev, B, T, H, KV, D, torch.bfloat16)
+    graph_c = [_on(dev, p) for p in _prefill_planes(g, L, B, KV, T, D,
+                                                    "int8")]
+    eager_c = [p.clone() for p in graph_c]
+
+    def call(c):
+        return at.kv_prefill_write(k, v, c[0], c[1], 1, c[2], c[3])
+
+    call([p.clone() for p in graph_c])          # warm-up, on copies
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = at.K10.launches
+    with torch.cuda.graph(graph):
+        out = call(graph_c)
+    assert at.K10.launches == before + 1
+    for step in range(3):
+        nk, nv = _prefill_rows(g, dev, B, T, H, KV, D, torch.bfloat16)
+        k.copy_(nk)
+        v.copy_(nv)
+        graph.replay()
+        want = call(eager_c)
+        torch.cuda.synchronize()
+        for a, b in zip(out, want):
+            assert torch.equal(a, b)
+        for a, b in zip(graph_c, eager_c):
+            assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("G", _DECODE_G)
 @pytest.mark.parametrize("cache", ["int8", "bf16", "f32"])
 @pytest.mark.parametrize("edge", _EDGES)

@@ -244,6 +244,53 @@ def test_prefill_bench_attention_times_k4(monkeypatch, capsys):
     assert set(calls) == {((1, 8, 32, 128), 8, False)}
 
 
+def test_prefill_bench_kv_write_times_k10(monkeypatch, capsys):
+    """prefill_bench --kv-write times K10 over a prompt's rows (kernel and
+    plain version, K/V sliced out of a fused qkv output) and at one row a
+    (batch row, head), with K14 where the case asks for it."""
+    calls = []
+    inner = tattn.kv_prefill_write
+
+    def spy(k, v, *args):
+        calls.append((tuple(k.shape), k.is_contiguous()))
+        return inner(k, v, *args)
+
+    monkeypatch.setattr(tattn, "kv_prefill_write", spy)
+    monkeypatch.setattr(prefill_bench, "K10_PREFILL_CASES", (
+        ("prefill tiny", 2, 16, 4, 2, 16),))
+    monkeypatch.setattr(prefill_bench, "K10_APPEND_CASES", (
+        ("T=1 B=2 KV=2", 2, 2, (5, 9), True), ("T=1 B=1 KV=1", 1, 1, (5,),
+                                              False)))
+    monkeypatch.setattr(prefill_bench, "APPEND_LAYERS", 2)
+    monkeypatch.setattr(prefill_bench, "APPEND_ROWS", 32)
+    monkeypatch.setattr(prefill_bench, "APPEND_PAGE", 8)
+    out = prefill_bench.main(["--kv-write", "--reps", "1", "--device",
+                              "cpu"])
+    assert [r["case"] for r in out["kv_write"]] == [
+        "K10 prefill tiny kernel", "K10 prefill tiny plain",
+        "K10 T=1 B=2 KV=2 pos 5", "K14 T=1 B=2 KV=2 pos 5",
+        "K10 T=1 B=2 KV=2 pos 9", "K14 T=1 B=2 KV=2 pos 9",
+        "K10 T=1 B=1 KV=1 pos 5"]
+    assert all(r["ms"] > 0 for r in out["kv_write"])
+    assert calls and set(calls) == {((2, 16, 2, 16), False)}
+    assert _printed(capsys.readouterr().out) == out
+
+
+def test_prefill_bench_trace_counts_the_quantizer(tmp_path):
+    """prefill_bench --trace returns the trace's device time by kernel
+    (none on the CPU) and the int8 KV quantizer's op calls: on the CPU
+    the plain KV write runs them, once for K and once for V a layer."""
+    from sleekit_tpu_torch.models.zoo import get_config
+
+    out = prefill_bench.main(["--model", "tiny", "--batch", "2", "--seq",
+                              "16", "--reps", "1", "--device", "cpu",
+                              "--trace", str(tmp_path / "t")])
+    n = get_config("tiny").n_layers
+    assert out["trace"]["device_ms"] == 0 and out["trace"]["kernels"] == []
+    assert out["trace"]["quant_ops"] == {"aten::round": 2 * n,
+                                         "aten::amax": 2 * n}
+
+
 def test_timer_sections_and_counts():
     """Sections accumulate time and counts; timed() waits for a value's
     device and returns it; the report orders sections by total time."""

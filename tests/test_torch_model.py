@@ -83,6 +83,46 @@ def test_prefill_decode_logits_match_jax_f32(family):
         np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("family", ["opt", "llama"])
+def test_prefill_int8_cache_matches_jax(family, monkeypatch):
+    """The port's prefill writes the JAX package's int8 cache (f32 scale
+    planes) on a tiny f32 model (MHA, and GQA with RoPE). The two compute
+    K/V with f32 sums in another order, so a value can differ by an ulp:
+    its scale then by about 1e-7 relative (rtol 1e-6 holds it), and its
+    int8 code by at most 1, and only where x / scale sits on a rounding
+    tie (within 1e-4: an ulp of K/V, or of the scale, moves x / scale by
+    at most 127 * 2^-23 * 2, 3e-5)."""
+    jcfg, jp, tcfg, tp = _models(family)
+    tokens = np.random.RandomState(4).randint(0, 256, (2, 13)).astype(
+        np.int32)
+    jcache = jtr.init_kv_cache(jcfg, 2, 64, jnp.int8,
+                               scale_dtype=jnp.float32)
+    _, jcache = jtr.prefill(jcfg, jp, jnp.asarray(tokens), jcache)
+    seen = []
+    write = ttr.kv_prefill_write_plain
+
+    def record(k, v, *args):
+        seen.append((k.float().clone(), v.float().clone()))
+        return write(k, v, *args)
+    monkeypatch.setattr(ttr, "kv_prefill_write_plain", record)
+    tcache = ttr.init_kv_cache(tcfg, 2, 64, torch.int8,
+                               scale_dtype=torch.float32, device="cpu")
+    ttr.prefill(tcfg, tp, torch.from_numpy(tokens), tcache)
+    assert len(seen) == tcfg.n_layers
+    for i, (entry, kv) in enumerate(zip(jcache, seen)):
+        for name, x in zip("kv", kv):
+            codes = tcache[name][i].numpy().astype(np.int32)
+            want = np.asarray(entry[name]).astype(np.int32)
+            scale = tcache[f"{name}_scale"][i].numpy()
+            np.testing.assert_allclose(
+                scale, np.asarray(entry[f"{name}_scale"]), rtol=1e-6)
+            diff = np.abs(codes - want)
+            assert diff.max() <= 1, (i, name)
+            b, h, s, dd = np.nonzero(diff)
+            ratio = x.numpy()[b, s, h, dd] / scale[b, h, s]
+            assert (np.abs(ratio - np.floor(ratio) - 0.5) <= 1e-4).all()
+
+
 def test_stacked_jax_params_convert():
     """params_from_numpy takes the stacked (scan_layers) layout too: the
     packed words stay one (L, kw, N) tensor, each layer a view of it, and
