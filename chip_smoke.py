@@ -30,18 +30,27 @@
 3. serves 8 greedy requests of 32 new tokens through the port's slot
    Engine with OPT-1.3B at full width and depth (random int4 'pair'
    weights from a seed, fused q|k|v, int8 head, int8 KV cache with bf16
-   scales), with the time its prefills take, checks that every kernel
-   launched (K10 once a layer in each prefill) and the launches of one
-   decode step, checks the prefill
+   scales) on the graph route (each decode step a replayed CUDA graph,
+   ``models/eval.py`` ``DecodeGraph``), with the time its prefills take,
+   checks the run's launches through the replay accounting (each replay
+   counts the captured step's 96 K1, 1 K2 and 24 K3; K10 once a layer in
+   each prefill) and the launches of one decode step, serves the same
+   requests on the eager route (``graphs=False``): the same tokens, bit
+   for bit, with each route's wall, prefill and decode seconds and
+   tokens/s, then once more under ``torch.profiler`` (trace under the
+   git-ignored ``traces/engine``: the card's busy share of a run); checks
+   the prefill
    logits against the kernels' plain versions on the card (bf16
    tolerance through the first layer, relative L2 through all of them)
    and one decode step's logits from two copies of the Engine's cache
    likewise (relative L2 of 2^-6 through all layers, argmax agreement
    measured), and times a full-depth prefill of the 256-bucket group (4
-   x 256) and batch-8 decode;
+   x 256) and batch-8 decode: 32 steps of the decode loop eager and as
+   graph replays, and one step's device time as a graph;
 4. serves the same requests through the paged Engine (page pool of 64-row
-   pages): run A on the default pool emits the slot Engine's tokens and
-   launches 96 K1, 1 K2 and 24 K5 (no K3) per decode step; run B on a
+   pages), on the graph route: run A on the default pool emits the slot
+   Engine's tokens, and its eager route's, and launches 96 K1, 1 K2 and
+   24 K5 (no K3) per decode step; run B on a
    17-page pool blocks admission and recycles pages; decode through a
    pool holding the slot cache's rows gives the slot cache's logits, bit
    for bit, its logits against the plain versions' as in 3, and it is
@@ -52,14 +61,17 @@
    K14 + 24 K15), within the bf16 tolerance of the fused route's logits
    through one layer and a relative L2 of 2^-6 through 24, each step timed
    as a CUDA graph; then serves the prompts of 3 (16 new tokens) through
-   the slot Engine on the 'ew' split route (24 K10 + 24 K12 a step),
-   its decode logits held as in 3;
+   the slot Engine on the 'ew' split route (24 K10 + 24 K12 a step, the
+   graph captured with those knobs), its decode logits held as in 3;
+   then serves them sampled (temperature 0.8, top-k 40, top-p 0.9, a
+   seeded generator) on the graph and the eager route: the same tokens;
 6. holds K6 ('pair3x'), K7 ('pair3'), K8 (NF4 'plane') and K9 (uniform
    int4 'plane') against their plain versions on the four projections of
    an OPT-1.3B layer at M = 8, 64 and 1024, timed as in 2 (K1 too, in 2);
 7. serves the same 8 prompts through the slot Engine with the int3
    'pair3x' model, the same indices repacked as 'pair3', and an NF4
-   'plane' model, all at full width and depth (16 new tokens each): one
+   'plane' model, all at full width and depth (16 new tokens each), on
+   the graph route (NF4 on the eager route too: the same tokens): one
    decode step launches exactly 96 K6, K7 or K8, 1 K2 and 24 K3 (no K1);
    prefill logits, kernels vs plain versions, as in 3 (NF4's random model
    drifts: its full depth is measured, and held on the same indices over
@@ -70,7 +82,9 @@
    in 3. Then
    repacks the int4 model's indices as 'plane' (uniform codebook): its
    prefill logits against the 'pair' model's, its layers one by one, and
-   decode steps with 96 K9 each;
+   decode steps with 96 K9 each; then scores the int4 model's
+   ``perplexity`` and ``decode_perplexity`` (2 x 256 synthetic tokens; the
+   latter on the decode loop's graph) and holds them within PPL_RTOL;
 8. runs the decode-side benches at OPT-1.3B, briefly: ``attn_bench`` under
    each flash-decode schedule (K11, K12, K13), ``profile_decode``'s split
    of the int4 'pair' step at positions 272-287 (the last 16 rows of a
@@ -114,7 +128,9 @@ from sleekit_tpu_torch import kernels  # noqa: E402
 from sleekit_tpu_torch.codebooks import Codebook, UniformCodebook  # noqa: E402
 from sleekit_tpu_torch.experiments import (  # noqa: E402
     attn_bench, kernel_bench, prefill_bench, profile_decode)
-from sleekit_tpu_torch.models.eval import decode_scan  # noqa: E402
+from sleekit_tpu_torch.models.data import synthetic_stream  # noqa: E402
+from sleekit_tpu_torch.models.eval import (  # noqa: E402
+    DecodeGraph, chunk_tokens, decode_perplexity, decode_scan, perplexity)
 from sleekit_tpu_torch.models.fake_quant import random_packed_params  # noqa: E402
 from sleekit_tpu_torch.models.quantize import pack_lm_head  # noqa: E402
 from sleekit_tpu_torch.models import transformer as tr  # noqa: E402
@@ -133,7 +149,8 @@ from sleekit_tpu_torch.ops.pack import (  # noqa: E402
 from sleekit_tpu_torch.ops.paged_attention import K5, K14, K15  # noqa: E402
 from sleekit_tpu_torch.serve import engine as engine_mod  # noqa: E402
 from sleekit_tpu_torch.serve.engine import Engine, Request  # noqa: E402
-from sleekit_tpu_torch.utils.profiling import cuda_ms  # noqa: E402
+from sleekit_tpu_torch.utils.profiling import (  # noqa: E402
+    cuda_ms, device_trace, trace_summary)
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): device memory rate
 # and the bf16 tensor-core rate.
@@ -800,9 +817,10 @@ NEW_TOKENS = 32
 
 
 def run_engine(dev, cfg, card: str):
-    """The int4 'pair' model (K1) served as ``serve`` says; ``card``: the
-    card's name and power limit, printed beside the decode rate. Returns
-    (launches, metrics, the state later phases reuse)."""
+    """The int4 'pair' model (K1) served as ``serve`` says, on both
+    routes; ``card``: the card's name and power limit, printed beside the
+    decode rate. Returns (launches, metrics, the state later phases
+    reuse)."""
     t0 = time.perf_counter()
     params, _ = random_packed_params(cfg, seed=0, fuse_qkv=True,
                                      layout="pair", device=dev)
@@ -814,20 +832,54 @@ def run_engine(dev, cfg, card: str):
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                for n in PROMPT_LENS]
     launches, metrics, _, engine, comps = serve(
-        dev, cfg, card, "int4", params, K1, prompts, NEW_TOKENS)
+        dev, cfg, card, "int4", params, K1, prompts, NEW_TOKENS,
+        compare=True)
     state = dict(params=params, prompts=prompts, cache=engine.cache,
                  tokens=[c.tokens for c in comps])
+    metrics.update(trace_engine(dev, cfg, params, prompts, card,
+                                metrics["int4_engine_run_s"]))
     return launches, metrics, state
 
 
+def trace_engine(dev, cfg, params, prompts, card, run_s):
+    """The int4 Engine run once more on the graph route, under
+    ``torch.profiler`` (trace under the git-ignored ``traces/engine``):
+    the card's time in the run (every kernel, copy and set) against
+    ``run_s``, the same run's wall time without the profiler (whose own
+    host cost, its start above all, swamps the traced run's wall): the
+    device's busy share of an Engine run. Returns metrics."""
+    engine = Engine(cfg, params, max_slots=8, max_seq_len=512,
+                    cache_dtype=torch.int8, device=dev, use_kernel=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with device_trace(os.path.join(ROOT, "traces", "engine")) as prof:
+        engine.run([Request(prompt=p, max_new_tokens=NEW_TOKENS)
+                    for p in prompts])
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    summary = trace_summary(prof, top=6)
+    busy = summary["device_ms"] / (run_s * 1e3)
+    if not summary["device_ms"] > 0:
+        raise AssertionError("the Engine's trace holds no device time")
+    log(f"int4 Engine under torch.profiler (graph route): "
+        f"{summary['device_ms']:.3f} ms on the card, busy {busy:.3f} of the "
+        f"unprofiled run's {run_s * 1e3:.1f} ms ({wall_ms:.1f} ms wall "
+        f"under the profiler); top kernels "
+        + json.dumps([[k[:60], round(ms, 3), n]
+                      for k, ms, n in summary["kernels"]]) + f" ({card})")
+    return dict(int4_engine_trace_wall_ms=wall_ms,
+                int4_engine_trace_device_ms=summary["device_ms"],
+                int4_engine_trace_busy=busy)
+
+
 @contextlib.contextmanager
-def timed_prefills(seconds):
-    """Every prefill the Engine runs inside the block, timed by the host
+def timed(owner, name, seconds):
+    """Every call of ``owner.name`` inside the block, timed by the host
     clock between synchronizations; their total goes to ``seconds[0]``,
     their number to ``seconds[1]``."""
-    inner = engine_mod.prefill
+    inner = getattr(owner, name)
 
-    def timed(*a, **kw):
+    def wrapped(*a, **kw):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = inner(*a, **kw)
@@ -835,44 +887,124 @@ def timed_prefills(seconds):
         seconds[0] += time.perf_counter() - t0
         seconds[1] += 1
         return out
-    engine_mod.prefill = timed
+    setattr(owner, name, wrapped)
     try:
         yield
     finally:
-        engine_mod.prefill = inner
+        setattr(owner, name, inner)
 
 
-def serve(dev, cfg, card, what, params, kernel, prompts, n_new, hold=True):
-    """Serve the prompts (greedy, ``n_new`` tokens each) through the slot
-    Engine on ``params``, whose linears all run ``kernel``, with the time
-    its prefills take; check the launches of the run (one K10 a layer in
-    each prefill) and of one decode step through the public entry point
-    (exactly 4 per layer of ``kernel``: qkv, o, fc1, fc2; one K2 head;
-    one K3 per layer), the
-    prefill logits (kernels vs plain versions; ``hold``: see
-    check_prefill) and each layer; time a full-depth prefill of the
-    256-bucket group (4 rows x 256, eager between CUDA events) and
-    batch-8 decode. Returns (the run's launches, metrics, the kernels'
-    full-depth prefill logits, the Engine, its completions)."""
-    engine = Engine(cfg, params, max_slots=8, max_seq_len=512,
-                    cache_dtype=torch.int8, device=dev, use_kernel=True)
-    reqs = [Request(prompt=p, max_new_tokens=n_new) for p in prompts]
+def engine_run(engine, reqs, what, card):
+    """Serve ``reqs`` through ``engine`` from zeroed launch counts, with
+    the time its prefills take and its decode calls (``Engine._decode``:
+    the buffers' copies in, the steps, the tokens' copy out). Returns
+    (completions, the run's launches, metrics: wall, prefill, decode
+    (the wall less the prefills) and decode-call seconds, the end-to-end
+    and the decode tokens/s)."""
     kernels.reset_launch_counts()
-    prefill_s = [0.0, 0]
+    prefill_s, decode_s = [0.0, 0], [0.0, 0]
     t0 = time.perf_counter()
-    with timed_prefills(prefill_s):
+    with timed(engine_mod, "prefill", prefill_s), \
+            timed(engine, "_decode", decode_s):
         comps = engine.run(reqs)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = {k: n for k, n in counts().items() if n}
-    log(f"{what} Engine: 8 requests x {n_new} tokens in {run_s:.2f} s, of "
-        f"which its {prefill_s[1]} prefills {prefill_s[0]:.3f} s; launches "
-        f"{launches}")
-    if (set(launches) != {kernel.name, "K2", "K3", "K4", "K10"}
-            or launches["K10"] != cfg.n_layers * prefill_s[1]):
-        raise AssertionError(f"{what}: the Engine launched {launches} in "
-                             f"{prefill_s[1]} prefills (one K10 a layer)")
+    new = sum(len(c.new_tokens) for c in comps)
+    rest_s = run_s - prefill_s[0]
+    # The first token of a request comes from its prefill.
+    m = dict(run_s=run_s, prefill_s=prefill_s[0], prefills=prefill_s[1],
+             decode_s=rest_s, decode_calls_s=decode_s[0],
+             decode_calls=decode_s[1], tokens_per_s=new / run_s,
+             decode_tokens_per_s=(new - len(comps)) / rest_s,
+             capture_s=sum(r.capture_s for r in engine.runners.values()))
+    route = "graph" if engine.graphs else "eager"
+    log(f"{what} Engine ({route} route): {len(reqs)} requests, {new} new "
+        f"tokens in {run_s:.3f} s ({m['tokens_per_s']:.1f} tokens/s), of "
+        f"which its {prefill_s[1]} prefills {prefill_s[0]:.3f} s and the "
+        f"rest {rest_s:.3f} s ({m['decode_tokens_per_s']:.1f} decode "
+        f"tokens/s): {decode_s[1]} decode calls {decode_s[0]:.3f} s (the "
+        f"graphs' first steps and captures {m['capture_s']:.3f} s); "
+        f"launches {launches} ({card})")
+    return comps, launches, m
+
+
+def check_replays(engine, launches, per_step, per_prefill, prefills, what):
+    """The run's launches through the replay accounting: each of the
+    Engine's decode-step runners captured ``per_step`` (one step's
+    launches, by kernel name), and the run launched ``per_prefill`` a
+    prefill and ``per_step`` a decode step (each runner's eager steps
+    before its captures, and its replays), K4 aside (its launches follow
+    the prompts). Returns the decode steps."""
+    steps = 0
+    for mode, run in engine.runners.items():
+        got = {k.name: n for k, n in run.captured.items()}
+        if got != per_step or run.replays <= 0:
+            raise AssertionError(f"{what}: the {mode} runner captured "
+                                 f"{got}, replayed {run.replays} times")
+        steps += run.captures + run.replays
+    want = {k: per_prefill.get(k, 0) * prefills + per_step.get(k, 0) * steps
+            for k in set(per_step) | set(per_prefill)}
+    got = {k: n for k, n in launches.items() if k != "K4"}
+    if got != want:
+        raise AssertionError(f"{what}: {prefills} prefills and {steps} "
+                             f"decode steps launched {got}, not {want}")
+    log(f"{what}: {steps} decode steps, each replay counting the captured "
+        f"step's {per_step}; the run's launches {got} equal {prefills} "
+        f"prefills' and {steps} steps'")
+    return steps
+
+
+def same_tokens(comps, want, what):
+    """Raises unless every completion's tokens equal ``want``'s."""
+    for c, w in zip(comps, want):
+        if not np.array_equal(c.tokens, w):
+            raise AssertionError(f"{what}: request {c.request_id}'s tokens "
+                                 f"differ")
+    log(f"{what}: every request's tokens equal, bit for bit")
+
+
+def serve(dev, cfg, card, what, params, kernel, prompts, n_new, hold=True,
+          compare=False):
+    """Serve the prompts (greedy, ``n_new`` tokens each) through the slot
+    Engine on ``params``, whose linears all run ``kernel``, on the graph
+    route (each decode step a CUDA graph replay), with the time its
+    prefills take; check the launches of the run through the replay
+    accounting (4 a layer of ``kernel``: qkv, o, fc1, fc2, and one K2 a
+    prefill and a step; one K3 a layer a step; one K10 a layer a prefill)
+    and of one decode step through the public entry point, the prefill
+    logits (kernels vs plain versions; ``hold``: see check_prefill) and
+    each layer; with ``compare``, serve them again on the eager route
+    (``graphs=False``): the same tokens, bit for bit. Time a full-depth
+    prefill of the 256-bucket group (4 rows x 256, eager between CUDA
+    events) and batch-8 decode. Returns (the run's launches, metrics, the
+    kernels' full-depth prefill logits, the Engine, its completions)."""
+    engine = Engine(cfg, params, max_slots=8, max_seq_len=512,
+                    cache_dtype=torch.int8, device=dev, use_kernel=True)
+    reqs = [Request(prompt=p, max_new_tokens=n_new) for p in prompts]
+    comps, launches, run_m = engine_run(engine, reqs, what, card)
+    if not engine.graphs or set(engine.runners) != {"greedy"}:
+        raise AssertionError(f"{what}: the Engine ran on the eager route")
+    L = cfg.n_layers
+    if set(launches) != {kernel.name, "K2", "K3", "K4", "K10"}:
+        raise AssertionError(f"{what}: the Engine launched {launches}")
+    steps = check_replays(
+        engine, launches, {kernel.name: 4 * L, "K2": 1, "K3": L},
+        {kernel.name: 4 * L, "K2": 1, "K10": L}, run_m["prefills"], what)
     check_completions(comps, prompts, cfg, f"{what} Engine", n_new)
+    metrics = {f"engine_{k}": v for k, v in run_m.items()}
+    metrics["engine_decode_steps"] = steps
+    if compare:
+        eager = Engine(cfg, params, max_slots=8, max_seq_len=512,
+                       cache_dtype=torch.int8, device=dev, use_kernel=True,
+                       graphs=False)
+        eager_comps, _, eager_m = engine_run(
+            eager, [Request(prompt=p, max_new_tokens=n_new)
+                    for p in prompts], what, card)
+        same_tokens(eager_comps, [c.tokens for c in comps],
+                    f"{what} Engine, graph vs eager route")
+        metrics.update({f"eager_engine_{k}": v for k, v in eager_m.items()})
+        del eager
     dec_rel, dec_agree = check_decode(
         cfg, params, engine.cache, last_tokens(comps, dev),
         max(len(c.tokens) for c in comps), f"{what} ", hold)
@@ -896,17 +1028,19 @@ def serve(dev, cfg, card, what, params, kernel, prompts, n_new, hold=True):
     prefill_ms = prefill_bench.time_prefill(cfg, params, toks[0], reps=3)
     log(f"{what} prefill of the 256-bucket group (4 x 256, {cfg.n_layers} "
         f"layers, eager): {prefill_ms:.3f} ms ({card})")
-    ms_step, dev_ms = time_decode(dev, cfg, params, engine.cache, card,
-                                  f"{what} decode")
-    metrics = {"engine_run_s": run_s, "engine_prefill_s": prefill_s[0],
-               "prefill_ms": prefill_ms, "decode_ms_per_step": ms_step,
-               "decode_tokens_per_s": 8e3 / ms_step,
-               "decode_step_graph_ms": dev_ms,
-               "prefill_layer1_max_err": err1, "prefill_full_rel_l2": rel,
-               "prefill_full_argmax_agree": agree,
-               "decode_full_rel_l2": dec_rel,
-               "decode_full_argmax_agree": dec_agree,
-               "layers_max_err": layers_err}
+    ms_step, loop_ms, dev_ms = time_decode(dev, cfg, params, engine.cache,
+                                           card, f"{what} decode")
+    metrics.update({"prefill_ms": prefill_ms, "decode_ms_per_step": ms_step,
+                    "decode_tokens_per_s": 8e3 / ms_step,
+                    "decode_loop_graph_ms_per_step": loop_ms,
+                    "decode_loop_graph_tokens_per_s": 8e3 / loop_ms,
+                    "decode_step_graph_ms": dev_ms,
+                    "prefill_layer1_max_err": err1,
+                    "prefill_full_rel_l2": rel,
+                    "prefill_full_argmax_agree": agree,
+                    "decode_full_rel_l2": dec_rel,
+                    "decode_full_argmax_agree": dec_agree,
+                    "layers_max_err": layers_err})
     return (launches, {f"{what}_{k}": v for k, v in metrics.items()}, full,
             engine, comps)
 
@@ -1021,25 +1155,34 @@ def last_tokens(comps, dev):
 
 
 def time_decode(dev, cfg, params, cache, card, what):
-    """Batch-8 greedy decode rate over ``cache`` from ctx 256 (eager:
-    Python issues every launch), and one decode step's device time at ctx
-    288 (the same step captured in a CUDA graph and replayed). Returns
-    (eager ms/step, graph ms)."""
-    steps = 32
-    last = torch.zeros(8, dtype=torch.int32, device=dev)
-    decode_scan(cfg, params, cache, last, 256, 4, use_kernel=True)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    decode_scan(cfg, params, cache, last, 256, steps, use_kernel=True)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    """Batch-8 greedy decode over ``cache`` (a slot cache or a pool) from
+    ctx 256, 32 steps of the decode loop's runner (``DecodeGraph``, the
+    Engine's) on each route: eager (Python issues every launch) and as
+    graph replays (after a 4-step call that captures), by the host clock
+    between synchronizations; and one decode step's device time at ctx
+    288 (the step captured 4 times in one CUDA graph, replayed between
+    CUDA events). Returns (eager ms/step, graph loop ms/step, single-step
+    graph ms)."""
+    steps, ms = 32, {}
+    for graphs in (False, True):
+        run = DecodeGraph(cfg, params, 8, steps, device=dev, graphs=graphs)
+        run.pos.fill_(256)
+        run.run(cache, 4)
+        run.pos.fill_(256)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run.run(cache, steps)
+        torch.cuda.synchronize()
+        ms[graphs] = (time.perf_counter() - t0) / steps * 1e3
     tok = torch.zeros((8, 1), dtype=torch.int64, device=dev)
     dev_ms = cuda_ms(lambda i: decode_step(cfg, params, tok, cache, 288,
                                            use_kernel=True), 1, iters=4)
-    log(f"{what}: batch 8, ctx 256-{256 + steps}, {steps} steps: "
-        f"{dt / steps * 1e3:.3f} ms/step, {8 * steps / dt:.1f} tokens/s; one "
-        f"step replayed as a CUDA graph: {dev_ms:.3f} ms ({card})")
-    return dt / steps * 1e3, dev_ms
+    log(f"{what}: batch 8, ctx 256-{256 + steps}, {steps} steps: eager "
+        f"{ms[False]:.3f} ms/step ({8e3 / ms[False]:.1f} tokens/s), graph "
+        f"loop {ms[True]:.3f} ms/step ({8e3 / ms[True]:.1f} tokens/s, "
+        f"{ms[True] / dev_ms:.3f}x the single step); one step replayed as "
+        f"a CUDA graph: {dev_ms:.3f} ms ({card})")
+    return ms[False], ms[True], dev_ms
 
 
 def counts():
@@ -1075,12 +1218,14 @@ def serve_paged(engine, reqs):
 
 def run_paged_engine(dev, cfg, card: str, state):
     """The paged Engine (page pool of 64-row pages) on the slot phase's
-    params and requests. Run A, default pool: all 8 requests admitted at
-    once, the slot Engine's tokens, 96 K1 + 1 K2 + 24 K5 (no K3) per
-    decode step. Run B, 17 pages (16 usable of the 20 the requests need):
-    admission blocks, pages are recycled. Then decode through a pool that
-    holds the slot cache's rows: the slot cache's logits bit for bit, and
-    its rate. Returns (run A's launches, metrics, that pool)."""
+    params and requests, on the graph route. Run A, default pool: all 8
+    requests admitted at once, the slot Engine's tokens, 96 K1 + 1 K2 + 24
+    K5 (no K3) per decode step, counted at its replay; run A again on the
+    eager route: the same tokens. Run B, 17 pages (16 usable of the 20 the
+    requests need): admission blocks, pages are recycled. Then decode
+    through a pool that holds the slot cache's rows: the slot cache's
+    logits bit for bit, and its rate. Returns (run A's launches, metrics,
+    that pool)."""
     params, prompts = state["params"], state["prompts"]
 
     def engine(**kw):
@@ -1098,6 +1243,8 @@ def run_paged_engine(dev, cfg, card: str, state):
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = counts()
+    if not eng.graphs or eng.runners["greedy"].replays <= 0:
+        raise AssertionError("paged run A: not on the graph route")
     log(f"paged Engine run A ({eng.total_pages} pages of {PS}): 8 requests "
         f"x {NEW_TOKENS} tokens in {run_s:.2f} s; launches "
         f"{ {k: n for k, n in launches.items() if n} }")
@@ -1116,6 +1263,19 @@ def run_paged_engine(dev, cfg, card: str, state):
             raise AssertionError(f"paged run A: request {c.request_id}'s "
                                  f"tokens differ from the slot Engine's")
     log("paged run A: greedy tokens equal the slot Engine's")
+    eager = engine(graphs=False)
+    t0 = time.perf_counter()
+    eager_comps, eager_step, _ = serve_paged(eager, requests())
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    same_tokens(eager_comps, [c.tokens for c in comps],
+                "paged run A, graph vs eager route")
+    if eager_step != step:
+        raise AssertionError(f"paged run A: an eager decode step launched "
+                             f"{eager_step}, a replayed one {step}")
+    log(f"paged run A: graph route {run_s:.3f} s, eager route "
+        f"{eager_s:.3f} s ({card})")
+    del eager
     if (sorted(eng._free_pages) != list(range(1, eng.total_pages))
             or eng._slot_pages):
         raise AssertionError("paged run A: pages not returned")
@@ -1131,10 +1291,10 @@ def run_paged_engine(dev, cfg, card: str, state):
     if (sorted(eng_b._free_pages) != list(range(1, 17))
             or eng_b._slot_pages):
         raise AssertionError("paged run B: pages not returned")
-    agree = np.mean([np.mean(a.new_tokens == b.new_tokens)
-                     for a, b in zip(comps_b, comps)])
+    agree_b = float(np.mean([np.mean(a.new_tokens == b.new_tokens)
+                             for a, b in zip(comps_b, comps)]))
     log(f"paged run B (17 pages): {queued} of 8 requests waited for pages; "
-        f"all pages returned; new-token agreement with run A {agree:.4f} "
+        f"all pages returned; new-token agreement with run A {agree_b:.4f} "
         f"(prefill groups differ)")
 
     # Decode through a pool holding the slot cache's rows, strided and out
@@ -1152,26 +1312,17 @@ def run_paged_engine(dev, cfg, card: str, state):
                              "the slot cache's")
     del slot_cache
     rel, agree = check_decode(cfg, params, pool, tok, 257, "paged ")
-    last = torch.zeros(8, dtype=torch.int32, device=dev)
-    decode_scan(cfg, params, pool, last, 256, 4, use_kernel=True)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    steps = 32
-    decode_scan(cfg, params, pool, last, 256, steps, use_kernel=True)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    dev_ms = cuda_ms(lambda i: decode_step(cfg, params, tok, pool, 288,
-                                           use_kernel=True), 1, iters=4)
-    log(f"paged decode: logits at ctx 256 equal the slot cache's; batch 8, "
-        f"ctx 256-288, {steps} steps: {dt / steps * 1e3:.3f} ms/step, "
-        f"{8 * steps / dt:.1f} tokens/s; one step replayed as a CUDA graph: "
-        f"{dev_ms:.3f} ms ({card})")
-    return launches, dict(paged_run_s=run_s, paged_pages=eng.total_pages,
+    log("paged decode: logits at ctx 256 equal the slot cache's")
+    ms_step, loop_ms, dev_ms = time_decode(dev, cfg, params, pool, card,
+                                           "paged decode")
+    return launches, dict(paged_run_s=run_s, paged_eager_run_s=eager_s,
+                          paged_pages=eng.total_pages,
                           paged_decode_full_rel_l2=rel,
                           paged_decode_full_argmax_agree=agree,
-                          paged_small_pool_agree=float(agree),
-                          paged_decode_ms_per_step=dt / steps * 1e3,
-                          paged_decode_tokens_per_s=8 * steps / dt,
+                          paged_small_pool_agree=agree_b,
+                          paged_decode_ms_per_step=ms_step,
+                          paged_decode_tokens_per_s=8e3 / ms_step,
+                          paged_decode_loop_graph_ms_per_step=loop_ms,
                           paged_decode_step_graph_ms=dev_ms), pool
 
 
@@ -1272,24 +1423,28 @@ def run_split(dev, cfg, state, pool):
     return launches, metrics
 
 
-def run_ew_engine(dev, cfg, state):
-    """The slot Engine on the 'ew' split route (K10 + K12) serves the
-    phase-3 prompts, 16 new tokens each: well formed completions, and one
-    decode step launching 96 K1, 1 K2, 24 K10 and 24 K12. Its tokens need
-    not equal the default route's (K12's f32 softmax is other arithmetic);
-    their agreement is measured. Returns metrics."""
+def run_ew_engine(dev, cfg, state, card):
+    """The slot Engine on the 'ew' split route (K10 + K12; the graph
+    captured with those knobs) serves the phase-3 prompts, 16 new tokens
+    each: well formed completions, and each decode step (counted at its
+    replay) and one through the public entry point launching 96 K1, 1 K2,
+    24 K10 and 24 K12. Its tokens need not equal the default route's
+    (K12's f32 softmax is other arithmetic); their agreement is measured.
+    Returns metrics."""
     params, prompts = state["params"], state["prompts"]
     n_new = LAYOUT_NEW_TOKENS
+    L = cfg.n_layers
     with split_route(FLASH_MHA_MODE="ew"):
         engine = Engine(cfg, params, max_slots=8, max_seq_len=512,
                         cache_dtype=torch.int8, device=dev, use_kernel=True)
-        kernels.reset_launch_counts()
-        t0 = time.perf_counter()
-        comps = engine.run([Request(prompt=p, max_new_tokens=n_new)
-                            for p in prompts])
-        torch.cuda.synchronize()
-        run_s = time.perf_counter() - t0
-        run = {k: n for k, n in counts().items() if n}
+        comps, run, run_m = engine_run(
+            engine, [Request(prompt=p, max_new_tokens=n_new)
+                     for p in prompts], "ew", card)
+        run_s = run_m["run_s"]
+        check_replays(engine, run,
+                      {"K1": 4 * L, "K2": 1, "K10": L, "K12": L},
+                      {"K1": 4 * L, "K2": 1, "K10": L}, run_m["prefills"],
+                      "ew Engine")
         check_completions(comps, prompts, cfg, "ew Engine", n_new)
         rel, dec_agree = check_decode(
             cfg, params, engine.cache, last_tokens(comps, dev),
@@ -1316,6 +1471,109 @@ def run_ew_engine(dev, cfg, state):
     return dict(ew_engine_run_s=run_s, ew_engine_token_agree=agree,
                 ew_decode_full_rel_l2=rel,
                 ew_decode_full_argmax_agree=dec_agree)
+
+
+def run_sampled(dev, cfg, state, card):
+    """The phase-3 prompts sampled (temperature 0.8, top-k 40, top-p 0.9;
+    the Engine's generator from seed 1234), 16 new tokens each, through
+    the slot Engine on the graph route and on the eager route: the same
+    tokens, bit for bit (the generator is registered with the graph, so
+    the replays draw the eager steps' numbers). Then times the top-k/p
+    step's replay between CUDA events (phase 3's graph loop is the greedy
+    step's). Returns metrics."""
+    params, prompts = state["params"], state["prompts"]
+    n_new = LAYOUT_NEW_TOKENS
+    out = {}
+    for graphs in (True, False):
+        engine = Engine(cfg, params, max_slots=8, max_seq_len=512,
+                        cache_dtype=torch.int8, seed=1234, device=dev,
+                        use_kernel=True, graphs=graphs)
+        comps, _, m = engine_run(
+            engine, [Request(prompt=p, max_new_tokens=n_new,
+                             temperature=0.8, top_k=40, top_p=0.9)
+                     for p in prompts], "sampled", card)
+        if set(engine.runners) != {"topkp"}:
+            raise AssertionError(f"sampled Engine: runners "
+                                 f"{set(engine.runners)}")
+        out[graphs] = comps, m
+        if graphs:
+            # The drained Engine's runner, replayed over its cache: as one
+            # call of max_steps steps (its step index stays in the token
+            # buffer).
+            run = engine.runners["topkp"]
+            run._index.zero_()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(run.max_steps):
+                run.graph.replay()
+            end.record()
+            end.synchronize()
+            step_ms = start.elapsed_time(end) / run.max_steps
+        del engine
+    comps = out[True][0]
+    check_completions(comps, prompts, cfg, "sampled Engine", n_new)
+    same_tokens(out[False][0], [c.tokens for c in comps],
+                "sampled Engine, graph vs eager route")
+    greedy = float(np.mean([
+        np.mean(c.new_tokens == tokens[len(p):len(p) + n_new])
+        for c, p, tokens in zip(comps, prompts, state["tokens"])]))
+    log(f"sampled Engine: new-token agreement with the greedy run "
+        f"{greedy:.4f} (measured); one top-k/p step replayed: "
+        f"{step_ms:.3f} ms ({card})")
+    return dict(sampled_step_graph_ms=step_ms,
+                sampled_engine_run_s=out[True][1]["run_s"],
+                sampled_eager_engine_run_s=out[False][1]["run_s"],
+                sampled_greedy_agree=greedy)
+
+
+# decode_perplexity against perplexity at OPT-1.3B int4: bf16 activations
+# rounded in other places on the two routes (K1's streaming kernel at M =
+# 2 against its tensor-core kernel at M = 512, K3 against K4).
+PPL_RTOL = 0.01
+
+
+def run_perplexity(dev, cfg, state, card):
+    """The int4 model of phase 3 (full width and depth) scored on a
+    synthetic Zipf stream (``models/data.py``, seed 0) of 2 x 256-token
+    windows: ``perplexity`` (one forward: 96 K1 and one K2 at M = 512, 24
+    K4) and ``decode_perplexity`` (255 teacher-forced steps through the
+    decode loop's graph, f32 cache as JAX's default: 96 K1, one K2 and 24
+    K3 a step), each timed once by the host clock between
+    synchronizations (the graph's capture included); their relative
+    difference held to PPL_RTOL. Returns metrics."""
+    params, L = state["params"], cfg.n_layers
+    batches = list(chunk_tokens(synthetic_stream(cfg.vocab_size, 512, 0),
+                                256, 2))
+    steps = 255
+    wants = {"perplexity": {"K1": 4 * L, "K2": 1, "K4": L},
+             "decode_perplexity": {"K1": 4 * L * steps, "K2": steps,
+                                   "K3": L * steps}}
+    res = {}
+    for fn in (perplexity, decode_perplexity):
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res[fn.__name__] = fn(cfg, params, batches, device=dev,
+                              use_kernel=True)
+        torch.cuda.synchronize()
+        res[f"{fn.__name__}_s"] = time.perf_counter() - t0
+        got = {k: n for k, n in counts().items() if n}
+        if got != wants[fn.__name__]:
+            raise AssertionError(f"{fn.__name__} launched {got}")
+    fwd, dec = res["perplexity"], res["decode_perplexity"]
+    rel = abs(dec - fwd) / fwd
+    if not (math.isfinite(fwd) and math.isfinite(dec) and rel <= PPL_RTOL):
+        raise AssertionError(f"perplexity {fwd}, decode_perplexity {dec}: "
+                             f"relative difference {rel:.4g} over "
+                             f"{PPL_RTOL}")
+    log(f"perplexity (OPT-1.3B int4, 2 x 256 synthetic tokens): forward "
+        f"{fwd:.4f} in {res['perplexity_s']:.3f} s, decode path {dec:.4f} "
+        f"in {res['decode_perplexity_s']:.3f} s ({steps} graph steps); "
+        f"relative difference {rel:.4g} (<= {PPL_RTOL}); launches "
+        f"{wants} ({card})")
+    res["ppl_rel_diff"] = rel
+    return res
 
 
 def run_benches(cfg, trace_dir):
@@ -1434,7 +1692,7 @@ def run_layouts(dev, cfg, card, state):
     # one by one, and K8's full depth is held on the same indices over the
     # NF4 table with its mean taken out, a model that does not drift.
     run, m, _, _, _ = serve(dev, cfg, card, "nf4", nf4, K8, prompts,
-                            LAYOUT_NEW_TOKENS, hold=False)
+                            LAYOUT_NEW_TOKENS, hold=False, compare=True)
     launches["K8"] = run["K8"]
     metrics.update(m)
     toks = group_tokens(prompts, dev)
@@ -1476,6 +1734,7 @@ def run_layouts(dev, cfg, card, state):
     cache = {k: v.clone() for k, v in state["cache"].items()}
     last = torch.zeros(8, dtype=torch.int32, device=dev)
     steps = 4
+    # decode_scan: one eager step, the capture, three replays.
     kernels.reset_launch_counts()
     decode_scan(cfg, plane, cache, last, 256, steps, use_kernel=True)
     torch.cuda.synchronize()
@@ -1490,11 +1749,12 @@ def run_layouts(dev, cfg, card, state):
         f"launch {step}; prefill logits vs the pair (K1) path on the same "
         f"indices: {cfg.n_layers} layers relative L2 {rel:.4g} (<= 2^-6), "
         f"argmax agreement {agree:.4f}")
-    ms_step, dev_ms = time_decode(dev, cfg, plane, cache, card,
-                                  "int4 plane decode")
+    ms_step, loop_ms, dev_ms = time_decode(dev, cfg, plane, cache, card,
+                                           "int4 plane decode")
     metrics.update(int4_plane_vs_pair_rel_l2=rel,
                    int4_plane_layers_max_err=layers_err,
                    int4_plane_decode_ms_per_step=ms_step,
+                   int4_plane_decode_loop_graph_ms_per_step=loop_ms,
                    int4_plane_decode_step_graph_ms=dev_ms)
     return launches, metrics
 
@@ -1579,11 +1839,13 @@ def main():
     for name, n in split_launches.items():   # K10: the main path's count
         launches.setdefault(name, n)
     engine.update(paged_metrics, **split_metrics)
-    engine.update(run_ew_engine(dev, cfg, state))
+    engine.update(run_ew_engine(dev, cfg, state, smi))
+    engine.update(run_sampled(dev, cfg, state, smi))
     cases.update(check_linears(dev, cfg, ["K6", "K7", "K8", "K9"]))
     layout_launches, layout_metrics = run_layouts(dev, cfg, smi, state)
     launches.update(layout_launches)
     engine.update(layout_metrics)
+    engine.update(run_perplexity(dev, cfg, state, smi))
     del state, pool
     benches = run_benches(cfg, os.path.join(ROOT, "traces"))
 

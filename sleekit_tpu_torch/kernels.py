@@ -9,11 +9,15 @@ them at once, in parallel, through :func:`build`.
 
 Every C entry takes PyTorch's current stream as its last argument and
 returns ``cudaGetLastError()``; :class:`CudaKernel` raises if that is not
-0 and counts the launches that succeeded.
+0 and counts the launches that succeeded. A call made while a CUDA graph
+is captured launches nothing: :func:`captured_launches` takes such calls
+out of the counts, and :func:`add_launches` counts them again at each
+replay of the graph.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -131,6 +135,29 @@ class CudaKernel:
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """Yields a dict that, when the block ends, holds ``{kernel: calls}``
+    for the kernels called in the block; those calls leave the counts
+    (the block captures a CUDA graph, which runs nothing)."""
+    before = [k.launches for k in KERNELS]
+    calls: Dict[CudaKernel, int] = {}
+    try:
+        yield calls
+    finally:
+        for k, n in zip(KERNELS, before):
+            if k.launches != n:
+                calls[k] = k.launches - n
+            k.launches = n
+
+
+def add_launches(calls: Dict[CudaKernel, int], times: int = 1) -> None:
+    """Count ``times`` replays of a graph whose capture made ``calls``
+    (:func:`captured_launches`)."""
+    for k, n in calls.items():
+        k.launches += n * times
 
 
 if __name__ == "__main__":

@@ -25,6 +25,7 @@ modules (``models/quantize.py``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, List, Optional
 
@@ -449,10 +450,18 @@ def fuse_qkv_params(cfg: TransformerConfig, params):
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _alibi_tensor(n_heads: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(alibi_slopes(n_heads)).to(device)
+
+
 def _slopes(cfg, device):
+    """The ALiBi slopes (H,) f32 on ``device``, or None: one tensor per
+    (heads, device), copied from the host once, so that a decode step
+    copies nothing from the host and a CUDA graph can capture it."""
     if cfg.positional != "alibi":
         return None
-    return torch.from_numpy(alibi_slopes(cfg.n_heads)).to(device)
+    return _alibi_tensor(cfg.n_heads, torch.device(device))
 
 
 def forward(cfg: TransformerConfig, params, tokens: torch.Tensor,
@@ -516,9 +525,11 @@ def init_paged_kv_cache(cfg: TransformerConfig, total_pages: int,
 def decode_step(cfg: TransformerConfig, params, tokens: torch.Tensor, cache,
                 pos, use_kernel: Optional[bool] = None):
     """One token of cached decode. tokens (B, 1); pos an int (uniform
-    batch) or a (B,) int32 tensor (ragged slots); ``cache`` a slot cache or
-    a page pool with its table. The cache is updated in place. Returns
-    (logits (B, V), cache)."""
+    batch) or a (B,) int32 tensor on the tokens' device (ragged slots; the
+    kernels then read it on the device, so a captured step replays at the
+    positions the tensor holds); ``cache`` a slot cache or a page pool with
+    its table. The cache is updated in place. Returns (logits (B, V),
+    cache)."""
     if use_kernel is None:
         use_kernel = tokens.is_cuda
     b = tokens.shape[0]

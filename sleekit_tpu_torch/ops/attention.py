@@ -549,6 +549,10 @@ def kv_prefill_write(k, v, cache_k, cache_v, layer: int, k_scale=None,
     if not k.is_cuda:
         return kv_prefill_write_plain(k, v, cache_k, cache_v, layer,
                                       k_scale, v_scale)
+    if k.stride() != v.stride():
+        # RoPE's k is a new tensor while v is still a slice of qkv: the
+        # kernel takes one set of strides.
+        k, v = k.contiguous(), v.contiguous()
     B, T, KV, D = k.shape
     out = None
     if k_scale is not None:

@@ -8,8 +8,10 @@ page_size, D) with a page table, from which each admitted request takes
 the pages its prompt and budget need. Prompts prefill in power-of-two
 length buckets (one batched prefill per bucket) and their KV rows are
 spliced into the slot or copied page by page into the pool; each step
-decodes every slot, with a scalar position when all active slots agree (one
-uniform position per kernel) and a (B,) vector otherwise. Greedy steps run
+decodes every slot at its (B,) position vector through a
+:class:`~sleekit_tpu_torch.models.eval.DecodeGraph` of its sampling mode,
+which on CUDA replays one captured CUDA graph a step (the counterpart of
+the JAX Engine's jitted ``decode_step`` and ``decode_scan``). Steps run
 ``fused_steps`` tokens per host round trip.
 """
 
@@ -23,10 +25,9 @@ import torch
 
 from sleekit_tpu_torch.device import resolve_device
 from sleekit_tpu_torch.models.eval import (
-    decode_scan, decode_scan_sampled, sample_tokens, sample_tokens_topkp)
+    DecodeGraph, sample_tokens, sample_tokens_topkp)
 from sleekit_tpu_torch.models.transformer import (
-    TransformerConfig, decode_step, init_kv_cache, init_paged_kv_cache,
-    prefill)
+    TransformerConfig, init_kv_cache, init_paged_kv_cache, prefill)
 
 # The JAX kernels' append window (rows): a page size must be a multiple of
 # it there, and the port accepts the same configurations.
@@ -92,7 +93,12 @@ class Engine:
     and decode step. ``use_kernel`` (default: ``device`` is CUDA) launches
     the CUDA kernels; ``use_kernel=False`` runs their plain PyTorch
     versions on the same device (the counterpart of the JAX package's
-    ``use_pallas``).
+    ``use_pallas``). ``graphs`` (default: ``device`` is CUDA and
+    ``use_kernel``) replays each decode step as a CUDA graph, captured at
+    the first step of each sampling mode (greedy, temperature, top-k/p)
+    with the ``ops/attention`` route knobs as they are then, and again
+    when they change; ``graphs=False`` runs the same steps eagerly, as
+    ``jax.disable_jit`` would. Prefill stays eager.
 
     ``paged=True`` keeps the cache in a page pool of ``total_pages`` pages
     of ``page_size`` rows (default: half the slot cache's rows, at least
@@ -107,11 +113,12 @@ class Engine:
                  seed: int = 0, fused_steps: int = 8, paged: bool = False,
                  page_size: int = 64, total_pages: Optional[int] = None,
                  mesh=None, device="cuda",
-                 use_kernel: Optional[bool] = None):
+                 use_kernel: Optional[bool] = None,
+                 graphs: Optional[bool] = None):
         self.device = resolve_device(device)
         if mesh is not None:
             raise NotImplementedError(
-                "mesh serving is not ported yet (ROADMAP queue 1, item 15: "
+                "mesh serving is not ported yet (ROADMAP, modules to port: "
                 "parallel/ and serve/router.py)")
         self.cfg = cfg
         self.params = params
@@ -121,6 +128,10 @@ class Engine:
         self.paged = paged
         self.use_kernel = (self.device.type == "cuda" if use_kernel is None
                            else use_kernel)
+        self.graphs = (self.device.type == "cuda" and self.use_kernel
+                       if graphs is None else graphs)
+        if self.graphs and self.device.type != "cuda":
+            raise ValueError("graphs=True needs a CUDA device")
         if paged:
             if page_size <= 0 or page_size % _APPEND_WIN:
                 raise ValueError(f"page_size {page_size} must be a positive "
@@ -150,6 +161,8 @@ class Engine:
         # When every active slot has >= fused_steps budget left and the
         # queue is drained, decode fused_steps tokens per host round trip.
         self.fused_steps = fused_steps
+        # One decode-step runner a sampling mode, made at its first use.
+        self.runners: Dict[str, DecodeGraph] = {}
 
         self.slot_req: List[Optional[Request]] = [None] * max_slots
         self.slot_tokens: List[List[int]] = [[] for _ in range(max_slots)]
@@ -210,38 +223,40 @@ class Engine:
     def _pages_needed(self, req: Request) -> int:
         return -(-(len(req.prompt) + req.max_new_tokens) // self.page_size)
 
-    def _slot_pos_arg(self, active):
-        """An int when every active slot sits at one position (inactive
-        slots then write garbage there, harmless: their rows are
-        re-prefilled on admission), else the (B,) int32 position vector."""
-        pos_np = np.minimum(self.slot_pos, self.max_seq_len - 1)
-        uniq = {int(pos_np[i]) for i in active}
-        if len(uniq) == 1:
-            return next(iter(uniq))
-        return self._t(pos_np, torch.int32)
-
-    def _sampling_args(self):
+    def _decode(self, k: int) -> np.ndarray:
+        """``k`` decode steps of every slot through the runner of the
+        slots' sampling mode; returns the tokens (slots, k) on the host.
+        Slot state enters the runner's buffers by ``copy_`` and the tokens
+        leave in one copy. Inactive slots decode at position 0: in slot
+        mode they write garbage into their own rows (re-prefilled on
+        admission), in paged mode into the trash page."""
         reqs = self.slot_req
-        temps = self._t([r.temperature if r else 0.0 for r in reqs],
-                        torch.float32)
-        tks = self._t([r.top_k if r else 0 for r in reqs], torch.int64)
-        tps = self._t([r.top_p if r else 1.0 for r in reqs], torch.float32)
-        use_topkp = any(r and (r.top_k > 0 or r.top_p < 1.0) for r in reqs)
-        return temps, tks, tps, use_topkp
+        sampled = any(r and r.temperature > 0 for r in reqs)
+        topkp = sampled and any(r and (r.top_k > 0 or r.top_p < 1.0)
+                                for r in reqs)
+        mode = "topkp" if topkp else "sample" if sampled else "greedy"
+        run = self.runners.get(mode)
+        if run is None:
+            run = self.runners[mode] = DecodeGraph(
+                self.cfg, self.params, self.max_slots,
+                max(self.fused_steps, 1), mode, self.generator, self.device,
+                self.use_kernel, self.graphs)
+        pos = np.where([r is not None for r in reqs],
+                       np.minimum(self.slot_pos, self.max_seq_len - 1), 0)
+        run.last.copy_(torch.from_numpy(self.slot_last))
+        run.pos.copy_(torch.from_numpy(pos.astype(np.int32)))
+        if sampled:
+            run.temps.copy_(torch.tensor(
+                [r.temperature if r else 0.0 for r in reqs]))
+            run.top_ks.copy_(torch.tensor([r.top_k if r else 0
+                                           for r in reqs]))
+            run.top_ps.copy_(torch.tensor([r.top_p if r else 1.0
+                                           for r in reqs]))
+        run.run(self.cache, k)
+        return run.tokens[:, :k].cpu().numpy()
 
     def _step_fused(self, active, k: int) -> None:
-        last = self._t(self.slot_last, torch.int32)
-        pos = self._slot_pos_arg(active)
-        if any(r and r.temperature > 0 for r in self.slot_req):
-            temps, tks, tps, use_topkp = self._sampling_args()
-            toks, self.cache, _, _ = decode_scan_sampled(
-                self.cfg, self.params, self.cache, last, pos, k, temps, tks,
-                tps, self.generator, use_topkp, use_kernel=self.use_kernel)
-        else:
-            toks, self.cache, _, _ = decode_scan(
-                self.cfg, self.params, self.cache, last, pos, k,
-                use_kernel=self.use_kernel)
-        toks = toks.cpu().numpy()  # (slots, k)
+        toks = self._decode(k)  # (slots, k)
         for slot in active:
             req = self.slot_req[slot]
             emitted = toks[slot].tolist()
@@ -352,24 +367,5 @@ class Engine:
         all slots, collect finished sequences."""
         self._admit()
         active = [i for i, r in enumerate(self.slot_req) if r is not None]
-        if not active:
-            return
-        tokens = self._t(self.slot_last[:, None], torch.int64)
-        pos = self._slot_pos_arg(active)
-        logits, self.cache = decode_step(self.cfg, self.params, tokens,
-                                         self.cache, pos,
-                                         use_kernel=self.use_kernel)
-        temps, tks, tps, use_topkp = self._sampling_args()
-        if use_topkp:
-            nxt = sample_tokens_topkp(logits, temps, tks, tps,
-                                      self.generator)
-        else:
-            nxt = sample_tokens(logits, temps, self.generator)
-        nxt = nxt.cpu().numpy()
-        for slot in active:
-            tok = int(nxt[slot])
-            self.slot_tokens[slot].append(tok)
-            self.slot_new[slot].append(tok)
-            self.slot_pos[slot] += 1
-            self.slot_last[slot] = tok
-            self._maybe_finish(slot)
+        if active:
+            self._step_fused(active, 1)

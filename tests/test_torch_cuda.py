@@ -1110,3 +1110,211 @@ def test_decode_attention_raises_without_scratch(dev):
             at.K11(q.data_ptr(), cache.data_ptr(), cache.data_ptr(), 0, 0, 0,
                    0, 0, out.data_ptr(), p, t, 7, 0, B, KV, 1, B, S, 1, D, r,
                    splits, 0.125, 1, 1, 0)
+
+
+# ---- the decode loop as a replayed CUDA graph (models/eval.py DecodeGraph,
+# the Engine's graph route) ---------------------------------------------------
+
+
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("G", [1, 4])
+def test_k3_k5_vector_pos_equals_int_pos(dev, paged, G):
+    """K3 (K5 over a pool) with a (B,) int32 pos holding one value in
+    every row writes and returns, bit for bit, what it does with that int
+    pos: the graph route always passes the vector."""
+    from sleekit_tpu_torch.ops import attention as at
+    from sleekit_tpu_torch.ops import paged_attention as pa
+
+    g = torch.Generator().manual_seed(20 + G)
+    L, B, KV, D, PS, MAXP = 2, 5, 2, 64, 64, 5
+    slot = _cache(g, (L, B, KV, PS * MAXP, D), "int8")
+    q = torch.randn(B, KV * G, D, generator=g).to(dev, torch.bfloat16)
+    kn = torch.randn(B, KV, D, generator=g).to(dev, torch.bfloat16)
+    vn = torch.randn(B, KV, D, generator=g).to(dev, torch.bfloat16)
+    table = (1 + torch.randperm(B * MAXP, generator=g)).to(torch.int32)
+    table = table.reshape(B, MAXP)
+    for p in (0, 63, 64, 200, PS * MAXP - 1):
+        outs = []
+        for pos in (p, torch.full((B,), p, dtype=torch.int32, device=dev)):
+            if paged:
+                c = [_on(dev, _to_pool(x, table, PS)) for x in slot]
+                out = pa.paged_fused_decode_append(
+                    q, kn, vn, c[0], c[1], table.to(dev), pos, 1, 0.125,
+                    None, c[2], c[3])[0]
+            else:
+                c = [_on(dev, x) for x in slot]
+                out = at.fused_decode_append(q, kn, vn, c[0], c[1], pos, 1,
+                                             0.125, None, c[2], c[3])[0]
+            outs.append([out] + c)
+        torch.cuda.synchronize()
+        for a, b in zip(*outs):
+            assert torch.equal(a, b), p
+
+
+def _tiny_int4(dev, **kw):
+    """A small bf16 model with int4 'pair' linears (K1) and an int8 head
+    (K2), random from seed 0."""
+    from sleekit_tpu_torch.models.fake_quant import random_packed_params
+    from sleekit_tpu_torch.models.quantize import pack_lm_head
+    from sleekit_tpu_torch.models.zoo import tiny_test
+
+    cfg = tiny_test(d_model=256, d_ff=512, n_heads=4, max_seq_len=256,
+                    dtype=torch.bfloat16, **kw)
+    params, _ = random_packed_params(cfg, 0, fuse_qkv=True, layout="pair",
+                                     device=dev)
+    return cfg, pack_lm_head(cfg, params, nbits=8)
+
+
+def _graph_specs(sampled=False):
+    """Six requests for four slots (continuous batching, fused steps of
+    uneven length), greedy; with ``sampled``, temperature 0.8, top-k 40
+    and top-p 0.9 on four of them."""
+    import numpy as np
+
+    rng = np.random.RandomState(7)
+    specs = []
+    for i, (n, m) in enumerate([(5, 12), (19, 9), (40, 20), (3, 7),
+                                (70, 11), (9, 16)]):
+        kw = (dict(temperature=0.8, top_k=40, top_p=0.9)
+              if sampled and i % 3 else {})
+        specs.append((rng.randint(0, 256, n).astype(np.int32), m, kw))
+    return specs
+
+
+def _serve_tokens(cfg, params, dev, specs, **kw):
+    from sleekit_tpu_torch.serve.engine import Engine, Request
+
+    eng = Engine(cfg, params, max_slots=4, max_seq_len=128,
+                 cache_dtype=torch.int8, seed=5, device=dev, **kw)
+    comps = eng.run([Request(prompt=p.copy(), max_new_tokens=m, **s)
+                     for p, m, s in specs])
+    return eng, [c.tokens for c in comps]
+
+
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("sampled", [False, True])
+def test_graph_engine_tokens_equal_eager(dev, paged, sampled):
+    """The Engine on the graph route (the default on CUDA) emits the eager
+    route's tokens (graphs=False), greedy and sampled from one seed, slot
+    and paged, int8 cache: the same kernels on the same inputs in the same
+    order, and the Engine's generator registered with the graph."""
+    import numpy as np
+
+    cfg, params = _tiny_int4(dev)
+    specs = _graph_specs(sampled)
+    kw = dict(paged=True, page_size=16) if paged else {}
+    eng, graph = _serve_tokens(cfg, params, dev, specs, **kw)
+    assert eng.graphs and sum(r.replays for r in eng.runners.values()) > 0
+    assert ("topkp" in eng.runners) == sampled
+    eager_eng, eager = _serve_tokens(cfg, params, dev, specs, graphs=False,
+                                     **kw)
+    assert not eager_eng.graphs
+    _, again = _serve_tokens(cfg, params, dev, specs, **kw)
+    for a, b, c in zip(graph, eager, again):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, c)
+
+
+def test_graph_launches_are_captured_times_replays(dev):
+    """The runner's first call runs its step eagerly (counted launches)
+    and captures it (no launches); each replay then counts the captured
+    step's launches: 4 K1 and 1 K3 a layer, 1 K2."""
+    from sleekit_tpu_torch import kernels
+    from sleekit_tpu_torch.models.eval import DecodeGraph
+    from sleekit_tpu_torch.models.transformer import init_kv_cache
+
+    cfg, params = _tiny_int4(dev)
+    cache = init_kv_cache(cfg, 4, 64, torch.int8, device=dev)
+    run = DecodeGraph(cfg, params, 4, 8, device=dev)
+    run.pos.fill_(3)
+    want = {"K1": 4 * cfg.n_layers, "K2": 1, "K3": cfg.n_layers}
+
+    def counts():
+        return {k.name: k.launches for k in kernels.KERNELS if k.launches}
+
+    kernels.reset_launch_counts()
+    run.run(cache, 1)
+    torch.cuda.synchronize()
+    assert counts() == want and run.replays == 0
+    assert {k.name: n for k, n in run.captured.items()} == want
+    kernels.reset_launch_counts()
+    run.run(cache, 6)
+    torch.cuda.synchronize()
+    assert counts() == {k: 6 * n for k, n in want.items()}
+    assert run.replays == 6
+
+
+def _runner_tokens(cfg, params, dev, graphs, steps=6, cache=None):
+    from sleekit_tpu_torch.models.eval import DecodeGraph
+    from sleekit_tpu_torch.models.transformer import init_kv_cache, prefill
+
+    g = torch.Generator().manual_seed(4)
+    prompt = torch.randint(0, 256, (3, 20), generator=g).to(dev)
+    if cache is None:
+        cache = init_kv_cache(cfg, 3, 64, torch.int8, device=dev)
+    logits, _ = prefill(cfg, params, prompt, cache)
+    run = DecodeGraph(cfg, params, 3, steps, device=dev, graphs=graphs)
+    run.last.copy_(logits[:, -1].argmax(-1))
+    run.pos.fill_(20)
+    run.run(cache, steps)
+    torch.cuda.synchronize()
+    return run, cache
+
+
+@pytest.mark.parametrize("family", ["bloom", "llama"])
+def test_alibi_and_rope_steps_capture(dev, family):
+    """A BLOOM step (ALiBi slopes, held on the device) and a Llama step
+    (RoPE, GQA, SwiGLU) capture and replay: the graph's tokens and cache
+    equal the eager runner's."""
+    geo = {"bloom": dict(activation="gelu", positional="alibi",
+                         embed_ln=True),
+           "llama": dict(activation="silu_glu", norm="rmsnorm",
+                         positional="rope", n_kv_heads=2,
+                         tie_embeddings=False)}[family]
+    cfg, params = _tiny_int4(dev, **geo)
+    run, cache = _runner_tokens(cfg, params, dev, True)
+    assert run.graph is not None and run.replays == 5
+    eager, eager_cache = _runner_tokens(cfg, params, dev, False)
+    assert torch.equal(run.tokens, eager.tokens)
+    for k in cache:
+        assert torch.equal(cache[k], eager_cache[k]), k
+
+
+def test_changed_route_knob_or_cache_captures_again(dev, monkeypatch):
+    """The graph freezes the route knobs and the cache's addresses, as
+    JAX's trace does: turning FLASH_FUSED_APPEND off, or a new cache,
+    captures again (the split route: K10 + K11 a layer, no K3)."""
+    from sleekit_tpu_torch.models.transformer import init_kv_cache
+    from sleekit_tpu_torch.ops import attention
+
+    cfg, params = _tiny_int4(dev)
+    run, cache = _runner_tokens(cfg, params, dev, True)
+    fused = run.graph
+    assert {k.name for k in run.captured} == {"K1", "K2", "K3"}
+    monkeypatch.setattr(attention, "FLASH_FUSED_APPEND", False)
+    run.last.zero_()
+    run.run(cache, 3)
+    assert run.graph is not fused
+    assert {k.name for k in run.captured} == {"K1", "K2", "K10", "K11"}
+    split = run.graph
+    run.run(cache, 2)
+    assert run.graph is split
+    run.run(init_kv_cache(cfg, 3, 64, torch.int8, device=dev), 2)
+    assert run.graph is not split
+
+
+def test_decode_perplexity_graph_equals_eager(dev):
+    """decode_perplexity through the graph equals the eager runner's, bit
+    for bit (f32 cache, JAX's default), and the forward perplexity within
+    1% (the two routes round bf16 activations in other places)."""
+    from sleekit_tpu_torch.models import data, eval as ev
+
+    cfg, params = _tiny_int4(dev)
+    stream = data.synthetic_stream(cfg.vocab_size, 4 * 64, seed=0)
+    batches = list(ev.chunk_tokens(stream, 64, 2))
+    graph = ev.decode_perplexity(cfg, params, batches, device=dev)
+    eager = ev.decode_perplexity(cfg, params, batches, device=dev,
+                                 graphs=False)
+    fwd = ev.perplexity(cfg, params, batches, device=dev)
+    assert graph == eager
+    assert abs(graph - fwd) <= 0.01 * fwd, (graph, fwd)

@@ -84,7 +84,8 @@ def test_entry_points_raise_without_cuda(tmp_path):
 @pytest.mark.parametrize("kwargs,error,match", [
     (dict(paged=True, page_size=4), ValueError, "page_size 4"),
     (dict(paged=True, page_size=48), ValueError, "multiple of page_size 48"),
-    (dict(mesh=object()), NotImplementedError, "item 15")])
+    (dict(mesh=object()), NotImplementedError,
+     "ROADMAP.*parallel/ and serve/router.py")])
 def test_unported_engine_modes_name_their_roadmap_item(kwargs, error, match):
     """Mesh serving is not ported and names its ROADMAP item; a page size
     the JAX kernels refuse (not a multiple of their 8-row append window,
