@@ -17,7 +17,9 @@
    (the int8 head) at M = 8 (its streaming route), 64 and 1024 (its
    tensor-core route); K4 (causal flash prefill, bf16 on the tensor
    cores) at OPT-1.3B's 256-bucket group, at BLOOM-560m's with ALiBi and
-   at llama3-8b's GQA over a 1024-token prompt; K10 over a prompt's rows
+   at llama3-8b's GQA over a 1024-token prompt, and its f32 route at
+   OPT-1.3B's shape (within 1e-5, bound at the f32 rate outside the
+   tensor cores); K10 over a prompt's rows
    (the prefill's KV write: int8 rows, bf16 scales and the dequantized
    K/V) at the 256-bucket group's and llama3-8b's shapes, bit for bit
    with its plain version (the PyTorch path it replaced, timed beside
@@ -98,8 +100,23 @@
    the int4 model's 256-bucket group (with a trace of one prefill under
    ``traces/prefill``, which must show 24 K10 and no PyTorch quantizer
    op); their result lines go to stdout;
-9. prints the kernels line, the card's name and power limit, and, last,
-   the result line.
+9. runs the quantizer on dense bf16 OPT-1.3B (random weights from seed
+   0, all 24 layers): calibrates on the JAX CLI's defaults (16 x 256
+   tokens of ``synthetic_stream``, batch 2; exactly 192 K4 launches),
+   quantizes all 144 linears (light, 4 bits, packed; a resume directory
+   in the temporary directory, removed after), then resumes from it
+   (nothing solved: the dequantized dense model of the same solve, to
+   which every packed linear dequantizes within 1e-6);
+   scores round-to-nearest, basic, light and heavy on layer 0's six
+   linears (each GPTQ-based error below round-to-nearest's); holds
+   layer 0's fc1 on the card against the CPU (objective within 1e-3, 99%
+   of the codewords equal); serves the packed model (q|k|v fused, int8
+   head) as 3 serves the int4 model, and holds its prefill logits to the
+   dequantized dense model's (relative L2 <= 2^-6); and profiles one fc2
+   solve (trace under the git-ignored ``traces/quantize_fc2``): its
+   device time by phase and launches a column;
+10. prints the kernels line (with a ``quantize`` entry beside ``engine``),
+   the card's name and power limit, and, last, the result line.
 
 Any failure raises; there is no CPU branch and no fallback. It needs a
 CUDA device and exits non-zero without one.
@@ -115,6 +132,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -128,11 +146,16 @@ from sleekit_tpu_torch import kernels  # noqa: E402
 from sleekit_tpu_torch.codebooks import Codebook, UniformCodebook  # noqa: E402
 from sleekit_tpu_torch.experiments import (  # noqa: E402
     attn_bench, kernel_bench, prefill_bench, profile_decode)
-from sleekit_tpu_torch.models.data import synthetic_stream  # noqa: E402
+from sleekit_tpu_torch import pipeline as pipe_mod  # noqa: E402
+from sleekit_tpu_torch import solver as solver_mod  # noqa: E402
+from sleekit_tpu_torch.hessian import remove_input_bias  # noqa: E402
+from sleekit_tpu_torch.models.data import (  # noqa: E402
+    calibration_batches, synthetic_stream)
 from sleekit_tpu_torch.models.eval import (  # noqa: E402
     DecodeGraph, chunk_tokens, decode_perplexity, decode_scan, perplexity)
 from sleekit_tpu_torch.models.fake_quant import random_packed_params  # noqa: E402
-from sleekit_tpu_torch.models.quantize import pack_lm_head  # noqa: E402
+from sleekit_tpu_torch.models.quantize import (  # noqa: E402
+    calibrate, pack_lm_head, quantize_model)
 from sleekit_tpu_torch.models import transformer as tr  # noqa: E402
 from sleekit_tpu_torch.models.transformer import (  # noqa: E402
     decode_step, init_kv_cache, prefill)
@@ -147,6 +170,11 @@ from sleekit_tpu_torch.ops.dequant_matmul import (  # noqa: E402
 from sleekit_tpu_torch.ops.pack import (  # noqa: E402
     PackedLinear, pack_indices, unpack_indices)
 from sleekit_tpu_torch.ops.paged_attention import K5, K14, K15  # noqa: E402
+from sleekit_tpu_torch.pipeline import (  # noqa: E402
+    preset_config, quantize_layer)
+from sleekit_tpu_torch.scaling import (  # noqa: E402
+    compute_non_saturating_scaling)
+from sleekit_tpu_torch.solver import channelwise_error  # noqa: E402
 from sleekit_tpu_torch.serve import engine as engine_mod  # noqa: E402
 from sleekit_tpu_torch.serve.engine import Engine, Request  # noqa: E402
 from sleekit_tpu_torch.utils.profiling import (  # noqa: E402
@@ -156,6 +184,8 @@ from sleekit_tpu_torch.utils.profiling import (  # noqa: E402
 # and the bf16 tensor-core rate.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+# The f32 rate outside the tensor cores (same data sheet).
+F32_FLOP_PER_S = 67e12
 L2_BYTES = 50 * 2 ** 20
 
 
@@ -523,7 +553,46 @@ def check_k4(dev):
         cases.append(dict(case=label, max_abs_err=err, ms=ms,
                           plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
                           bound_by=b_by, bytes=nbytes))
+    cases.append(check_k4_f32(dev))
     return cases
+
+
+def check_k4_f32(dev):
+    """K4's f32 route (``prefill_f32_kernel``, CUDA cores) at OPT-1.3B's
+    256-bucket shape (B 4, T 256, H = KV 32, D 64, f32): within 1e-5 of
+    the largest |output| of its plain version, timed against it and
+    against SDPA in f32; its bound counts the operations at the card's
+    f32 rate outside the tensor cores (TF32 would miss the tolerance)."""
+    B, T = 4, 256
+    q, k, v, scale, _ = prefill_bench.k4_inputs("opt-1.3b", B, T, dev)
+    q, k, v = q.float(), k.float(), v.float()
+    H, KV, D = q.shape[2], k.shape[1], q.shape[3]
+    got = attn.flash_prefill(q, k, v, scale)
+    want = attn.flash_prefill_plain(q, k, v, scale)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    if not torch.isfinite(got).all() or not err <= 1e-5 * want.abs().max():
+        raise AssertionError(f"K4 f32: max |err| {err:.3g} over 1e-5 of the "
+                             f"largest output")
+    ms = cuda_ms(lambda i: attn.flash_prefill(q, k, v, scale), 1)
+    plain_ms = cuda_ms(lambda i: attn.flash_prefill_plain(q, k, v, scale), 1,
+                       iters=5, warmup=1, graph=False)
+    qh = q.transpose(1, 2)
+    lib_ms = cuda_ms(lambda i: F.scaled_dot_product_attention(
+        qh, k, v, is_causal=True, scale=scale), 1)
+    nbytes = 2 * B * T * H * D * 4 + 2 * B * T * KV * D * 4
+    flops = 4.0 * B * H * D * T * (T + 1) / 2
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    b_ms, b_by = max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+    label = f"opt-1.3b f32 B={B} T={T}"
+    log(f"K4 {label} H={H} KV={KV} D={D}: err {err:.3g} | kernel {ms:.4f} "
+        f"ms plain {plain_ms:.3f} ms sdpa {lib_ms:.4f} ms bound {b_ms:.4f} "
+        f"ms ({b_by}, {F32_FLOP_PER_S / 1e12:.0f} TFLOP/s f32)")
+    return dict(case=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                bytes=nbytes)
 
 
 # Page geometry of the paged phases: OPT-1.3B serving pages of 64 rows, 8
@@ -1759,6 +1828,333 @@ def run_layouts(dev, cfg, card, state):
     return launches, metrics
 
 
+# ---- phase 10: the quantizer on bf16 OPT-1.3B ------------------------------
+
+# The JAX CLI's calibration defaults: 16 samples x 256 tokens, batch 2.
+CALIB_SAMPLES, CALIB_LEN, CALIB_BATCH = 16, 256, 2
+
+
+def make_prompts(cfg):
+    """The Engine runs' 8 prompts (PROMPT_LENS, numpy seed 1)."""
+    rng = np.random.default_rng(1)
+    return [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+            for n in PROMPT_LENS]
+
+
+def shape_of(name):
+    return {"fc1": "fc1 2048->8192", "fc2": "fc2 8192->2048"}.get(
+        name.split(".")[-1], "q/k/v/o 2048->2048")
+
+
+@contextlib.contextmanager
+def patched(owner, name, wrap):
+    """``owner.name`` replaced by ``wrap(inner)`` inside the block."""
+    inner = getattr(owner, name)
+    setattr(owner, name, wrap(inner))
+    try:
+        yield
+    finally:
+        setattr(owner, name, inner)
+
+
+def record_multipliers(mults):
+    """A wrapper of ``hessian_inv_chol_robust`` that appends each call's
+    dampening multiplier to ``mults``."""
+    def wrap(inner):
+        def robust(*a, **kw):
+            hinv, mult = inner(*a, **kw)
+            mults.append(mult)
+            return hinv, mult
+        return robust
+    return wrap
+
+
+def run_quantize(dev, cfg, card):
+    """The quantizer's main path on the card: dense bf16 OPT-1.3B (random
+    weights from seed 0, all 24 layers) calibrated on the JAX CLI's
+    defaults (16 x 256 tokens of ``synthetic_stream``, batch 2: exactly 24
+    K4 launches a batch), every one of its 144 linears quantized (light,
+    4 bits, packed, with a resume directory; the statistics freed as the
+    solves finish), then the resume pass (nothing solved: the dequantized
+    dense model of the same solve, to which every packed linear
+    dequantizes); the four methods on layer 0's six
+    linears (each GPTQ-based one below round-to-nearest); layer 0's fc1
+    on the card against the port on the CPU; the packed model (q|k|v
+    fused, int8 head) served through the slot Engine as ``serve`` does
+    (K1, K2, K3, K4, K10, replay-counted; graph vs eager tokens), and its
+    prefill logits against the dequantized dense model's; one fc2 solve
+    under ``torch.profiler``. Returns the phase's metrics."""
+    m = {}
+    t0 = time.perf_counter()
+    params = tr.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    log(f"quantize: dense bf16 OPT-1.3B (seed 0, {cfg.n_layers} layers): "
+        f"{time.perf_counter() - t0:.1f} s ({card})")
+
+    stream = synthetic_stream(cfg.vocab_size, CALIB_SAMPLES * CALIB_LEN,
+                              seed=0)
+    batches = calibration_batches(stream, CALIB_SAMPLES, CALIB_LEN,
+                                  CALIB_BATCH)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    stats = calibrate(cfg, params, batches)
+    torch.cuda.synchronize()
+    m["calibrate_s"] = time.perf_counter() - t0
+    launches = {k: n for k, n in counts().items() if n}
+    want = {"K4": cfg.n_layers * len(batches)}
+    if launches != want:
+        raise AssertionError(f"calibration launched {launches}, not {want}")
+    nbytes = {"fc2": 0, "rest": 0}
+    for name, st in stats.items():
+        key = "fc2" if name.endswith("fc2") else "rest"
+        nbytes[key] += st.hessian.numel() * 4 + st.mean.numel() * 4
+        if not torch.isfinite(st.hessian).all():
+            raise AssertionError(f"calibration: {name}'s Hessian not finite")
+    m["calibrate_launches"] = launches
+    m["stats_bytes_fc2"], m["stats_bytes_rest"] = nbytes["fc2"], nbytes["rest"]
+    log(f"quantize: calibration ({CALIB_SAMPLES} x {CALIB_LEN} tokens, "
+        f"batch {CALIB_BATCH}) {m['calibrate_s']:.3f} s, launches "
+        f"{launches}; statistics {nbytes['fc2'] / 1e9:.3f} GB fc2, "
+        f"{nbytes['rest'] / 1e9:.3f} GB the rest ({card})")
+
+    qcfg = preset_config("light", nbits=4)
+    layer0 = {n: stats[n] for n in tr.layer_names(cfg)
+              if n.startswith("layers.0.")}
+    mults = []
+    with tempfile.TemporaryDirectory(prefix="quantize_resume_") as resume:
+        t0 = time.perf_counter()
+        with patched(solver_mod, "hessian_inv_chol_robust",
+                     record_multipliers(mults)):
+            packed, reports = quantize_model(cfg, params, stats, qcfg,
+                                             pack=True, resume_dir=resume,
+                                             free_stats=True)
+        torch.cuda.synchronize()
+        m["quantize_s"] = time.perf_counter() - t0
+        if stats or len(reports) != 6 * cfg.n_layers or len(mults) != len(
+                reports):
+            raise AssertionError("quantize: not every linear solved once")
+        by_shape = {}
+        for r in reports:
+            if not math.isfinite(r.error):
+                raise AssertionError(f"quantize: {r.name}'s error {r.error}")
+            row = by_shape.setdefault(shape_of(r.name),
+                                      dict(n=0, s=0.0, error=0.0))
+            row["n"] += 1
+            row["s"] += r.wall_s
+            row["error"] += r.error
+        m["quantize_by_shape"] = by_shape
+        m["damp_retries"] = sum(x > 1.0 for x in mults)
+        m["damp_multipliers"] = sorted(set(mults))
+        log(f"quantize: {len(reports)} linears (light, 4 bits, packed) in "
+            f"{m['quantize_s']:.3f} s, {m['damp_retries']} solves with a "
+            f"damping retry (multipliers {m['damp_multipliers']}); by shape "
+            + json.dumps(by_shape) + f" ({card})")
+        t0 = time.perf_counter()
+        dense_q, again = quantize_model(cfg, params, {}, qcfg,
+                                        resume_dir=resume)
+        torch.cuda.synchronize()
+        m["resume_s"] = time.perf_counter() - t0
+        if any(r.wall_s != 0.0 for r in again):
+            raise AssertionError("quantize: the resume pass solved a layer")
+        log(f"quantize: the resume pass loaded all {len(again)} artifacts "
+            f"and solved none: {m['resume_s']:.3f} s ({card})")
+    worst = 0.0
+    for name in tr.layer_names(cfg):
+        deq = tr.get_linear_param(packed, name).dequantize()
+        ref = tr.get_linear_param(dense_q, name)["kernel"]
+        worst = max(worst, ((deq - ref).abs().max() / ref.abs().max()).item())
+    m["packed_dequant_max_rel"] = worst
+    if not worst <= 1e-6:
+        raise AssertionError(f"quantize: a packed linear dequantizes "
+                             f"{worst:.3g} away from its solved Q")
+    log(f"quantize: every packed linear dequantizes to the resume pass's Q "
+        f"(max |err| {worst:.3g} of its largest entry)")
+
+    m.update(compare_presets(cfg, params, layer0, card))
+    m.update(card_vs_cpu(cfg, params, layer0["layers.0.fc1"], card))
+    m.update(profile_solve(cfg, params, layer0["layers.0.fc2"], card))
+    del layer0
+
+    packed = pack_lm_head(cfg, tr.fuse_qkv_params(cfg, packed), nbits=8)
+    del params
+    torch.cuda.empty_cache()
+    for layer in packed["layers"]:
+        for p in (*layer["attn"].values(), *layer["mlp"].values()):
+            if not (isinstance(p, PackedLinear) and p.layout == "pair"
+                    and p.nbits == 4):
+                raise AssertionError("quantize: a linear is not int4 'pair'")
+    head = packed["lm_head"]
+    if not (isinstance(head, PackedLinear) and head.layout == "int8"):
+        raise AssertionError("quantize: the head is not int8")
+    prompts = make_prompts(cfg)
+    _, served, full, engine, _ = serve(dev, cfg, card, "quant", packed, K1,
+                                       prompts, NEW_TOKENS, compare=True)
+    del engine, full
+    m.update(served)
+    toks = group_tokens(prompts, dev)
+    got = prefill_logits(dev, cfg, packed, toks, cfg.n_layers, True)
+    want = prefill_logits(dev, cfg, dense_q, toks, cfg.n_layers, False)
+    rel, agree = rel_l2(got, want, "quantize: packed prefill logits vs the "
+                        "dequantized dense model")
+    m["packed_vs_dense_rel_l2"], m["packed_vs_dense_argmax_agree"] = rel, agree
+    log(f"quantize: the packed model's prefill logits (kernels) against the "
+        f"dequantized dense model's (plain versions), {cfg.n_layers} layers: "
+        f"relative L2 {rel:.4g} (<= 2^-6), argmax agreement {agree:.4f}")
+    return m
+
+
+def compare_presets(cfg, params, layer0, card):
+    """Round-to-nearest (the non-saturating scale) and the basic, light
+    and heavy presets (4 bits) on layer 0's six linears, each scored on
+    the Hessian its preset optimizes (light and heavy: bias-corrected);
+    round-to-nearest on both. Every GPTQ-based error must be below
+    round-to-nearest's on its Hessian. Returns the summed errors."""
+    cb = preset_config("basic", nbits=4).make_codebook()
+    errs = {k: 0.0 for k in ("rtn", "rtn_bias_corrected", "basic", "light",
+                             "heavy")}
+    t0 = time.perf_counter()
+    for name, st in layer0.items():
+        W = tr.get_linear_param(params, name)["kernel"].T.float()
+        H_bc = remove_input_bias(st.hessian, st.mean)
+        scale = compute_non_saturating_scaling(W, cb)
+        Q = cb(W / scale[:, None]) * scale[:, None]
+        rtn = float(channelwise_error(W, Q, st.hessian).sum())
+        rtn_bc = float(channelwise_error(W, Q, H_bc).sum())
+        errs["rtn"] += rtn
+        errs["rtn_bias_corrected"] += rtn_bc
+        for preset in ("basic", "light", "heavy"):
+            err = float(quantize_layer(W, st.hessian, st.mean,
+                                       preset_config(preset, nbits=4))[3]
+                        .sum())
+            if not err < (rtn if preset == "basic" else rtn_bc):
+                raise AssertionError(f"quantize: {preset} on {name} "
+                                     f"({err:.6g}) is not below "
+                                     f"round-to-nearest")
+            errs[preset] += err
+    order = " < ".join(sorted(("heavy", "light", "basic", "rtn"),
+                              key=errs.get))
+    log(f"quantize: layer 0's six linears, 4 bits, summed errors "
+        + json.dumps(errs) + f": {order} (each below round-to-nearest on "
+        f"its Hessian; {time.perf_counter() - t0:.1f} s, {card})")
+    return {"layer0_errors": errs, "layer0_order": order}
+
+
+def card_vs_cpu(cfg, params, st, card):
+    """Layer 0's fc1 (8192 x 2048) through quantize_layer (light, 4 bits)
+    on the card and in the port on the CPU from the same tensors: the
+    objective within 1e-3 relative and at least 99% of Q's codewords
+    equal."""
+    qcfg = preset_config("light", nbits=4)
+    W = tr.get_linear_param(params, "layers.0.fc1")["kernel"].T.float()
+    t0 = time.perf_counter()
+    card_out = quantize_layer(W, st.hessian, st.mean, qcfg)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_out = quantize_layer(W.cpu(), st.hessian.cpu(), st.mean.cpu(), qcfg)
+    cpu_s = time.perf_counter() - t0
+    e_card, e_cpu = float(card_out[3].sum()), float(cpu_out[3].sum())
+    cb = qcfg.make_codebook()
+    same = (cb.quantize_index((card_out[0] / card_out[2][:, None]).cpu())
+            == cb.quantize_index(cpu_out[0] / cpu_out[2][:, None]))
+    share = same.float().mean().item()
+    rel = abs(e_card - e_cpu) / e_cpu
+    if not (rel <= 1e-3 and share >= 0.99):
+        raise AssertionError(f"quantize: fc1 on the card vs the CPU: "
+                             f"objective {rel:.3g} apart, {share:.4f} of Q "
+                             f"equal")
+    log(f"quantize: layer 0's fc1 on the card vs the CPU (light, 4 bits): "
+        f"objective {e_card:.6g} vs {e_cpu:.6g} ({rel:.3g} apart), "
+        f"{share:.5f} of Q's codewords equal; {card_s:.3f} s on the card "
+        f"({card}), {cpu_s:.1f} s on the CPU")
+    return {"fc1_card_vs_cpu_rel": rel, "fc1_card_vs_cpu_same": share,
+            "fc1_card_s": card_s, "fc1_cpu_s": cpu_s}
+
+
+def timed_phase(name):
+    """A wrapper that runs a function as one phase of a profiled solve:
+    synchronized at both ends, under ``record_function(name)``."""
+    def wrap(inner):
+        def phase(*a, **kw):
+            torch.cuda.synchronize()
+            with torch.profiler.record_function(name):
+                out = inner(*a, **kw)
+                torch.cuda.synchronize()
+            return out
+        return phase
+    return wrap
+
+
+PHASES = (("scaling", pipe_mod, "compute_scaling"),
+          ("order", solver_mod, "compute_order"),
+          ("cholesky", solver_mod, "hessian_inv_chol_robust"),
+          ("sweep", solver_mod, "gptq_sweep"))
+
+
+def profile_solve(cfg, params, st, card):
+    """Layer 0's fc2 (2048 x 8192) through quantize_layer (light, 4 bits):
+    its wall time unprofiled, then once under ``torch.profiler`` with each
+    phase (scaling grid, ordering, Cholesky and inverse, the sweep) run
+    between synchronizations: the device time of each phase, the sweep's
+    split between the trailing GEMMs (kernels named ``gemm``) and the
+    column loop (the rest), its launches a column, and the device's busy
+    share of the unprofiled solve (trace under the git-ignored
+    ``traces/quantize_fc2``)."""
+    qcfg = preset_config("light", nbits=4)
+    W = tr.get_linear_param(params, "layers.0.fc2")["kernel"].T.float()
+    quantize_layer(W, st.hessian, st.mean, qcfg)      # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    quantize_layer(W, st.hessian, st.mean, qcfg)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with contextlib.ExitStack() as stack:
+        for name, owner, attr in PHASES:
+            stack.enter_context(patched(owner, attr, timed_phase(name)))
+        with device_trace(os.path.join(ROOT, "traces",
+                                       "quantize_fc2")) as prof:
+            quantize_layer(W, st.hessian, st.mean, qcfg)
+            torch.cuda.synchronize()
+    events = prof.events()
+    names = {name for name, _, _ in PHASES}
+    ranges = {e.name: (e.time_range.start, e.time_range.end)
+              for e in events if e.name in names}
+    # The card's events, less the phases' own ranges, which the trace
+    # also draws on the card's timeline (over their kernels).
+    dev_events = [e for e in events
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.name not in names]
+    split = {name: 0.0 for name, _, _ in PHASES}
+    split.update(sweep_gemm=0.0, sweep_columns=0.0, other=0.0)
+    sweep_launches = 0
+    for e in dev_events:
+        ms = (e.time_range.end - e.time_range.start) / 1e3
+        phase = next((n for n, (a, b) in ranges.items()
+                      if a <= e.time_range.start <= b), "other")
+        if phase == "sweep":
+            sweep_launches += 1
+            phase = ("sweep_gemm" if "gemm" in e.name.lower()
+                     else "sweep_columns")
+        split[phase] += ms
+    del split["sweep"]
+    if set(ranges) != names or not sweep_launches:
+        raise AssertionError(f"quantize profile: phases {sorted(ranges)}, "
+                             f"{sweep_launches} sweep launches")
+    device_ms = sum(split.values())
+    n_cols = W.shape[1]
+    out = {"fc2_solve_wall_ms": wall_ms, "fc2_solve_device_ms": device_ms,
+           "fc2_busy": device_ms / wall_ms,
+           "fc2_launches_per_column": sweep_launches / n_cols,
+           "fc2_device_ms_by_phase": split}
+    log(f"quantize: one fc2 solve (light, 4 bits, 2048 x {n_cols}): "
+        f"{wall_ms:.1f} ms wall unprofiled, {device_ms:.1f} ms on the card "
+        f"(busy {out['fc2_busy']:.3f}); {out['fc2_launches_per_column']:.2f} "
+        f"launches a column in the sweep; device ms by phase "
+        + json.dumps({k: round(v, 3) for k, v in split.items()})
+        + f" ({card})")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
@@ -1848,6 +2244,8 @@ def main():
     engine.update(run_perplexity(dev, cfg, state, smi))
     del state, pool
     benches = run_benches(cfg, os.path.join(ROOT, "traces"))
+    torch.cuda.empty_cache()
+    quant = run_quantize(dev, cfg, smi)
 
     rows = []
     for k in (K1, K2, K3, K4, K5, K6, K7, K8, K9, K10, K11, K12, K13, K14,
@@ -1874,7 +2272,7 @@ def main():
     engine["ptxas_decode_kernel"] = decode_ptxas
     engine["ptxas_plane"] = plane_ptxas
     engine["ptxas_append_kernel"] = append_ptxas
-    print(json.dumps({"kernels": rows, "engine": engine,
+    print(json.dumps({"kernels": rows, "engine": engine, "quantize": quant,
                       "benches": benches}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

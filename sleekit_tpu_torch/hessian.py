@@ -1,0 +1,171 @@
+"""Streaming layer statistics and Hessian utilities (port of
+``sleekit_tpu/hessian.py``).
+
+A layer's statistics are a small dataclass of tensors, ``LayerStats``,
+updated by :func:`update_stats` on the device of the activations (the
+``XᵀX`` product in f32). The inverse-Hessian Cholesky factor comes from
+``torch.linalg.cholesky_ex`` and one triangular solve; a failed
+factorization (``info > 0``, where JAX's ``cholesky`` yields NaN) gives a
+NaN factor, which :func:`hessian_inv_chol_robust` answers with more
+dampening.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from sleekit_tpu_torch.device import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerStats:
+    """Running input statistics of one linear/conv layer: ``mean`` (n,) of
+    the input features, ``hessian`` (n, n) the running mean of x xᵀ, and
+    ``count`` () the sample columns seen (token positions or conv patches,
+    not batches); all f32 on one device."""
+
+    mean: torch.Tensor
+    hessian: torch.Tensor
+    count: torch.Tensor
+
+
+def init_stats(n: int, device="cuda") -> LayerStats:
+    dev = resolve_device(device)
+    return LayerStats(mean=torch.zeros(n, device=dev),
+                      hessian=torch.zeros(n, n, device=dev),
+                      count=torch.zeros((), device=dev))
+
+
+def stats_from_numpy(mean, hessian, count=1.0, device="cuda") -> LayerStats:
+    """Statistics that arrive as arrays (a reference-layout export, the
+    JAX package's), as f32 tensors on ``device``."""
+    dev = resolve_device(device)
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    return LayerStats(mean=f32(mean), hessian=f32(hessian), count=f32(count))
+
+
+def update_stats(stats: LayerStats, x: torch.Tensor) -> LayerStats:
+    """Fold a batch of samples (samples, features) into the statistics.
+
+    The reference's renormalization: factor = count / (count + added),
+    then mean = mean * factor + sum(x) / new_count and
+    H = H * factor + xᵀx / new_count, in f32."""
+    if x.ndim != 2:
+        raise ValueError("update_stats takes a (samples, features) matrix")
+    x = x.float()
+    new_count = stats.count + x.shape[0]
+    factor = stats.count / new_count
+    mean = stats.mean * factor + torch.sum(x, dim=0) / new_count
+    hessian = stats.hessian * factor
+    hessian += (x.T @ x) / new_count
+    return LayerStats(mean=mean, hessian=hessian, count=new_count)
+
+
+# ---- input canonicalization ------------------------------------------------
+
+
+def prepare_input_linear(x: torch.Tensor) -> torch.Tensor:
+    """(..., features) -> (samples, features)."""
+    return x.reshape(-1, x.shape[-1])
+
+
+def prepare_input_conv2d(x: torch.Tensor, kernel_size: Tuple[int, int],
+                         dilation: Tuple[int, int] = (1, 1),
+                         padding: Tuple[int, int] = (0, 0),
+                         stride: Tuple[int, int] = (1, 1)) -> torch.Tensor:
+    """Unfold NCHW conv input into (patches, C*kh*kw) patch rows, feature
+    index c*kh*kw + i*kw + j (``F.unfold``'s order)."""
+    if x.ndim == 3:
+        x = x[None]
+    patches = F.unfold(x.float(), kernel_size, dilation=dilation,
+                       padding=padding, stride=stride)  # (N, f, L)
+    return patches.transpose(1, 2).reshape(-1, patches.shape[1])
+
+
+def prepare_input_conv1d(x: torch.Tensor, kernel_size: int,
+                         dilation: int = 1, padding: int = 0,
+                         stride: int = 1) -> torch.Tensor:
+    """Unfold NCL conv1d input into (patches, C*k) rows."""
+    if x.ndim == 2:
+        x = x[None]
+    return prepare_input_conv2d(x[..., None], (kernel_size, 1),
+                                (dilation, 1), (padding, 0), (stride, 1))
+
+
+# ---- Hessian transforms ----------------------------------------------------
+
+
+def random_psd_matrix(seed: int, size: int, rank: int, damp: float = 0.0,
+                      device="cuda") -> torch.Tensor:
+    """Random Wishart PSD matrix A Aᵀ (A (size, rank) standard normal from
+    numpy's ``default_rng(seed)``), plus ``damp`` times each row's 2-norm
+    on the diagonal: the synthetic Hessian of tests."""
+    dev = resolve_device(device)
+    a = np.random.default_rng(seed).standard_normal((size, rank),
+                                                    dtype=np.float32)
+    a = torch.from_numpy(a).to(dev)
+    h = a @ a.T
+    return h + torch.diag(damp * torch.linalg.vector_norm(h, dim=1))
+
+
+def remove_input_bias(H: torch.Tensor,
+                      input_mean: torch.Tensor) -> torch.Tensor:
+    """Bias correction folded into the Hessian: H - mu muᵀ (the error along
+    the input mean goes into the layer bias)."""
+    if H.ndim != 2 or input_mean.ndim != 1:
+        raise ValueError("remove_input_bias takes H (n, n) and mean (n,)")
+    return H - torch.outer(input_mean, input_mean)
+
+
+def remove_dead_values(H: torch.Tensor, W: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dead input channels (zero diagonal) get the mean diagonal, and their
+    weight columns are zeroed. Returns new (H, W)."""
+    diag = torch.diagonal(H)
+    dead = diag == 0
+    H = H.clone()
+    H.diagonal().copy_(torch.where(dead, diag.mean(), diag))
+    return H, torch.where(dead[None, :], 0.0, W)
+
+
+def dampen(H: torch.Tensor, damp: float) -> torch.Tensor:
+    """GPTQ dampening: H + damp * mean(diag(H)) * I."""
+    H = H.clone()
+    H.diagonal().add_(damp * torch.mean(torch.diagonal(H)))
+    return H
+
+
+def hessian_inv_chol(H: torch.Tensor) -> torch.Tensor:
+    """Upper Cholesky factor of H⁻¹ by the flip trick: flip H, take its
+    lower Cholesky factor L, invert it (one triangular solve) and flip
+    back. All NaN where the factorization fails."""
+    Hf = H.flip(0, 1)
+    L, info = torch.linalg.cholesky_ex(Hf)
+    L = torch.where(info == 0, L, torch.nan)
+    eye = torch.eye(H.shape[0], dtype=H.dtype, device=H.device)
+    return torch.linalg.solve_triangular(L, eye, upper=False).flip(0, 1)
+
+
+def hessian_inv_chol_robust(H: torch.Tensor, damp: float,
+                            max_retries: int = 4
+                            ) -> Tuple[torch.Tensor, float]:
+    """:func:`hessian_inv_chol` of ``dampen(H, damp)``; while the factor is
+    not finite (at most ``max_retries`` times) the dampening becomes
+    max(10 x, 1e-4). Returns (Hinv, the multiplier of ``damp`` used), in
+    f32 as the JAX package computes it."""
+    base = eff = np.float32(damp)
+    hinv = hessian_inv_chol(dampen(H, float(eff)))
+    tries = 0
+    while tries < max_retries and not bool(torch.isfinite(hinv).all()):
+        eff = max(eff * np.float32(10.0), np.float32(1e-4))
+        hinv = hessian_inv_chol(dampen(H, float(eff)))
+        tries += 1
+    return hinv, float(eff / base)

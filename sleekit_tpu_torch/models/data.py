@@ -1,8 +1,8 @@
 """Calibration and evaluation token streams (port of the synthetic half of
 ``sleekit_tpu/models/data.py``; the port keeps its own copy).
 
-``load_token_stream`` (pre-tokenized files, shards, WikiText-2) waits for
-the quantizer's modules (ROADMAP, modules to port).
+``load_token_stream`` (pre-tokenized files, shards, WikiText-2) is not
+ported yet (ROADMAP, modules to port: what is left of ``models/``).
 """
 
 from __future__ import annotations

@@ -1,13 +1,232 @@
-"""Packed serving head (port of ``pack_lm_head`` from
-``sleekit_tpu/models/quantize.py``; the calibrate/quantize drivers come
-with the quantizer, ROADMAP queue 1, item 11)."""
+"""Whole-model quantization: calibrate -> per-layer solve -> packed params
+(port of ``sleekit_tpu/models/quantize.py``).
+
+:func:`calibrate` streams token batches through
+:func:`~sleekit_tpu_torch.models.transformer.calibrate_step` (the
+statistics accumulate on the model's device); :func:`quantize_model` runs
+:func:`~sleekit_tpu_torch.pipeline.quantize_layer` for every linear and
+stores either the dequantized f32 weights (reference semantics) or the
+packed serving format. :func:`pack_lm_head` packs the unembed head.
+"""
 
 from __future__ import annotations
 
+import dataclasses
+import os
+import time
+from typing import Any, Dict, Iterable, List, Optional, Tuple
+
+import numpy as np
+import torch
+
 from sleekit_tpu_torch.codebooks import UniformCodebook
-from sleekit_tpu_torch.models.transformer import TransformerConfig
+from sleekit_tpu_torch.hessian import LayerStats
+from sleekit_tpu_torch.models.transformer import (
+    TransformerConfig, calibrate_step, get_linear_param,
+    init_calibration_stats, layer_names, set_linear_param)
 from sleekit_tpu_torch.ops.pack import PackedLinear, pack_quantized
+from sleekit_tpu_torch.pipeline import QuantConfig, quantize_layer
 from sleekit_tpu_torch.scaling import compute_non_saturating_scaling
+
+
+@dataclasses.dataclass
+class LayerReport:
+    name: str
+    error: float
+    wall_s: float
+
+
+def calibrate(cfg: TransformerConfig, params, batches: Iterable,
+              stats: Optional[Dict[str, LayerStats]] = None
+              ) -> Dict[str, LayerStats]:
+    """Accumulate every linear's statistics over calibration batches of
+    (B, T) tokens, on the model's device (through the kernels there if it
+    is CUDA)."""
+    dev = params["embed"]["tokens"].device
+    if stats is None:
+        stats = init_calibration_stats(cfg, dev)
+    for tokens in batches:
+        stats = calibrate_step(cfg, params,
+                               torch.as_tensor(np.asarray(tokens), device=dev),
+                               stats)
+    return stats
+
+
+def calibrate_spill(cfg: TransformerConfig, params, batches):
+    """Layer-outer calibration with host-resident statistics, for models
+    whose statistics do not fit the device: not ported yet."""
+    raise NotImplementedError(
+        "calibrate_spill is not ported yet (ROADMAP, modules to port: "
+        "models/quantize.py, calibrate_spill)")
+
+
+def _layer_artifact_path(resume_dir: str, name: str) -> str:
+    return os.path.join(resume_dir, name.replace(".", "_") + ".npz")
+
+
+def _save_layer_artifact(resume_dir: str, name: str, Q, bias_delta, scale,
+                         err) -> None:
+    """Atomic per-layer checkpoint (tmp + rename): a stopped quantize_model
+    resumes after the last completed layer. The JAX package writes the
+    same file."""
+    path = _layer_artifact_path(resume_dir, name)
+    tmp = path + ".tmp.npz"
+    arrays = dict(Q=Q, bias_delta=bias_delta, scale=scale, err=err)
+    np.savez(tmp, **{k: v.detach().cpu().numpy() for k, v in arrays.items()})
+    os.replace(tmp, path)
+
+
+def _load_layer_artifact(resume_dir: str, name: str, device):
+    path = _layer_artifact_path(resume_dir, name)
+    if not os.path.exists(path):
+        return None
+    with np.load(path) as z:
+        return tuple(torch.from_numpy(z[k]).to(device)
+                     for k in ("Q", "bias_delta", "scale", "err"))
+
+
+def _apply_solution(params, name, p, cb, Q, bias_delta, scale, qconfig,
+                    pack, pack_host=False):
+    bias = p.get("bias")
+    if qconfig.bias_correction and bias is not None:
+        bias = bias + bias_delta
+    if pack and pack_host:
+        # Packed on the CPU; the packed linear stays there.
+        new_p = pack_quantized(Q.cpu(), scale.cpu(), cb,
+                               bias=None if bias is None else bias.cpu())
+    elif pack:
+        new_p = pack_quantized(Q, scale, cb, bias=bias)
+    else:
+        new_p = {"kernel": Q.T.contiguous()}
+        if bias is not None:
+            new_p["bias"] = bias
+    set_linear_param(params, name, new_p)
+
+
+def _copy_tree(tree):
+    """New dicts and lists over the same leaves."""
+    if isinstance(tree, dict):
+        return {k: _copy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_copy_tree(v) for v in tree]
+    return tree
+
+
+def _to_device(st: LayerStats, dev) -> LayerStats:
+    if st.hessian.device == dev:
+        return st
+    return LayerStats(*(x.to(dev, non_blocking=True)
+                        for x in (st.mean, st.hessian, st.count)))
+
+
+def quantize_model(cfg: TransformerConfig, params,
+                   stats: Dict[str, LayerStats], qconfig: QuantConfig,
+                   pack: bool = False, verbose: bool = False,
+                   layer_parallel: bool = False, mesh=None,
+                   resume_dir: Optional[str] = None, free_stats: bool = False,
+                   pack_host: bool = False
+                   ) -> Tuple[Any, List[LayerReport]]:
+    """Quantize every linear layer of the model, on the device of its
+    weights. Returns (new params, per-layer reports in layer order).
+
+    ``pack=True`` makes the linears :class:`PackedLinear` (serving;
+    ``pack_host``: packed on the CPU, where they stay); otherwise they
+    hold the dequantized f32 weights. ``resume_dir`` saves each solved
+    layer (atomic ``.npz``) and loads, instead of solving, every layer
+    already there. ``free_stats`` pops each consumed entry from the
+    caller's ``stats``. The smallest Hessians are solved first; statistics
+    that live on another device (the host) are copied to the weights'
+    device one layer ahead of their solve."""
+    if layer_parallel or mesh is not None:
+        raise NotImplementedError(
+            "layer_parallel and mesh solves are not ported yet (ROADMAP, "
+            "modules to port: parallel/)")
+    if resume_dir is not None:
+        os.makedirs(resume_dir, exist_ok=True)
+    params = _copy_tree(params)
+    per_layer_cb = qconfig.codebook_kind == "lloyd"
+    explicit_cb = qconfig.codebook_kind != "uniform"
+    cb = None if per_layer_cb else qconfig.make_codebook()
+    names = layer_names(cfg)
+    reports: Dict[str, LayerReport] = {}
+
+    def finish(name, out, wall):
+        Q, bias_delta, scale, err = out
+        p = get_linear_param(params, name)
+        cb_l = qconfig.make_codebook(p["kernel"].T) if per_layer_cb else cb
+        _apply_solution(params, name, p, cb_l, Q, bias_delta, scale,
+                        qconfig, pack, pack_host=pack_host)
+        if free_stats:
+            stats.pop(name, None)
+        reports[name] = LayerReport(name=name, error=float(torch.sum(err)),
+                                    wall_s=wall)
+        if verbose:
+            print(f"  {name:24s} err={reports[name].error:12.5g} "
+                  f"{wall:6.2f}s", flush=True)
+
+    pending = []
+    for name in names:
+        if resume_dir is not None:
+            dev = get_linear_param(params, name)["kernel"].device
+            got = _load_layer_artifact(resume_dir, name, dev)
+            if got is not None:
+                finish(name, got, 0.0)
+                continue
+        pending.append(name)
+    # Smallest K first: the solve's workspace grows as K^2, and with
+    # free_stats the resident statistics shrink as layers finish.
+    pending.sort(key=lambda n: (stats[n].hessian.numel(), n))
+
+    prefetched: Dict[str, LayerStats] = {}
+    for idx, name in enumerate(pending):
+        t0 = time.perf_counter()
+        p = get_linear_param(params, name)
+        W = p["kernel"].T  # (out, in), the quantizer's layout
+        dev = W.device
+        st = prefetched.pop(name, None) or _to_device(stats[name], dev)
+        if idx + 1 < len(pending):
+            nxt = pending[idx + 1]
+            prefetched[nxt] = _to_device(stats[nxt], dev)
+        cb_solve = (qconfig.make_codebook(W) if per_layer_cb
+                    else (cb if explicit_cb else None))
+
+        def solve():
+            out = quantize_layer(W, st.hessian, st.mean, qconfig, cb_solve)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            return out
+
+        out = _solve_with_hbm_retry(solve)
+        del st
+        if resume_dir is not None:
+            _save_layer_artifact(resume_dir, name, *out)
+        finish(name, out, time.perf_counter() - t0)
+    return params, [reports[name] for name in names]
+
+
+def _solve_with_hbm_retry(fn, attempts: int = 8, wait_s: float = 20.0):
+    """Run a solve, retrying on ``torch.cuda.OutOfMemoryError``: a solve
+    can lose the device memory to statistics still being moved off it,
+    and waiting is exact (nothing in a solve depends on timing). A real
+    shortage still raises after the last attempt."""
+    for attempt in range(attempts):
+        try:
+            return fn()
+        except torch.cuda.OutOfMemoryError:
+            if attempt == attempts - 1:
+                raise
+            print(f"  solve ran out of device memory; waiting {wait_s:.0f}s "
+                  f"({attempt + 1}/{attempts - 1})", flush=True)
+            time.sleep(wait_s)
+
+
+def quantize_model_from_batches(cfg: TransformerConfig, params,
+                                batches: Iterable, qconfig: QuantConfig,
+                                pack: bool = False, verbose: bool = False):
+    """Calibrate, then quantize, in one call."""
+    stats = calibrate(cfg, params, batches)
+    return quantize_model(cfg, params, stats, qconfig, pack=pack,
+                          verbose=verbose)
 
 
 def pack_lm_head(cfg: TransformerConfig, params, nbits: int = 8):

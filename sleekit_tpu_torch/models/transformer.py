@@ -18,8 +18,12 @@ are on CUDA) launches the kernels; ``use_kernel=False`` runs their plain
 PyTorch versions instead, on any device. Everything else (f32
 activations, dense weights, short prompts' attention) is PyTorch code.
 
-The calibration capture (``LayerStats``) comes with the quantizer's
-modules (``models/quantize.py``).
+Calibration: ``forward(..., stats=...)`` and :func:`calibrate_step`
+fold each quantizable linear's input into its ``LayerStats`` (the
+per-linear Hessian statistics of ``hessian.py``) as the forward reaches
+it, on the activations' device. With statistics, a block runs its
+output and MLP projections unfused (``x + o(attn)``, then fc1, the
+activation and fc2), as the JAX package does.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from sleekit_tpu_torch.device import resolve_device
+from sleekit_tpu_torch.hessian import LayerStats, init_stats, update_stats
 from sleekit_tpu_torch.ops.attention import (
     decode_attention, flash_prefill, flash_prefill_plain, kv_prefill_write,
     kv_prefill_write_plain)
@@ -150,17 +155,22 @@ def init_params(cfg: TransformerConfig, seed: int = 0, device="cuda",
 # ---- primitive ops ----------------------------------------------------------
 
 
-def apply_linear(p, x: torch.Tensor, use_kernel: bool = False):
-    """Dense dict ``{'kernel', 'bias'}`` or PackedLinear."""
+def apply_linear(p, x: torch.Tensor, use_kernel: bool = False,
+                 stats: Optional[LayerStats] = None):
+    """Dense dict ``{'kernel', 'bias'}`` or PackedLinear. With ``stats``,
+    also folds the flattened input into them and returns (y, stats)."""
     shape = x.shape
     x2 = x.reshape(-1, shape[-1])
+    if stats is not None:
+        stats = update_stats(stats, x2)
     if isinstance(p, PackedLinear):
         y2 = quantized_matmul(x2, p, use_kernel=use_kernel)
     else:
         y2 = (x2.float() @ p["kernel"].float()).to(x.dtype)
         if "bias" in p:
             y2 = y2 + p["bias"]
-    return y2.reshape(*shape[:-1], y2.shape[-1])
+    y = y2.reshape(*shape[:-1], y2.shape[-1])
+    return y if stats is None else (y, stats)
 
 
 def apply_norm(cfg: TransformerConfig, p, x: torch.Tensor) -> torch.Tensor:
@@ -295,7 +305,39 @@ def _causal_attention(cfg: TransformerConfig, q, kT, vT, positions,
 # ---- block + model forward --------------------------------------------------
 
 
-def _block(cfg, layer, x, positions, kv, slopes, use_kernel: bool):
+# Linear-layer names inside one block, in calibration order.
+def block_linear_names(cfg: TransformerConfig) -> List[str]:
+    if cfg.activation == "silu_glu":
+        return ["q", "k", "v", "o", "gate", "up", "down"]
+    return ["q", "k", "v", "o", "fc1", "fc2"]
+
+
+def layer_names(cfg: TransformerConfig) -> List[str]:
+    """Dotted names of every quantizable linear: ``layers.<i>.<name>``."""
+    return [f"layers.{i}.{ln}" for i in range(cfg.n_layers)
+            for ln in block_linear_names(cfg)]
+
+
+def _linear_slot(params, name: str):
+    i, ln = name.split(".")[1:]
+    layer = params["layers"][int(i)]
+    return layer["attn" if ln in ("q", "k", "v", "o") else "mlp"], ln
+
+
+def get_linear_param(params, name: str):
+    group, ln = _linear_slot(params, name)
+    return group[ln]
+
+
+def set_linear_param(params, name: str, value) -> None:
+    """Replace one linear's params in place (params: plain dicts)."""
+    group, ln = _linear_slot(params, name)
+    group[ln] = value
+
+
+def _block(cfg, layer, x, positions, kv, slopes, use_kernel: bool,
+           stats: Optional[Dict[str, LayerStats]] = None,
+           layer_idx: int = 0):
     """One transformer block. ``kv`` selects the attention path:
     * None - full-sequence forward (no cache);
     * ("prefill", cache, lidx) - write this layer's K/V for positions
@@ -304,7 +346,17 @@ def _block(cfg, layer, x, positions, kv, slopes, use_kernel: bool):
     * ("decode", cache, pos, lidx) - single-token decode: in-place append
       and attention over the slot cache or the page pool (K3 or K5 on the
       kernel path; K10 + K11 or K14 + K15 on the split route).
-    The cache tensors are updated in place."""
+    The cache tensors are updated in place. ``stats`` (calibration): the
+    statistics of this block's linears (``layers.<layer_idx>.<name>``),
+    updated in the dict; its projections then run unfused."""
+
+    def lin(name, p, h):
+        key = f"layers.{layer_idx}.{name}"
+        if stats is not None and key in stats:
+            y, stats[key] = apply_linear(p, h, use_kernel, stats[key])
+            return y
+        return apply_linear(p, h, use_kernel)
+
     b, t, d = x.shape
     kv_dim = cfg.kv_heads * cfg.head_dim
     if "qkv" in layer["attn"]:
@@ -314,9 +366,9 @@ def _block(cfg, layer, x, positions, kv, slopes, use_kernel: bool):
         q, k, v = qkv[..., :d], qkv[..., d:d + kv_dim], qkv[..., d + kv_dim:]
     else:
         h = apply_norm(cfg, layer["ln1"], x) if cfg.pre_norm else x
-        q = apply_linear(layer["attn"]["q"], h, use_kernel)
-        k = apply_linear(layer["attn"]["k"], h, use_kernel)
-        v = apply_linear(layer["attn"]["v"], h, use_kernel)
+        q = lin("q", layer["attn"]["q"], h)
+        k = lin("k", layer["attn"]["k"], h)
+        v = lin("v", layer["attn"]["v"], h)
     q = q.reshape(b, t, cfg.n_heads, cfg.head_dim)
     k = k.reshape(b, t, cfg.kv_heads, cfg.head_dim)
     v = v.reshape(b, t, cfg.kv_heads, cfg.head_dim)
@@ -352,8 +404,11 @@ def _block(cfg, layer, x, positions, kv, slopes, use_kernel: bool):
                                  use_kernel)
 
     attn = attn.reshape(b, t, d)
-    x = _fused_proj(cfg, layer["attn"]["o"], attn, residual=x,
-                    use_kernel=use_kernel)
+    if stats is None:
+        x = _fused_proj(cfg, layer["attn"]["o"], attn, residual=x,
+                        use_kernel=use_kernel)
+    else:
+        x = x + lin("o", layer["attn"]["o"], attn)
     if not cfg.pre_norm:
         x = apply_norm(cfg, layer["ln1"], x)
     ln2 = layer["ln2"] if cfg.pre_norm else None
@@ -365,15 +420,18 @@ def _block(cfg, layer, x, positions, kv, slopes, use_kernel: bool):
                             residual=x, use_kernel=use_kernel)
         else:
             h = apply_norm(cfg, layer["ln2"], x) if cfg.pre_norm else x
-            gate = apply_linear(layer["mlp"]["gate"], h, use_kernel)
-            up = apply_linear(layer["mlp"]["up"], h, use_kernel)
-            x = x + apply_linear(layer["mlp"]["down"], F.silu(gate) * up,
-                                 use_kernel)
-    else:
+            gate = lin("gate", layer["mlp"]["gate"], h)
+            up = lin("up", layer["mlp"]["up"], h)
+            x = x + lin("down", layer["mlp"]["down"], F.silu(gate) * up)
+    elif stats is None:
         h = _fused_proj(cfg, layer["mlp"]["fc1"], x, ln=ln2,
                         use_kernel=use_kernel)
         x = _fused_proj(cfg, layer["mlp"]["fc2"], h, act=cfg.activation,
                         residual=x, use_kernel=use_kernel)
+    else:
+        h = apply_norm(cfg, layer["ln2"], x) if cfg.pre_norm else x
+        h = _activation(cfg, lin("fc1", layer["mlp"]["fc1"], h))
+        x = x + lin("fc2", layer["mlp"]["fc2"], h)
     if not cfg.pre_norm:
         x = apply_norm(cfg, layer["ln2"], x)
     return x
@@ -464,18 +522,50 @@ def _slopes(cfg, device):
     return _alibi_tensor(cfg.n_heads, torch.device(device))
 
 
-def forward(cfg: TransformerConfig, params, tokens: torch.Tensor,
-            use_kernel: Optional[bool] = None):
-    """Full-sequence causal forward: tokens (B, T) -> logits (B, T, V)."""
-    if use_kernel is None:
-        use_kernel = tokens.is_cuda
+def _hidden(cfg, params, tokens, use_kernel, stats):
+    """The last block's output of a full-sequence forward (``stats``:
+    updated in the dict)."""
     b, t = tokens.shape
     positions = torch.arange(t, device=tokens.device).expand(b, t)
     slopes = _slopes(cfg, tokens.device)
     x = _embed(cfg, params, tokens, positions, use_kernel)
-    for layer in params["layers"]:
-        x = _block(cfg, layer, x, positions, None, slopes, use_kernel)
-    return unembed_logits(cfg, params, x, use_kernel)
+    for i, layer in enumerate(params["layers"]):
+        x = _block(cfg, layer, x, positions, None, slopes, use_kernel,
+                   stats, i)
+    return x
+
+
+def forward(cfg: TransformerConfig, params, tokens: torch.Tensor,
+            use_kernel: Optional[bool] = None,
+            stats: Optional[Dict[str, LayerStats]] = None):
+    """Full-sequence causal forward: tokens (B, T) -> logits (B, T, V).
+    With ``stats``, returns (logits, the updated statistics)."""
+    if use_kernel is None:
+        use_kernel = tokens.is_cuda
+    if stats is not None:
+        stats = dict(stats)
+    x = _hidden(cfg, params, tokens, use_kernel, stats)
+    logits = unembed_logits(cfg, params, x, use_kernel)
+    return logits if stats is None else (logits, stats)
+
+
+def init_calibration_stats(cfg: TransformerConfig,
+                           device="cuda") -> Dict[str, LayerStats]:
+    """Fresh statistics for every quantizable linear."""
+    dims = {"fc2": cfg.d_ff, "down": cfg.d_ff}
+    return {name: init_stats(dims.get(name.split(".")[-1], cfg.d_model),
+                             device)
+            for name in layer_names(cfg)}
+
+
+def calibrate_step(cfg: TransformerConfig, params, tokens: torch.Tensor,
+                   stats: Dict[str, LayerStats]) -> Dict[str, LayerStats]:
+    """One calibration batch: the forward's blocks (the kernels where the
+    tokens are on CUDA), every linear's statistics updated; the logits,
+    which nothing reads, are not computed."""
+    stats = dict(stats)
+    _hidden(cfg, params, tokens, tokens.is_cuda, stats)
+    return stats
 
 
 # ---- KV-cache serving -------------------------------------------------------

@@ -4,6 +4,7 @@ through numpy (bf16 included)."""
 import dataclasses
 
 import numpy as np
+import pytest
 import torch
 
 
@@ -51,3 +52,40 @@ def bf16_close(got, ref, what=""):
     got, ref = f32(got), f32(ref)
     np.testing.assert_allclose(got, ref, rtol=2 ** -6,
                                atol=1e-2 * np.abs(ref).max(), err_msg=what)
+
+
+def quant_problem(m, n, seed, rank=None, mean=0.3):
+    """A quantizer test problem from numpy's seed: W (m, n) standard
+    normal and a Hessian H = XᵀX / s from s samples of mean ``mean`` (s =
+    ``rank`` if given, else 2n)."""
+    rng = np.random.default_rng(seed)
+    W = rng.standard_normal((m, n)).astype(np.float32)
+    s = rank or 2 * n
+    X = (rng.standard_normal((s, n)) + mean).astype(np.float32)
+    return W, (X.T @ X / s).astype(np.float32)
+
+
+def same_codewords(got, want, cb, what=""):
+    """Quantized weights on the same codewords (equal codebook indices)
+    with values within 1e-6 of the largest: XLA computes a uniform
+    codebook's value as a fused multiply-add, one f32 step from
+    PyTorch's."""
+    got = torch.as_tensor(got)
+    want = torch.from_numpy(np.array(want, np.float32))
+    np.testing.assert_array_equal(cb.quantize_index(got).numpy(),
+                                  cb.quantize_index(want).numpy(),
+                                  err_msg=what)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                               atol=1e-6 * float(want.abs().max()),
+                               err_msg=what)
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """One intra-op thread for a module of many small tensor ops (the
+    quantizer's loops): the suite runs several test processes at once,
+    and a thread pool per process each op only adds contention."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

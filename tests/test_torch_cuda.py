@@ -1318,3 +1318,32 @@ def test_decode_perplexity_graph_equals_eager(dev):
     fwd = ev.perplexity(cfg, params, batches, device=dev)
     assert graph == eager
     assert abs(graph - fwd) <= 0.01 * fwd, (graph, fwd)
+
+
+def test_quantize_layer_card_matches_cpu(dev):
+    """quantize_layer (light, 4 bits) on a 512 x 1024 layer on the card
+    against the port on the CPU, from the same tensors: the objective
+    within 1e-3 relative and at least 99% of Q's codewords equal (the
+    card's f32 products, Cholesky and triangular solve round in other
+    places, which can flip a rounding decision that the sweep then
+    carries)."""
+    import numpy as np
+    from sleekit_tpu_torch.pipeline import preset_config, quantize_layer
+
+    rng = np.random.default_rng(0)
+    W = torch.from_numpy(rng.standard_normal((512, 1024)).astype(np.float32)
+                         * 0.02)
+    X = torch.from_numpy((rng.standard_normal((4096, 1024)) + 0.1).astype(
+        np.float32))
+    H, mean = X.T @ X / 4096, X.mean(0)
+    cfg = preset_config("light", nbits=4)
+    cpu = quantize_layer(W, H, mean, cfg)
+    card = [t.cpu() for t in quantize_layer(W.to(dev), H.to(dev),
+                                            mean.to(dev), cfg)]
+    assert all(torch.isfinite(t).all() for t in card)
+    err_cpu, err_card = float(cpu[3].sum()), float(card[3].sum())
+    assert abs(err_card - err_cpu) <= 1e-3 * err_cpu, (err_card, err_cpu)
+    cb = cfg.make_codebook()
+    same = (cb.quantize_index(cpu[0] / cpu[2][:, None])
+            == cb.quantize_index(card[0] / card[2][:, None]))
+    assert same.float().mean() >= 0.99

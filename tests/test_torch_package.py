@@ -80,6 +80,24 @@ def test_entry_points_raise_without_cuda(tmp_path):
     Engine(cfg, params, device="cpu")
     Engine(cfg, params, device="cpu", paged=True)
 
+    # The quantizer's constructors.
+    import numpy as np
+    from sleekit_tpu_torch.hessian import (
+        init_stats, random_psd_matrix, stats_from_numpy)
+    from sleekit_tpu_torch.models.transformer import init_calibration_stats
+    from sleekit_tpu_torch.pipeline import LayerQuantizer
+
+    w = np.ones((4, 8), np.float32)
+    LayerQuantizer(w, device="cpu").export(str(tmp_path / "layer"))
+    for make in (lambda: LayerQuantizer(w),
+                 lambda: LayerQuantizer.load(str(tmp_path / "layer")),
+                 lambda: stats_from_numpy(np.zeros(8), np.eye(8)),
+                 lambda: init_stats(8), lambda: random_psd_matrix(0, 8, 2),
+                 lambda: init_calibration_stats(cfg)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    LayerQuantizer.load(str(tmp_path / "layer"), device="cpu")
+
 
 @pytest.mark.parametrize("kwargs,error,match", [
     (dict(paged=True, page_size=4), ValueError, "page_size 4"),
