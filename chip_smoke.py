@@ -100,11 +100,12 @@
    the int4 model's 256-bucket group (with a trace of one prefill under
    ``traces/prefill``, which must show 24 K10 and no PyTorch quantizer
    op); their result lines go to stdout;
-9. runs the quantizer on dense bf16 OPT-1.3B (random weights from seed
-   0, all 24 layers): calibrates on the JAX CLI's defaults (16 x 256
-   tokens of ``synthetic_stream``, batch 2; exactly 192 K4 launches),
-   quantizes all 144 linears (light, 4 bits, packed; a resume directory
-   in the temporary directory, removed after), then resumes from it
+9. runs the quantizer on dense bf16 OPT-1.3B at full width (random
+   weights from seed 0, its first 4 layers: the CLI phase solves all 24):
+   calibrates on the JAX CLI's defaults (16 x 256 tokens of
+   ``synthetic_stream``, batch 2; exactly 32 K4 launches), quantizes its
+   24 linears (light, 4 bits, packed; a resume directory in the temporary
+   directory, removed after), then resumes from it
    (nothing solved: the dequantized dense model of the same solve, to
    which every packed linear dequantizes within 1e-6);
    scores round-to-nearest, basic, light and heavy on layer 0's six
@@ -115,8 +116,29 @@
    dequantized dense model's (relative L2 <= 2^-6); and profiles one fc2
    solve (trace under the git-ignored ``traces/quantize_fc2``): its
    device time by phase and launches a column;
-10. prints the kernels line (with a ``quantize`` entry beside ``engine``),
-   the card's name and power limit, and, last, the result line.
+10. runs the user's two commands (``experiments/quantize_model_cli.py``
+   and ``serve_cli.py``) as a user does, on f32 OPT-1.3B at full width
+   (random weights from seed 0, nothing downloaded): writes its HF-layout
+   checkpoint (``facebook/opt-1.3b``'s keys, F16, two safetensors shards
+   and their index) into the temporary directory, holds
+   ``load_hf_checkpoint`` to the init weights rounded to f16, bit for bit,
+   and ``calibrate_spill`` to ``calibrate`` (max |diff| 0); quantizes it
+   with the CLI at full depth (light, 4 bits, ``--eval-ppl``: 192 K4
+   launches in calibration, 144 linears solved once, all int4 'pair' on
+   reload, ``decode_perplexity`` within PPL_RTOL of ``perplexity``, the
+   card's peak memory); serves the checkpoint with ``serve_cli`` (int8
+   KV, 8 x 256-token prompts, 32 new tokens), slot and ``--paged``: the
+   launches replay-counted (K3 or K5 24 a step, K4 and K10 24 a prefill
+   group, no K1 at f32), the cold and steady runs' greedy tokens equal;
+   serves the same checkpoint on the bf16 main path as 3 does (K1, K2,
+   K3, K4, K10); and runs the CLI twice more at 4 layers, with a
+   ``QUANT_HBM_LIMIT`` computed from the CLI's own estimates: once
+   spilling (``calibrate_spill``, host statistics, ``pack_host``) and once
+   shedding the largest statistics to a background drain; each run's
+   packed words bit for bit the full run's, no statistics left behind;
+11. prints the kernels line (with ``quantize`` and ``cli`` entries beside
+   ``engine``), the card's name and power limit, and, last, the result
+   line.
 
 Any failure raises; there is no CPU branch and no fallback. It needs a
 CUDA device and exits non-zero without one.
@@ -145,7 +167,10 @@ sys.path.insert(0, ROOT)
 from sleekit_tpu_torch import kernels  # noqa: E402
 from sleekit_tpu_torch.codebooks import Codebook, UniformCodebook  # noqa: E402
 from sleekit_tpu_torch.experiments import (  # noqa: E402
-    attn_bench, kernel_bench, prefill_bench, profile_decode)
+    attn_bench, kernel_bench, prefill_bench, profile_decode,
+    quantize_model_cli, serve_cli)
+from sleekit_tpu_torch.experiments.quantize_model_cli import (  # noqa: E402
+    SPILL_HEADROOM, est_stats_bytes, offload_plan, spill_needed, tree_bytes)
 from sleekit_tpu_torch import pipeline as pipe_mod  # noqa: E402
 from sleekit_tpu_torch import solver as solver_mod  # noqa: E402
 from sleekit_tpu_torch.hessian import remove_input_bias  # noqa: E402
@@ -154,11 +179,14 @@ from sleekit_tpu_torch.models.data import (  # noqa: E402
 from sleekit_tpu_torch.models.eval import (  # noqa: E402
     DecodeGraph, chunk_tokens, decode_perplexity, decode_scan, perplexity)
 from sleekit_tpu_torch.models.fake_quant import random_packed_params  # noqa: E402
+from sleekit_tpu_torch.models.hf import load_hf_checkpoint  # noqa: E402
+from sleekit_tpu_torch.models import quantize as quant_mod  # noqa: E402
 from sleekit_tpu_torch.models.quantize import (  # noqa: E402
-    calibrate, pack_lm_head, quantize_model)
+    calibrate, calibrate_spill, pack_lm_head, quantize_model)
 from sleekit_tpu_torch.models import transformer as tr  # noqa: E402
 from sleekit_tpu_torch.models.transformer import (  # noqa: E402
     decode_step, init_kv_cache, prefill)
+from sleekit_tpu_torch.models import zoo  # noqa: E402
 from sleekit_tpu_torch.models.zoo import opt_1b3  # noqa: E402
 from sleekit_tpu_torch.ops import attention as attn  # noqa: E402
 from sleekit_tpu_torch.ops import dequant_matmul as dm  # noqa: E402
@@ -176,6 +204,7 @@ from sleekit_tpu_torch.scaling import (  # noqa: E402
     compute_non_saturating_scaling)
 from sleekit_tpu_torch.solver import channelwise_error  # noqa: E402
 from sleekit_tpu_torch.serve import engine as engine_mod  # noqa: E402
+from sleekit_tpu_torch.serve.checkpoint import load_packed_params  # noqa: E402
 from sleekit_tpu_torch.serve.engine import Engine, Request  # noqa: E402
 from sleekit_tpu_torch.utils.profiling import (  # noqa: E402
     cuda_ms, device_trace, trace_summary)
@@ -1832,6 +1861,9 @@ def run_layouts(dev, cfg, card, state):
 
 # The JAX CLI's calibration defaults: 16 samples x 256 tokens, batch 2.
 CALIB_SAMPLES, CALIB_LEN, CALIB_BATCH = 16, 256, 2
+# The quantize phase's layers of OPT-1.3B at full width: the CLI phase
+# solves all 24.
+QUANT_DEPTH = 4
 
 
 def make_prompts(cfg):
@@ -1870,10 +1902,11 @@ def record_multipliers(mults):
 
 
 def run_quantize(dev, cfg, card):
-    """The quantizer's main path on the card: dense bf16 OPT-1.3B (random
-    weights from seed 0, all 24 layers) calibrated on the JAX CLI's
-    defaults (16 x 256 tokens of ``synthetic_stream``, batch 2: exactly 24
-    K4 launches a batch), every one of its 144 linears quantized (light,
+    """The quantizer's main path on the card: dense bf16 OPT-1.3B at full
+    width (random weights from seed 0, ``cfg``'s layers: QUANT_DEPTH)
+    calibrated on the JAX CLI's defaults (16 x 256 tokens of
+    ``synthetic_stream``, batch 2: exactly one K4 launch a layer a batch),
+    every one of its linears quantized (light,
     4 bits, packed, with a resume directory; the statistics freed as the
     solves finish), then the resume pass (nothing solved: the dequantized
     dense model of the same solve, to which every packed linear
@@ -2155,6 +2188,443 @@ def profile_solve(cfg, params, st, card):
     return out
 
 
+# ---- the user's two commands (the CLI phase) -------------------------------
+
+CLI_ARGS = ["--preset", "light", "--nbits", "4"]
+SERVE_ARGS = ["--kv", "int8", "--random", "8", "--prompt-len", "256",
+              "--max-new-tokens", "32"]
+CLI_DEPTH = 4     # the spill and drain runs' layers of OPT-1.3B
+
+
+def hf_opt_state_dict(params, n_layers, dtype=torch.float16):
+    """The inverse of ``models/hf.py`` ``convert_opt``: a dense port OPT
+    tree (``"kernel"`` (in, out)) as an HF ``OPTForCausalLM`` state dict
+    under ``facebook/opt-1.3b``'s key names, weights (out, in), as CPU
+    tensors of ``dtype``."""
+    pre = "model.decoder."
+    sd = {pre + "embed_tokens.weight": params["embed"]["tokens"],
+          pre + "embed_positions.weight": params["embed"]["pos"],
+          pre + "final_layer_norm.weight": params["final_ln"]["scale"],
+          pre + "final_layer_norm.bias": params["final_ln"]["bias"]}
+    names = {"self_attn.q_proj": ("attn", "q"),
+             "self_attn.k_proj": ("attn", "k"),
+             "self_attn.v_proj": ("attn", "v"),
+             "self_attn.out_proj": ("attn", "o"), "fc1": ("mlp", "fc1"),
+             "fc2": ("mlp", "fc2")}
+    for i in range(n_layers):
+        layer, lp = params["layers"][i], f"{pre}layers.{i}."
+        for hf, (group, ours) in names.items():
+            sd[f"{lp}{hf}.weight"] = layer[group][ours]["kernel"].T
+            sd[f"{lp}{hf}.bias"] = layer[group][ours]["bias"]
+        for hf, ours in (("self_attn_layer_norm", "ln1"),
+                         ("final_layer_norm", "ln2")):
+            sd[f"{lp}{hf}.weight"] = layer[ours]["scale"]
+            sd[f"{lp}{hf}.bias"] = layer[ours]["bias"]
+    return {k: v.to("cpu", dtype).contiguous() for k, v in sd.items()}
+
+
+def write_safetensors(path, tensors):
+    """One safetensors file: the 8-byte little-endian header length, the
+    JSON header (padded with spaces to 8 bytes), then each tensor's raw
+    little-endian bytes."""
+    kinds = {torch.float32: "F32", torch.float16: "F16",
+             torch.bfloat16: "BF16"}
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": kinds[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(len(head).to_bytes(8, "little"))
+        f.write(head)
+        for t in tensors.values():
+            f.write(t.view(torch.uint8).numpy().data)
+
+
+def write_hf_checkpoint(directory, sd, shards=2):
+    """``sd`` as ``shards`` safetensors files of about equal bytes, in key
+    order, with the ``model.safetensors.index.json`` that maps each key to
+    its file. Returns the bytes written."""
+    total = sum(t.numel() * t.element_size() for t in sd.values())
+    files, cur, size = [], {}, 0
+    for k, t in sd.items():
+        cur[k] = t
+        size += t.numel() * t.element_size()
+        if (size >= total * (len(files) + 1) / shards
+                and len(files) < shards - 1):
+            files.append(cur)
+            cur = {}
+    files.append(cur)
+    weight_map = {}
+    for j, part in enumerate(files):
+        fname = f"model-{j + 1:05d}-of-{len(files):05d}.safetensors"
+        write_safetensors(os.path.join(directory, fname), part)
+        weight_map.update({k: fname for k in part})
+    with open(os.path.join(directory, "model.safetensors.index.json"),
+              "w") as f:
+        json.dump({"metadata": {"total_size": total},
+                   "weight_map": weight_map}, f)
+    return total
+
+
+def leaves(tree, path=""):
+    """(path, tensor) of every tensor of a dense params tree."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from leaves(v, f"{path}/{k}")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from leaves(v, f"{path}/{i}")
+    else:
+        yield path, tree
+
+
+def cli_calibrations(cfg, params, card):
+    """``calibrate_spill`` against ``calibrate`` on the full f32 model and
+    the CLI's calibration batches: every mean and Hessian at max |diff| 0
+    (printed and held within 1e-6 relative otherwise), the spilled ones on
+    the host. Returns metrics."""
+    need = CALIB_SAMPLES * CALIB_LEN + 4096
+    batches = calibration_batches(synthetic_stream(cfg.vocab_size, need, 0),
+                                  CALIB_SAMPLES, CALIB_LEN, CALIB_BATCH)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = calibrate(cfg, params, batches)
+    torch.cuda.synchronize()
+    cal_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = calibrate_spill(cfg, params, batches)
+    spill_s = time.perf_counter() - t0
+    worst = 0.0
+    for name, st in got.items():
+        for f in ("mean", "hessian", "count"):
+            g, w = getattr(st, f), getattr(want[name], f)
+            if g.device.type != "cpu":
+                raise AssertionError(f"cli: calibrate_spill left {name} on "
+                                     f"{g.device}")
+            diff = (g.to(w.device) - w).abs().max().item()
+            if diff:
+                rel = diff / w.abs().max().item()
+                log(f"cli: calibrate_spill vs calibrate, {name} {f}: max "
+                    f"|diff| {diff:.3g} ({rel:.3g} of its largest)")
+                if not rel <= 1e-6:
+                    raise AssertionError(f"cli: calibrate_spill's {name} {f} "
+                                         f"{rel:.3g} from calibrate's")
+            worst = max(worst, diff)
+    log(f"cli: calibrate_spill vs calibrate on f32 OPT-1.3B ({len(got)} "
+        f"entries, {CALIB_SAMPLES} x {CALIB_LEN} tokens): max |diff| "
+        f"{worst:.3g}; calibrate {cal_s:.3f} s on the card, calibrate_spill "
+        f"{spill_s:.3f} s with the statistics moved to page-locked host "
+        f"memory ({card})")
+    return {"spill_vs_calibrate_max_diff": worst, "calibrate_s": cal_s,
+            "calibrate_spill_s": spill_s}
+
+
+def quantize_cli(out, model, hf_dir, extra=(), limit=None):
+    """``quantize_model_cli.main`` as a user runs it (``limit``: the
+    ``QUANT_HBM_LIMIT`` it reads), with the launches of its calibration
+    and the card's peak memory. Returns (its result, calibration
+    launches, peak bytes, seconds)."""
+    calib = {}
+
+    def count_calibration(inner):
+        def wrapped(*a, **kw):
+            kernels.reset_launch_counts()
+            out = inner(*a, **kw)
+            torch.cuda.synchronize()
+            calib.update({k: n for k, n in counts().items() if n})
+            return out
+        return wrapped
+
+    if limit is not None:
+        os.environ["QUANT_HBM_LIMIT"] = repr(float(limit))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        with patched(quant_mod, "calibrate", count_calibration), \
+                patched(quant_mod, "calibrate_spill", count_calibration):
+            res = quantize_model_cli.main(
+                [out, "--model", model, "--checkpoint", hf_dir, *CLI_ARGS,
+                 *extra])
+    finally:
+        os.environ.pop("QUANT_HBM_LIMIT", None)
+    torch.cuda.synchronize()
+    return (res, calib, torch.cuda.max_memory_allocated(),
+            time.perf_counter() - t0)
+
+
+def check_cli_reports(res, cfg, what):
+    """Every linear solved once, with a finite error; no statistics entry
+    left after the solves."""
+    names = [r.name for r in res["reports"]]
+    if sorted(names) != sorted(tr.layer_names(cfg)) or not all(
+            math.isfinite(r.error) for r in res["reports"]):
+        raise AssertionError(f"cli {what}: not every linear solved once "
+                             f"with a finite error")
+    if res["stats_left"]:
+        raise AssertionError(f"cli {what}: statistics left after the "
+                             f"solves: {res['stats_left']}")
+
+
+def packed_linears(path, cfg):
+    """The packed linears of a checkpoint, by name, on the CPU."""
+    params, _ = load_packed_params(path, cfg=cfg, device="cpu")
+    out = {n: tr.get_linear_param(params, n) for n in tr.layer_names(cfg)}
+    for n, p in out.items():
+        if not (isinstance(p, PackedLinear) and p.layout == "pair"
+                and p.nbits == 4):
+            raise AssertionError(f"cli: {path}'s {n} is not int4 'pair'")
+    return out
+
+
+def same_words(got, want, what):
+    """Each linear of ``got`` bit for bit ``want``'s (words, scales,
+    bias); where one differs, says where and by how much."""
+    bad = []
+    for n, p in got.items():
+        q = want[n]
+        words = int((p.packed != q.packed).sum())
+        sc = (p.scale - q.scale).abs().max().item()
+        bias = (p.bias - q.bias).abs().max().item()
+        if words or sc or bias:
+            bad.append(f"{n}: {words} of {p.packed.numel()} words, scale "
+                       f"max |diff| {sc:.3g}, bias {bias:.3g}")
+    if bad:
+        raise AssertionError(f"cli: {what} differ from the full run's: "
+                             + "; ".join(bad))
+    log(f"cli: {what}: every packed word, scale and bias of layers "
+        f"0-{CLI_DEPTH - 1} equal to the full run's, bit for bit")
+
+
+def serve_cli_runs(ckpt, cfg, card):
+    """``serve_cli.main`` on the checkpoint, slot and ``--paged``, int8
+    KV, 8 random 256-token prompts, 32 new tokens, cold run then steady
+    run: the launches of both through the replay accounting (K3 or K5 24
+    a decode step; K4 and K10 24 a prefill group; no K1 or K2 at f32), the
+    same greedy tokens cold and steady, and slot and paged. Returns
+    metrics."""
+    L, m, tokens = cfg.n_layers, {}, {}
+    for paged in (False, True):
+        what = "paged" if paged else "slot"
+        kernels.reset_launch_counts()
+        prefills = [0.0, 0]
+        with timed(engine_mod, "prefill", prefills):
+            res = serve_cli.main([ckpt, "--model", "opt-1.3b", *SERVE_ARGS]
+                                 + (["--paged"] if paged else []))
+        launches = {k: n for k, n in counts().items() if n}
+        attn_kernel = "K5" if paged else "K3"
+        steps = check_replays(res["engine"], launches, {attn_kernel: L},
+                              {"K10": L}, prefills[1], f"cli serve {what}")
+        if launches.get("K4") != L * prefills[1] or set(launches) != {
+                attn_kernel, "K4", "K10"}:
+            raise AssertionError(f"cli serve {what}: launched {launches} in "
+                                 f"{prefills[1]} prefill groups")
+        cold = [c.new_tokens.tolist() for c in res["cold"]]
+        if [c.new_tokens.tolist() for c in res["steady"]] != cold or any(
+                len(t) != 32 for t in cold):
+            raise AssertionError(f"cli serve {what}: the steady run's greedy "
+                                 f"tokens differ from the cold run's")
+        tokens[what] = cold
+        m[what] = dict(cold_s=res["cold_s"], steady_s=res["steady_s"],
+                       cold_tokens_per_s=res["cold_tokens_per_s"],
+                       steady_tokens_per_s=res["steady_tokens_per_s"],
+                       prefill_groups=prefills[1], decode_steps=steps,
+                       launches=launches)
+        log(f"cli: serve_cli {what} (f32 OPT-1.3B, int8 KV, 8 x 256-token "
+            f"prompts, 32 new tokens): cold {res['cold_s']:.3f} s "
+            f"({res['cold_tokens_per_s']:.1f} tokens/s), steady "
+            f"{res['steady_s']:.3f} s ({res['steady_tokens_per_s']:.1f} "
+            f"tokens/s); cold and steady greedy tokens equal; launches "
+            f"{launches} ({prefills[1]} prefill groups, {steps} decode "
+            f"steps) ({card})")
+        del res
+    if tokens["paged"] != tokens["slot"]:
+        raise AssertionError("cli serve: the paged run's tokens differ from "
+                             "the slot run's")
+    log("cli: serve_cli paged and slot: the same greedy tokens")
+    return m
+
+
+def serve_bf16(dev, ckpt, card):
+    """The CLI's checkpoint on the main path's bf16 route: loaded onto
+    bf16 OPT-1.3B (the dense leaves in bf16), q|k|v fused, the head packed
+    int8, served through the slot Engine as ``serve`` serves the int4
+    model (K1, K2, K3, K4, K10; prefill logits, kernels vs plain versions,
+    relative L2 <= 2^-6). Returns metrics."""
+    cfg = opt_1b3(dtype=torch.bfloat16)
+    params, _ = load_packed_params(ckpt, cfg=cfg, device=dev)
+
+    def bf16(tree):
+        if isinstance(tree, dict):
+            return {k: bf16(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [bf16(v) for v in tree]
+        if isinstance(tree, torch.Tensor):
+            return tree.to(torch.bfloat16)
+        return tree
+
+    params = pack_lm_head(cfg, tr.fuse_qkv_params(cfg, bf16(params)),
+                          nbits=8)
+    _, served, _, engine, _ = serve(dev, cfg, card, "cli_bf16", params, K1,
+                                    make_prompts(cfg), NEW_TOKENS)
+    del engine
+    return served
+
+
+def run_cli(dev, card):
+    """The user's two commands on the card, at OPT-1.3B's full width
+    (random weights from seed 0, nothing downloaded): an HF-layout
+    checkpoint written as two F16 safetensors shards and read back; the
+    quantize command on it (light, 4 bits, the JAX CLI's defaults,
+    ``--eval-ppl``) at full depth; the serve command on its checkpoint,
+    slot and paged; the checkpoint on the bf16 main path; and the spill
+    and background-drain branches at 4 layers, their packed words held to
+    the full run's. Returns the phase's metrics."""
+    m = {}
+    cfg = opt_1b3()
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="cli_") as tmp:
+        hf_dir = os.path.join(tmp, "hf")
+        os.makedirs(hf_dir)
+        t0 = time.perf_counter()
+        init = tr.init_params(cfg, seed=0, device=dev)
+        torch.cuda.synchronize()
+        m["init_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sd = hf_opt_state_dict(init, cfg.n_layers)
+        m["hf_bytes"] = write_hf_checkpoint(hf_dir, sd)
+        del sd
+        m["hf_write_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        params = load_hf_checkpoint(cfg, "opt-1.3b", hf_dir, device=dev)
+        torch.cuda.synchronize()
+        m["hf_load_s"] = time.perf_counter() - t0
+        want, got = dict(leaves(init)), dict(leaves(params))
+        if set(got) != set(want):
+            raise AssertionError(f"cli: the HF round trip's tree differs: "
+                                 f"{sorted(set(got) ^ set(want))}")
+        for path, w in want.items():
+            if not torch.equal(got[path], w.half().float()):
+                raise AssertionError(f"cli: the HF round trip's {path} is not "
+                                     f"the init weights rounded to f16")
+        del init, want, got
+        log(f"cli: HF checkpoint of OPT-1.3B (seed 0, init_params "
+            f"{m['init_s']:.1f} s; facebook/opt-1.3b's keys, F16) in 2 "
+            f"safetensors shards, {m['hf_bytes'] / 1e9:.3f} GB, written in "
+            f"{m['hf_write_s']:.1f} s; load_hf_checkpoint "
+            f"{m['hf_load_s']:.1f} s: every leaf the init weights rounded "
+            f"to f16, bit for bit ({card})")
+        m.update(cli_calibrations(cfg, params, card))
+        p4_bytes = tree_bytes(dict(params,
+                                   layers=params["layers"][:CLI_DEPTH]))
+        del params
+        torch.cuda.empty_cache()
+
+        full = os.path.join(tmp, "full")
+        res, calib, peak, secs = quantize_cli(full, "opt-1.3b", hf_dir,
+                                              ["--eval-ppl"])
+        want_k4 = {"K4": cfg.n_layers * CALIB_SAMPLES // CALIB_BATCH}
+        if calib != want_k4:
+            raise AssertionError(f"cli: calibration launched {calib}, not "
+                                 f"{want_k4}")
+        check_cli_reports(res, cfg, "full run")
+        if res["spill"] or res["offload"] != "none":
+            raise AssertionError(f"cli: the full run spilled or offloaded "
+                                 f"({res['spill']}, {res['offload']})")
+        ppl = res["ppl"]
+        rel = abs(ppl["decode"] - ppl["quantized"]) / ppl["quantized"]
+        if not all(math.isfinite(v) for v in (ppl["fp32"], ppl["quantized"],
+                                              ppl["decode"])) or not (
+                rel <= PPL_RTOL):
+            raise AssertionError(f"cli: perplexities {ppl}: decode vs "
+                                 f"forward {rel:.4g} over {PPL_RTOL}")
+        full_words = packed_linears(full, cfg)
+        m["quantize"] = dict(
+            seconds=secs, peak_bytes=peak, timer=res["timer"],
+            total_error=res["total_error"], calibrate_launches=calib,
+            ppl=ppl, ppl_decode_rel=rel, peak_estimate=res["peak"])
+        log(f"cli: quantize_model_cli (f32 OPT-1.3B from the HF checkpoint, "
+            f"light, 4 bits, --eval-ppl): {secs:.1f} s; sections "
+            + json.dumps({k: v["total_s"] for k, v in res["timer"].items()})
+            + f"; calibration launches {calib}; {len(res['reports'])} "
+            f"linears, total error {res['total_error']:.6g}; perplexity "
+            f"fp32 {ppl['fp32']:.2f}, quantized {ppl['quantized']:.2f}, "
+            f"decode {ppl['decode']:.2f} ({rel:.3g} apart, <= {PPL_RTOL}; "
+            f"the 0.01-ppl warning {'fired' if ppl['warned'] else 'silent'}"
+            f"); every linear int4 'pair' on reload; peak device memory "
+            f"{peak / 1e9:.3f} GB (the CLI's simulated solve peak "
+            f"{res['peak'] / 1e9:.3f} GB) ({card})")
+        del res
+        torch.cuda.empty_cache()
+
+        m["serve"] = serve_cli_runs(full, cfg, card)
+        torch.cuda.empty_cache()
+        m["bf16"] = serve_bf16(dev, full, card)
+        torch.cuda.empty_cache()
+
+        # The spill and drain branches at 4 layers, from limits computed
+        # with the CLI's own estimates.
+        name = f"opt-1.3b-{CLI_DEPTH}l"
+        cfg4 = dataclasses.replace(cfg, n_layers=CLI_DEPTH)
+        zoo.ZOO[name] = lambda **kw: dataclasses.replace(
+            opt_1b3(**kw), n_layers=CLI_DEPTH)
+        s_est = est_stats_bytes(cfg4)
+        entries = [(n, k, 4 * (k * k + k + 1)) for n, k in (
+            (n, cfg.d_ff if n.endswith("fc2") else cfg.d_model)
+            for n in tr.layer_names(cfg4))]
+        sim_peak = offload_plan(entries, p4_bytes, math.inf, "never")["peak"]
+        limits = {"spill": p4_bytes + s_est + SPILL_HEADROOM / 2,
+                  "drain": sim_peak}
+        plan = offload_plan(entries, p4_bytes, limits["drain"], "auto")
+        if spill_needed(p4_bytes, s_est, limits["drain"]) or (
+                plan["action"] != "shed"):
+            raise AssertionError(f"cli: the drain limit {limits['drain']} "
+                                 f"gives no shed plan: {plan}")
+        try:
+            for branch in ("spill", "drain"):
+                out = os.path.join(tmp, branch)
+                res, calib, peak, secs = quantize_cli(
+                    out, name, hf_dir, limit=limits[branch])
+                check_cli_reports(res, cfg4, f"{branch} run")
+                want_k4 = {"K4": CLI_DEPTH * CALIB_SAMPLES // CALIB_BATCH}
+                if calib != want_k4:
+                    raise AssertionError(f"cli {branch}: calibration "
+                                         f"launched {calib}")
+                if branch == "spill":
+                    ok = res["spill"]
+                else:
+                    ok = (not res["spill"] and res["offload"] == "shed"
+                          and res["shed"] == plan["shed"])
+                if not ok:
+                    raise AssertionError(
+                        f"cli {branch}: spill {res['spill']}, offload "
+                        f"{res['offload']}, shed {res['shed']}")
+                same_words(packed_linears(out, cfg4),
+                           {n: full_words[n] for n in tr.layer_names(cfg4)},
+                           f"the {branch} run's layers")
+                m[branch] = dict(limit=limits[branch], seconds=secs,
+                                 peak_bytes=peak, timer=res["timer"],
+                                 shed=res["shed"])
+                log(f"cli: {branch} run ({CLI_DEPTH} layers, "
+                    f"QUANT_HBM_LIMIT {limits[branch] / 1e9:.3f} GB): "
+                    f"{secs:.1f} s; spill {res['spill']}, offload "
+                    f"{res['offload']} ({len(res['shed'])} entries shed); "
+                    f"sections " + json.dumps(
+                        {k: v["total_s"] for k, v in res["timer"].items()})
+                    + f"; no statistics left after the solves; peak device "
+                    f"memory {peak / 1e9:.3f} GB ({card})")
+                del res
+        finally:
+            del zoo.ZOO[name]
+    m["phase_s"] = time.perf_counter() - start
+    log(f"cli: the phase took {m['phase_s']:.1f} s ({card})")
+    return m
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
@@ -2245,7 +2715,10 @@ def main():
     del state, pool
     benches = run_benches(cfg, os.path.join(ROOT, "traces"))
     torch.cuda.empty_cache()
-    quant = run_quantize(dev, cfg, smi)
+    quant = run_quantize(dev, dataclasses.replace(cfg, n_layers=QUANT_DEPTH),
+                         smi)
+    torch.cuda.empty_cache()
+    cli = run_cli(dev, smi)
 
     rows = []
     for k in (K1, K2, K3, K4, K5, K6, K7, K8, K9, K10, K11, K12, K13, K14,
@@ -2273,7 +2746,7 @@ def main():
     engine["ptxas_plane"] = plane_ptxas
     engine["ptxas_append_kernel"] = append_ptxas
     print(json.dumps({"kernels": rows, "engine": engine, "quantize": quant,
-                      "benches": benches}))
+                      "cli": cli, "benches": benches}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

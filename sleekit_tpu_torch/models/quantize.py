@@ -3,7 +3,9 @@
 
 :func:`calibrate` streams token batches through
 :func:`~sleekit_tpu_torch.models.transformer.calibrate_step` (the
-statistics accumulate on the model's device); :func:`quantize_model` runs
+statistics accumulate on the model's device), :func:`calibrate_spill`
+sweeps layer by layer and keeps the statistics on the host;
+:func:`quantize_model` runs
 :func:`~sleekit_tpu_torch.pipeline.quantize_layer` for every linear and
 stores either the dequantized f32 weights (reference semantics) or the
 packed serving format. :func:`pack_lm_head` packs the unembed head.
@@ -20,10 +22,11 @@ import numpy as np
 import torch
 
 from sleekit_tpu_torch.codebooks import UniformCodebook
-from sleekit_tpu_torch.hessian import LayerStats
+from sleekit_tpu_torch.hessian import LayerStats, init_stats
 from sleekit_tpu_torch.models.transformer import (
-    TransformerConfig, calibrate_step, get_linear_param,
-    init_calibration_stats, layer_names, set_linear_param)
+    TransformerConfig, _block, _embed, _slopes, block_linear_names,
+    calibrate_step, get_linear_param, init_calibration_stats, layer_names,
+    set_linear_param)
 from sleekit_tpu_torch.ops.pack import PackedLinear, pack_quantized
 from sleekit_tpu_torch.pipeline import QuantConfig, quantize_layer
 from sleekit_tpu_torch.scaling import compute_non_saturating_scaling
@@ -52,12 +55,52 @@ def calibrate(cfg: TransformerConfig, params, batches: Iterable,
     return stats
 
 
-def calibrate_spill(cfg: TransformerConfig, params, batches):
-    """Layer-outer calibration with host-resident statistics, for models
-    whose statistics do not fit the device: not ported yet."""
-    raise NotImplementedError(
-        "calibrate_spill is not ported yet (ROADMAP, modules to port: "
-        "models/quantize.py, calibrate_spill)")
+def stats_to_host(st: LayerStats, pin: bool = False) -> LayerStats:
+    """``st`` copied to the host (into page-locked memory with ``pin``, so
+    that the copy back to the card can run asynchronously)."""
+    def host(x):
+        if not pin:
+            return x.to("cpu")
+        out = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        return out.copy_(x)
+    return LayerStats(*(host(x) for x in (st.mean, st.hessian, st.count)))
+
+
+def calibrate_spill(cfg: TransformerConfig, params, batches
+                    ) -> Dict[str, LayerStats]:
+    """Layer-outer calibration, for models whose statistics do not fit the
+    device even without the solve's workspace.
+
+    Every batch's activations stay on the model's device (small next to
+    the Hessians); the sweep goes layer by layer, updates only that
+    layer's statistics (batch by batch, in the order :func:`calibrate`
+    does) and moves them to the host before the next layer. The device
+    holds the params, the activations and one layer's statistics. Returns
+    CPU statistics (page-locked when the model is on CUDA), equal to
+    :func:`calibrate`'s: each layer's input is computed by the same ops."""
+    dev = params["embed"]["tokens"].device
+    use_kernel = dev.type == "cuda"
+    dims = {"fc2": cfg.d_ff, "down": cfg.d_ff}
+    slopes = _slopes(cfg, dev)
+    xs, poss = [], []
+    for tokens in batches:
+        tokens = torch.as_tensor(np.asarray(tokens), device=dev)
+        b, t = tokens.shape
+        positions = torch.arange(t, device=dev).expand(b, t)
+        poss.append(positions)
+        xs.append(_embed(cfg, params, tokens, positions, use_kernel))
+
+    host: Dict[str, LayerStats] = {}
+    for i, layer in enumerate(params["layers"]):
+        bstats = {f"layers.{i}.{n}": init_stats(dims.get(n, cfg.d_model), dev)
+                  for n in block_linear_names(cfg)}
+        for j, positions in enumerate(poss):
+            xs[j] = _block(cfg, layer, xs[j], positions, None, slopes,
+                           use_kernel, bstats, i)
+        for name, st in bstats.items():
+            host[name] = stats_to_host(st, pin=use_kernel)
+        del bstats
+    return host
 
 
 def _layer_artifact_path(resume_dir: str, name: str) -> str:

@@ -1347,3 +1347,132 @@ def test_quantize_layer_card_matches_cpu(dev):
     same = (cb.quantize_index(cpu[0] / cpu[2][:, None])
             == cb.quantize_index(card[0] / card[2][:, None]))
     assert same.float().mean() >= 0.99
+
+
+def _write_safetensors(path, tensors):
+    """A safetensors file written by hand (the card's machine has no
+    ``safetensors`` package): the 8-byte little-endian header length, the
+    JSON header, then the raw little-endian buffers."""
+    import json
+
+    names = {torch.float32: "F32", torch.float16: "F16",
+             torch.bfloat16: "BF16"}
+    header, blobs, offset = {}, [], 0
+    for name, t in tensors.items():
+        raw = t.contiguous().view(torch.uint8).numpy().tobytes()
+        header[name] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + len(raw)]}
+        blobs.append(raw)
+        offset += len(raw)
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(len(head).to_bytes(8, "little"))
+        f.write(head)
+        for raw in blobs:
+            f.write(raw)
+
+
+def test_hf_reader_and_convert_opt_on_the_card(dev, tmp_path):
+    """A tiny OPT state dict written as F16 safetensors (and a BF16
+    tensor beside it) read back by the port's parser as f32, bit for bit,
+    and converted onto the card: (in, out) kernels equal to the state
+    dict's transposed weights."""
+    import numpy as np
+    from sleekit_tpu_torch.models.hf import load_hf_checkpoint, load_state_dict
+    from sleekit_tpu_torch.models.zoo import tiny_test
+
+    cfg = tiny_test(n_layers=1)
+    g = torch.Generator().manual_seed(0)
+    d, ff, pre = cfg.d_model, cfg.d_ff, "model.decoder."
+    shapes = {pre + "embed_tokens.weight": (cfg.vocab_size, d),
+              pre + "embed_positions.weight": (cfg.max_seq_len + 2, d),
+              pre + "final_layer_norm.weight": (d,),
+              pre + "final_layer_norm.bias": (d,)}
+    lp = pre + "layers.0."
+    for n in ("q_proj", "k_proj", "v_proj", "out_proj"):
+        shapes[f"{lp}self_attn.{n}.weight"] = (d, d)
+        shapes[f"{lp}self_attn.{n}.bias"] = (d,)
+    for n in ("self_attn_layer_norm", "final_layer_norm"):
+        shapes[f"{lp}{n}.weight"] = (d,)
+        shapes[f"{lp}{n}.bias"] = (d,)
+    shapes.update({lp + "fc1.weight": (ff, d), lp + "fc1.bias": (ff,),
+                   lp + "fc2.weight": (d, ff), lp + "fc2.bias": (d,)})
+    sd = {k: torch.randn(*s, generator=g).to(torch.float16)
+          for k, s in shapes.items()}
+    _write_safetensors(tmp_path / "model.safetensors", sd)
+    xb = torch.randn(3, 5, generator=g).bfloat16()
+    _write_safetensors(tmp_path / "extra.safetensors", {"x": xb})
+    got = load_state_dict(str(tmp_path / "model.safetensors"))
+    for k, t in sd.items():
+        assert got[k].dtype == np.float32
+        assert np.array_equal(got[k], t.float().numpy()), k
+    x = load_state_dict(str(tmp_path / "extra.safetensors"))["x"]
+    assert np.array_equal(x, xb.float().numpy())
+    params = load_hf_checkpoint(cfg, "opt-tiny", str(tmp_path), device=dev)
+    q = params["layers"][0]["attn"]["q"]["kernel"]
+    assert q.device.type == dev.type and q.is_contiguous()
+    assert torch.equal(q.cpu(), sd[lp + "self_attn.q_proj.weight"].float().T)
+    assert torch.equal(params["embed"]["pos"].cpu(),
+                       sd[pre + "embed_positions.weight"].float())
+
+
+def test_sleekit_on_a_cuda_layer_matches_the_cpu(dev):
+    """The torch-facing ``Sleekit`` on a CUDA ``nn.Linear``: statistics on
+    the card, within 1e-5 of the same layer's on the CPU; quantized in
+    place on the card (basic, 4 bits) with the objective of the CPU's
+    within 1e-3 and at least 99% of the weights equal."""
+    import copy
+
+    import torch.nn as nn
+    from sleekit_tpu_torch import Sleekit
+
+    torch.manual_seed(0)
+    cpu_layer = nn.Linear(256, 128)
+    card_layer = copy.deepcopy(cpu_layer).to(dev)
+    a, b = Sleekit(cpu_layer), Sleekit(card_layer)
+    g = torch.Generator().manual_seed(1)
+    for _ in range(3):
+        x = torch.randn(64, 256, generator=g) + 0.1
+        a.add_batch(x)
+        b.add_batch(x.to(dev))
+    assert b.hessian.device.type == dev.type and a.count == b.count == 192
+    torch.testing.assert_close(b.hessian.cpu(), a.hessian, rtol=1e-5,
+                               atol=1e-5 * a.hessian.abs().max().item())
+    H = a.hessian.clone()
+    W = cpu_layer.weight.detach().clone()
+    a.quantize_basic(4)
+    b.quantize_basic(4)
+    assert card_layer.weight.device.type == dev.type
+    Qa, Qb = cpu_layer.weight.detach(), card_layer.weight.detach().cpu()
+
+    def objective(Q):
+        E = W - Q
+        return float(((E @ H) * E).sum())
+
+    assert abs(objective(Qb) - objective(Qa)) <= 1e-3 * objective(Qa)
+    assert (Qa == Qb).float().mean() >= 0.99
+
+
+def test_calibrate_spill_on_the_card(dev):
+    """Layer-outer calibration on the card (K4 at T 256 in f32): host
+    statistics in page-locked memory, equal to ``calibrate``'s on the
+    card, bit for bit."""
+    import numpy as np
+    from sleekit_tpu_torch.models import quantize as tq
+    from sleekit_tpu_torch.models.transformer import init_params
+    from sleekit_tpu_torch.models.zoo import tiny_test
+
+    cfg = tiny_test(n_layers=3, max_seq_len=256)
+    params = init_params(cfg, 0, device=dev)
+    rng = np.random.default_rng(0)
+    batches = [rng.integers(0, cfg.vocab_size, (2, 256)).astype(np.int32)
+               for _ in range(2)]
+    got = tq.calibrate_spill(cfg, params, batches)
+    want = tq.calibrate(cfg, params, batches)
+    assert list(got) == list(want)
+    for name, st in got.items():
+        for f in ("mean", "hessian", "count"):
+            x = getattr(st, f)
+            assert x.device.type == "cpu" and x.is_pinned()
+            assert torch.equal(x, getattr(want[name], f).cpu()), (name, f)

@@ -98,6 +98,32 @@ def test_entry_points_raise_without_cuda(tmp_path):
             make()
     LayerQuantizer.load(str(tmp_path / "layer"), device="cpu")
 
+    # The user's two commands and the HF reader.
+    from sleekit_tpu_torch.experiments import quantize_model_cli, serve_cli
+    from sleekit_tpu_torch.models.hf import load_hf_checkpoint
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_hf_checkpoint(cfg, "opt-tiny", str(tmp_path / "no-such-dir"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        quantize_model_cli.main([str(tmp_path / "q"), "--model", "tiny"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_cli.main([str(tmp_path), "--model", "tiny"])
+    assert not (tmp_path / "q").exists()
+
+
+def test_sleekit_follows_its_layer():
+    """``Sleekit`` has no device argument: its statistics and solve live on
+    the wrapped layer's device, so a layer on the CPU is its owner asking
+    for the CPU, and a CUDA layer keeps everything on the card."""
+    import torch.nn as nn
+
+    from sleekit_tpu_torch import Sleekit
+
+    stats = Sleekit(nn.Linear(8, 4))
+    stats.add_batch(torch.randn(3, 8))
+    assert stats.device == stats.hessian.device == stats.mean.device == (
+        torch.device("cpu"))
+
 
 @pytest.mark.parametrize("kwargs,error,match", [
     (dict(paged=True, page_size=4), ValueError, "page_size 4"),

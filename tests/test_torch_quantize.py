@@ -157,8 +157,33 @@ def test_free_stats_host_stats_and_pack_host():
     for kw in (dict(layer_parallel=True), dict(mesh=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP.*parallel"):
             tq.quantize_model(tcfg, tp, kept, cfg, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*calibrate_spill"):
-        tq.calibrate_spill(tcfg, tp, [])
+
+
+@pytest.mark.parametrize("family", list(FAMILIES))
+def test_calibrate_spill_matches_calibrate_and_jax(family):
+    """Layer-outer calibration with host statistics: the port's
+    ``calibrate`` bit for bit (each layer's input comes from the same ops,
+    its statistics updated batch by batch in the same order), on the CPU,
+    in layer order; and the JAX package's ``calibrate_spill`` within its
+    own test's tolerance (rtol and atol 1e-6; tests/test_models.py)."""
+    jcfg, jp, tcfg, tp = _models(family, n_layers=3)
+    rng = np.random.RandomState(0)
+    batches = [rng.randint(0, tcfg.vocab_size, (2, 16)).astype(np.int32)
+               for _ in range(3)]
+    got = tq.calibrate_spill(tcfg, tp, batches)
+    want = tq.calibrate(tcfg, tp, batches)
+    jwant = jq.calibrate_spill(jcfg, jp, batches)
+    assert list(got) == list(want) == list(jwant) == ttr.layer_names(tcfg)
+    for name, st in got.items():
+        for f in ("mean", "hessian", "count"):
+            x = getattr(st, f)
+            assert x.device.type == "cpu"
+            assert torch.equal(x, getattr(want[name], f)), (name, f)
+        for f in ("mean", "hessian"):
+            np.testing.assert_allclose(getattr(st, f).numpy(),
+                                       getattr(jwant[name], f), rtol=1e-6,
+                                       atol=1e-6, err_msg=f"{name} {f}")
+        assert int(st.count) == int(jwant[name].count)
 
 
 def test_skq2_round_trip_serves_in_jax(tmp_path):
