@@ -2,14 +2,17 @@
 
     python3 chip_smoke.py
 
-1. builds the port's CUDA kernels (K1-K15) from ``sleekit_tpu_torch/csrc``,
-   one nvcc per source, all at once, and prints the build's time and
-   ptxas's registers and spills of K1/K6/K7's decode kernel
-   (``pair_stream_kernel``), of the main path's ``decode_kernel``
-   instantiations (K3 over the slot cache, K5 over the pool: bf16 q, int8
-   cache, bf16 scales), of the 4-bit 'plane' instantiations of both
-   routes that the NF4 (K8) and int4 'plane' (K9) paths run, and of the
-   main path's ``append_kernel`` instantiations (K10 at prefill and T = 1);
+1. builds the port's CUDA kernels (K1-K15, K8f, K9f) from
+   ``sleekit_tpu_torch/csrc``, one nvcc per source, all at once, and
+   prints the build's time and ptxas's registers and spills of
+   K1/K6/K7's decode kernel (``pair_stream_kernel``), of the main path's
+   ``decode_kernel`` instantiations (K3 over the slot cache, K5 over the
+   pool: bf16 q, int8 cache, bf16 scales), of the 4-bit 'plane'
+   instantiations of both routes that the NF4 (K8) and int4 'plane' (K9)
+   paths run, of the 4-bit f32 'plane' instantiations of both routes
+   (K8f's table and K9f's grid, streaming at 1, 2, 4 and 8 tokens and
+   tiled) and of the main path's ``append_kernel`` instantiations (K10 at
+   prefill and T = 1);
 2. holds each kernel against its plain PyTorch version on the card at the
    shapes OPT-1.3B serving gives it, and times the kernel, the plain
    version and, where one exists, one PyTorch library call computing the
@@ -70,6 +73,11 @@
 6. holds K6 ('pair3x'), K7 ('pair3'), K8 (NF4 'plane') and K9 (uniform
    int4 'plane') against their plain versions on the four projections of
    an OPT-1.3B layer at M = 8, 64 and 1024, timed as in 2 (K1 too, in 2);
+   and K8f (NF4; the 8-bit affine grid at M = 8) and K9f (uniform int4)
+   with f32 x at M = 2, 8, 512 and 2048 within 1e-5 of the largest
+   |output| of their plain versions (TF32 off), timed as in 2 beside the
+   plain version, a ``torch.matmul`` of x by the dequantized f32 weight
+   and the bound at the f32 rate outside the tensor cores;
 7. serves the same 8 prompts through the slot Engine with the int3
    'pair3x' model, the same indices repacked as 'pair3', and an NF4
    'plane' model, all at full width and depth (16 new tokens each), on
@@ -123,22 +131,33 @@
    and their index) into the temporary directory, holds
    ``load_hf_checkpoint`` to the init weights rounded to f16, bit for bit,
    and ``calibrate_spill`` to ``calibrate`` (max |diff| 0); quantizes it
-   with the CLI at full depth (light, 4 bits, ``--eval-ppl``: 192 K4
-   launches in calibration, 144 linears solved once, all int4 'pair' on
-   reload, ``decode_perplexity`` within PPL_RTOL of ``perplexity``, the
-   card's peak memory); serves the checkpoint with ``serve_cli`` (int8
-   KV, 8 x 256-token prompts, 32 new tokens), slot and ``--paged``: the
-   launches replay-counted (K3 or K5 24 a step, K4 and K10 24 a prefill
-   group, no K1 at f32), the cold and steady runs' greedy tokens equal;
-   serves the same checkpoint on the bf16 main path as 3 does (K1, K2,
-   K3, K4, K10); and runs the CLI twice more at 4 layers, with a
-   ``QUANT_HBM_LIMIT`` computed from the CLI's own estimates: once
-   spilling (``calibrate_spill``, host statistics, ``pack_host``) and once
-   shedding the largest statistics to a background drain; each run's
-   packed words bit for bit the full run's, no statistics left behind;
-11. prints the kernels line (with ``quantize`` and ``cli`` entries beside
-   ``engine``), the card's name and power limit, and, last, the result
-   line.
+   with ``--codebook nf4 --eval-ppl`` at full depth (light, 4 bits: 192
+   K4 launches in calibration, 144 linears solved once, all NF4 'plane'
+   on reload; the scorings' launches counted, K8f 144 a forward batch
+   and 144 a decode step, replay-counted, and ``dequant_matmul_ref``
+   raising for a 'plane' linear on the card; ``decode_perplexity``
+   within PPL_RTOL of ``perplexity``; the card's peak memory); serves
+   that checkpoint with ``serve_cli`` (int8 KV, 8 x 256-token prompts,
+   32 new tokens), slot and ``--paged``: the launches replay-counted (K3
+   or K5 24 a step, K4 and K10 24 a prefill group, K8f 144 a step and a
+   prefill group, nothing else), the cold and steady runs' greedy tokens
+   equal, slot and paged equal, and the slot run's prefill and decode
+   logits, kernels vs plain versions, within a relative L2 of 1e-5
+   through layer 1 (measured through 24); then at 4 layers (CLI_DEPTH)
+   quantizes with ``--codebook lloyd --eval-ppl`` (the same checks), and
+   with the uniform codebook (int4 'pair', ``--eval-ppl`` on the plain
+   route at f32), serves that checkpoint with ``serve_cli`` (K3 or K5, K4
+   and K10 only) and on the bf16 main path as 3 does (K1, K2, K3, K4,
+   K10), repacks its indices as 'plane' and scores ``perplexity`` on K9f
+   (24 a batch) within 1e-5 relative of the 'pair' weights on the plain
+   route, and runs the CLI twice more with a ``QUANT_HBM_LIMIT`` computed
+   from the CLI's own estimates: once spilling (``calibrate_spill``, host
+   statistics, ``pack_host``) and once shedding the largest statistics to
+   a background drain; each run's packed words bit for bit the uniform
+   run's, no statistics left behind;
+11. prints the kernels line (K1-K15, K8f and K9f, with ``quantize`` and
+   ``cli`` entries beside ``engine``), the card's name and power limit,
+   and, last, the result line.
 
 Any failure raises; there is no CPU branch and no fallback. It needs a
 CUDA device and exits non-zero without one.
@@ -176,6 +195,7 @@ from sleekit_tpu_torch import solver as solver_mod  # noqa: E402
 from sleekit_tpu_torch.hessian import remove_input_bias  # noqa: E402
 from sleekit_tpu_torch.models.data import (  # noqa: E402
     calibration_batches, synthetic_stream)
+from sleekit_tpu_torch.models import eval as eval_mod  # noqa: E402
 from sleekit_tpu_torch.models.eval import (  # noqa: E402
     DecodeGraph, chunk_tokens, decode_perplexity, decode_scan, perplexity)
 from sleekit_tpu_torch.models.fake_quant import random_packed_params  # noqa: E402
@@ -194,7 +214,7 @@ from sleekit_tpu_torch.ops import paged_attention as paged  # noqa: E402
 from sleekit_tpu_torch.ops.attention import (  # noqa: E402
     K3, K4, K10, K11, K12, K13)
 from sleekit_tpu_torch.ops.dequant_matmul import (  # noqa: E402
-    K1, K2, K6, K7, K8, K9)
+    K1, K2, K6, K7, K8, K8f, K9, K9f)
 from sleekit_tpu_torch.ops.pack import (  # noqa: E402
     PackedLinear, pack_indices, unpack_indices)
 from sleekit_tpu_torch.ops.paged_attention import K5, K14, K15  # noqa: E402
@@ -251,6 +271,21 @@ def plane_rule(name: str):
     kern = "K8" if m.group(1) == "1" else "K9"
     return (f"{kern} mma {m.group(2)}x{m.group(3)}x{m.group(4)}"
             if m.group(2) else f"{kern} stream")
+
+
+def f32_rule(name: str):
+    """The 4-bit instantiations of K8f/K9f's two routes
+    (``csrc/plane_f32.cu``), read from the mangled name: "K8f stream
+    MT=2" (``f32_stream_kernel<4, true, 2>``: the NF4 table, up to 2
+    tokens), "K9f tile" (``f32_tile_kernel<4, false>``), ...; None for
+    the others."""
+    m = re.search(r"f32_(stream|tile)_kernelILi4ELb([01])E(?:Li(\d)E)?",
+                  name)
+    if m is None:
+        return None
+    kern = "K8f" if m.group(2) == "1" else "K9f"
+    return f"{kern} {m.group(1)}" + (f" MT={m.group(3)}" if m.group(3)
+                                     else "")
 
 
 def append_rule(name: str):
@@ -435,6 +470,118 @@ def check_linears(dev, cfg, names):
                     f"| kernel {ms:.4f} ms plain {plain_ms:.3f} ms matmul "
                     f"{lib_ms:.4f} ms bound {b_ms:.4f} ms ({b_by})")
                 del words
+    return cases
+
+
+# K8f/K9f's M on the f32 path: decode_perplexity's batch 2, serve_cli's
+# 8 slots, eval_ppl's forward (2 x 256) and serve_cli's 8 x 256 prefill.
+F32_MS = (2, 8, 512, 2048)
+
+
+def check_linears_f32(dev, cfg):
+    """K8f (the NF4 table; the 8-bit affine grid once, at M = 8) and K9f
+    (the uniform int4 grid) on random 'plane' words of the four
+    projections of an OPT-1.3B layer, with f32 x, at F32_MS: within 1e-5
+    of the largest |output| of the plain version (f32, the table
+    unrounded; the plain product with TF32 off), timed as
+    check_linears times (CUDA-graph replays over rotating copies), beside
+    the plain version and one ``torch.matmul`` of x by the dequantized
+    f32 weight (TF32 off). The bound is the larger of the bytes over
+    3.35 TB/s and the operations over the f32 rate outside the tensor
+    cores (TF32 misses 1e-5)."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("K8f/K9f: the plain product must run without "
+                             "TF32")
+    gd = torch.Generator(device=dev).manual_seed(16)
+    d, ff = cfg.d_model, cfg.d_ff
+    shapes = [("qkv", d, 3 * d), ("o", d, d), ("fc1", d, ff),
+              ("fc2", ff, d)]
+    nf4 = Codebook.nf4().values.to(dev)
+    grid8 = (2.0 / 255, -1.0)
+    runs = [("K8f", "", m) for m in F32_MS] + [("K8f", " (8-bit grid)", 8)]
+    runs += [("K9f", "", m) for m in F32_MS]
+    cases = {"K8f": [], "K9f": []}
+    for kern, label, m in runs:
+        for name, K, N in shapes:
+            nbits = 8 if label else 4
+            kw_rows = -(-K // (32 * (32 // nbits))) * 32
+            n_copy = copies_for(kw_rows * N * 4 + m * K * 4)
+            words = [torch.randint(-2 ** 31, 2 ** 31, (kw_rows, N),
+                                   dtype=torch.int64, device=dev,
+                                   generator=gd).to(torch.int32)
+                     for _ in range(n_copy)]
+            scale = 0.02 + 0.002 * torch.rand(N, device=dev, generator=gd)
+            bias = 0.01 * torch.randn(N, device=dev, generator=gd)
+            x = torch.randn(m, K, device=dev, generator=gd)
+            if kern == "K8f":
+                fn, plain = dm.plane_lut_matmul, dm.plane_lut_matmul_plain
+                kw = dict(nbits=nbits, k=K, affine=grid8 if label else None)
+                extra = (nf4,)
+                table = dm._k8_table(nf4, nbits, kw["affine"],
+                                     rounded=False).to(dev)
+            else:
+                fn, plain = (dm.plane_affine_matmul,
+                             dm.plane_affine_matmul_plain)
+                kw = dict(nbits=4, k=K, a_aff=2.0 / 15 * 16,
+                          b_aff=-1.0 - 32 / 15)
+                extra = ()
+                table = torch.linspace(-1.0, 1.0, 16, device=dev)
+
+            def call(f, i, words=words, scale=scale, bias=bias, x=x, kw=kw,
+                     extra=extra):
+                return f(x, words[i], scale, bias, *extra, **kw)
+            kernel = dm.K8f if kern == "K8f" else dm.K9f
+            before = kernel.launches
+            got = call(fn, 0)
+            want = call(plain, 0)
+            torch.cuda.synchronize()
+            if kernel.launches != before + 1:
+                raise AssertionError(f"{kern}: a call did not launch it")
+            err = (got - want).abs().max().item()
+            top = want.abs().max().item()
+            what = f"{kern} {name} M={m}{label}"
+            if (got.dtype != torch.float32 or not torch.isfinite(got).all()
+                    or not err <= 1e-5 * top):
+                raise AssertionError(f"{what}: max |err| {err:.3g} over 1e-5 "
+                                     f"of the largest output {top:.3g}")
+            ms = cuda_ms(lambda i: call(fn, i), n_copy)
+            plain_ms = cuda_ms(lambda i: call(plain, i), n_copy, iters=5,
+                               warmup=1, graph=False)
+            del words[1:]
+            lib_copy = copies_for(K * N * 4)
+            wdeq = [table[unpack_indices(
+                torch.randint(-2 ** 31, 2 ** 31, (kw_rows, N),
+                              dtype=torch.int64, device=dev,
+                              generator=gd).to(torch.int32),
+                nbits, K, "plane").long()] * scale for _ in range(lib_copy)]
+            lib_ms = cuda_ms(lambda i: torch.matmul(x, wdeq[i]), lib_copy)
+            del wdeq, words
+            nbytes = (m * K * 4 + kw_rows * N * 4 + 2 * N * 4 + m * N * 4
+                      + (16 * 4 if kern == "K8f" and not label else 0))
+            flops = 2.0 * m * K * N
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = flops / F32_FLOP_PER_S * 1e3
+            b_ms, b_by = max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                               else "operations")
+            cases[kern].append(dict(
+                case=f"{name} M={m}{label}", max_abs_err=err,
+                rel_err=err / top, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                bytes=nbytes, flops=flops))
+            log(f"{kern} {name:4s} M={m:5d} K={K} N={N}{label}: err "
+                f"{err:.3g} ({err / top:.3g} of max) | kernel {ms:.4f} ms "
+                f"plain {plain_ms:.3f} ms matmul f32 {lib_ms:.4f} ms bound "
+                f"{b_ms:.4f} ms ({b_by}, f32 {F32_FLOP_PER_S / 1e12:.0f} "
+                "TFLOP/s)")
+    for kern, cs in cases.items():
+        for m in F32_MS:
+            mc = [c for c in cs if c["case"].endswith(f" M={m}")]
+            log(f"{kern} one layer's four projections at M={m}: kernel "
+                f"{sum(c['ms'] for c in mc):.4f} ms, plain "
+                f"{sum(c['plain_ms'] for c in mc):.3f} ms, matmul f32 "
+                f"{sum(c['library_ms'] for c in mc):.4f} ms, bound "
+                f"{sum(c['bound_ms'] for c in mc):.4f} ms "
+                f"({sum(c['bytes'] for c in mc)} bytes)")
     return cases
 
 
@@ -1152,11 +1299,12 @@ def group_tokens(prompts, dev):
     return torch.as_tensor(toks, dtype=torch.int64, device=dev), len(group)
 
 
-def prefill_logits(dev, cfg, params, toks, n_layers, use_kernel):
+def prefill_logits(dev, cfg, params, toks, n_layers, use_kernel,
+                   cache_dtype=torch.int8):
     """Logits of the group's prompts (``toks``: group_tokens' pair)."""
     rows, n = toks
     c = dataclasses.replace(cfg, n_layers=n_layers)
-    cache = init_kv_cache(c, rows.shape[0], 256, torch.int8, device=dev)
+    cache = init_kv_cache(c, rows.shape[0], 256, cache_dtype, device=dev)
     logits, _ = prefill(c, dict(params, layers=params["layers"][:n_layers]),
                         rows, cache, use_kernel=use_kernel)
     return logits[:n].float()
@@ -2193,7 +2341,9 @@ def profile_solve(cfg, params, st, card):
 CLI_ARGS = ["--preset", "light", "--nbits", "4"]
 SERVE_ARGS = ["--kv", "int8", "--random", "8", "--prompt-len", "256",
               "--max-new-tokens", "32"]
-CLI_DEPTH = 4     # the spill and drain runs' layers of OPT-1.3B
+# The lloyd, uniform, spill and drain runs' layers of OPT-1.3B (the NF4 run
+# takes all 24).
+CLI_DEPTH = 4
 
 
 def hf_opt_state_dict(params, n_layers, dtype=torch.float16):
@@ -2323,12 +2473,54 @@ def cli_calibrations(cfg, params, card):
             "calibrate_spill_s": spill_s}
 
 
+def plane_on_kernels():
+    """A context in which ``dequant_matmul_ref`` raises for a 'plane'
+    linear on a CUDA tensor: every such linear must run K8/K9 or K8f/K9f,
+    never the plain route."""
+    def wrap(inner):
+        def ref(x, w):
+            if x.is_cuda and w.layout == "plane":
+                raise AssertionError(
+                    f"a 'plane' linear ({w.in_features} x "
+                    f"{w.out_features}, {x.dtype}) took dequant_matmul_ref "
+                    "on the card")
+            return inner(x, w)
+        return ref
+    return patched(dm, "dequant_matmul_ref", wrap)
+
+
+@contextlib.contextmanager
+def eval_launches(record):
+    """Each ``perplexity`` and ``decode_perplexity`` call inside the block
+    (the CLI imports them from ``models/eval.py`` when it runs) counted
+    from zeroed launch counts: (name, its batches, its launches, through
+    the replay accounting) appended to ``record``."""
+    def counting(name):
+        def wrap(inner):
+            def fn(cfg, params, batches, *a, **kw):
+                batches = list(batches)
+                kernels.reset_launch_counts()
+                out = inner(cfg, params, batches, *a, **kw)
+                torch.cuda.synchronize()
+                record.append((name, batches,
+                               {k: n for k, n in counts().items() if n}))
+                return out
+            return fn
+        return wrap
+    with patched(eval_mod, "perplexity", counting("perplexity")), \
+            patched(eval_mod, "decode_perplexity",
+                    counting("decode_perplexity")):
+        yield
+
+
 def quantize_cli(out, model, hf_dir, extra=(), limit=None):
     """``quantize_model_cli.main`` as a user runs it (``limit``: the
     ``QUANT_HBM_LIMIT`` it reads), with the launches of its calibration
-    and the card's peak memory. Returns (its result, calibration
-    launches, peak bytes, seconds)."""
-    calib = {}
+    and of each of its perplexity scorings (``eval_launches``), the card's
+    peak memory, and ``dequant_matmul_ref`` raising for a 'plane' linear
+    on the card. Returns (its result, calibration launches, the
+    scorings' launches, peak bytes, seconds)."""
+    calib, evals = {}, []
 
     def count_calibration(inner):
         def wrapped(*a, **kw):
@@ -2346,14 +2538,15 @@ def quantize_cli(out, model, hf_dir, extra=(), limit=None):
     t0 = time.perf_counter()
     try:
         with patched(quant_mod, "calibrate", count_calibration), \
-                patched(quant_mod, "calibrate_spill", count_calibration):
+                patched(quant_mod, "calibrate_spill", count_calibration), \
+                eval_launches(evals), plane_on_kernels():
             res = quantize_model_cli.main(
                 [out, "--model", model, "--checkpoint", hf_dir, *CLI_ARGS,
                  *extra])
     finally:
         os.environ.pop("QUANT_HBM_LIMIT", None)
     torch.cuda.synchronize()
-    return (res, calib, torch.cuda.max_memory_allocated(),
+    return (res, calib, evals, torch.cuda.max_memory_allocated(),
             time.perf_counter() - t0)
 
 
@@ -2370,14 +2563,96 @@ def check_cli_reports(res, cfg, what):
                              f"solves: {res['stats_left']}")
 
 
-def packed_linears(path, cfg):
-    """The packed linears of a checkpoint, by name, on the CPU."""
+def check_cli_eval(res, evals, cfg, kern, what):
+    """The CLI's ``--eval-ppl``: its three scorings launched exactly the
+    fp32 forward's K4 (one a layer a batch), the quantized forward's K4
+    and, with ``kern`` (K8f: every linear 'plane' at f32), 6 ``kern`` a
+    layer a batch, and the decode scoring's K3 (one a layer a step) and 6
+    ``kern`` a layer a step (replay-counted; without ``kern`` the linears
+    take the plain route, which launches nothing); decode within
+    PPL_RTOL of forward. Returns (relative difference, launches)."""
+    L = cfg.n_layers
+    names = [e[0] for e in evals]
+    if names != ["perplexity", "perplexity", "decode_perplexity"]:
+        raise AssertionError(f"cli {what}: scorings {names}")
+    nb = len(evals[1][1])
+    steps = sum(np.asarray(b).shape[1] - 1 for b in evals[2][1])
+    lin = {kern: 6 * L} if kern else {}
+    want = [{"K4": L * nb},
+            {"K4": L * nb, **{k: n * nb for k, n in lin.items()}},
+            {"K3": L * steps, **{k: n * steps for k, n in lin.items()}}]
+    got = [e[2] for e in evals]
+    if got != want:
+        raise AssertionError(f"cli {what}: the scorings launched {got}, not "
+                             f"{want}")
+    ppl = res["ppl"]
+    rel = abs(ppl["decode"] - ppl["quantized"]) / ppl["quantized"]
+    if not all(math.isfinite(v) for v in (ppl["fp32"], ppl["quantized"],
+                                          ppl["decode"])) or not (
+            rel <= PPL_RTOL):
+        raise AssertionError(f"cli {what}: perplexities {ppl}: decode vs "
+                             f"forward {rel:.4g} over {PPL_RTOL}")
+    return rel, dict(zip(("fp32", "quantized", "decode"), got))
+
+
+def run_quantize_cli(out, model, hf_dir, cfg, kind, card, extra=(),
+                     kern=None):
+    """The quantize command with ``--eval-ppl`` (and ``extra``) on
+    ``model`` (``cfg``): calibration's K4 (one a layer a batch), every
+    linear solved once and of ``kind`` on reload, the scorings as
+    check_cli_eval holds them, no spill or offload (80 GB holds it).
+    Returns (metrics, the packed linears)."""
+    res, calib, evals, peak, secs = quantize_cli(
+        out, model, hf_dir, ["--eval-ppl", *extra])
+    want_k4 = {"K4": cfg.n_layers * CALIB_SAMPLES // CALIB_BATCH}
+    if calib != want_k4:
+        raise AssertionError(f"cli {kind}: calibration launched {calib}, not "
+                             f"{want_k4}")
+    check_cli_reports(res, cfg, f"{kind} run")
+    if res["spill"] or res["offload"] != "none":
+        raise AssertionError(f"cli {kind}: the run spilled or offloaded "
+                             f"({res['spill']}, {res['offload']})")
+    rel, launches = check_cli_eval(res, evals, cfg, kern, kind)
+    words = packed_linears(out, cfg, kind)
+    ppl = res["ppl"]
+    m = dict(seconds=secs, peak_bytes=peak, timer=res["timer"],
+             total_error=res["total_error"], calibrate_launches=calib,
+             eval_launches=launches, ppl=ppl, ppl_decode_rel=rel,
+             peak_estimate=res["peak"], layers=cfg.n_layers)
+    log(f"cli: quantize_model_cli {kind} (f32 OPT-1.3B, {cfg.n_layers} "
+        f"layers, from the HF checkpoint, light, 4 bits, --eval-ppl): "
+        f"{secs:.1f} s; sections "
+        + json.dumps({k: v["total_s"] for k, v in res["timer"].items()})
+        + f"; calibration launches {calib}; {len(res['reports'])} linears, "
+        f"total error {res['total_error']:.6g}; perplexity fp32 "
+        f"{ppl['fp32']:.2f}, quantized {ppl['quantized']:.2f}, decode "
+        f"{ppl['decode']:.2f} ({rel:.3g} apart, <= {PPL_RTOL}; the 0.01-ppl "
+        f"warning {'fired' if ppl['warned'] else 'silent'}); the scorings' "
+        f"launches {launches}; every linear {kind} on reload; peak device "
+        f"memory {peak / 1e9:.3f} GB (the CLI's simulated solve peak "
+        f"{res['peak'] / 1e9:.3f} GB) ({card})")
+    return m, words
+
+
+LINEAR_KINDS = {
+    "int4 'pair'": lambda p: p.layout == "pair" and p.nbits == 4,
+    "NF4 'plane'": lambda p: (
+        p.layout == "plane" and p.nbits == 4 and p.affine is None
+        and torch.equal(p.lut, Codebook.nf4().values)),
+    "lloyd 'plane'": lambda p: (
+        p.layout == "plane" and p.nbits == 4 and p.affine is None
+        and p.lut.numel() == 16),
+}
+
+
+def packed_linears(path, cfg, kind="int4 'pair'"):
+    """The packed linears of a checkpoint, by name, on the CPU; each must
+    be of ``kind`` (LINEAR_KINDS)."""
     params, _ = load_packed_params(path, cfg=cfg, device="cpu")
     out = {n: tr.get_linear_param(params, n) for n in tr.layer_names(cfg)}
     for n, p in out.items():
-        if not (isinstance(p, PackedLinear) and p.layout == "pair"
-                and p.nbits == 4):
-            raise AssertionError(f"cli: {path}'s {n} is not int4 'pair'")
+        if not (isinstance(p, PackedLinear) and LINEAR_KINDS[kind](p)):
+            raise AssertionError(f"cli: {path}'s {n} is not {kind}")
     return out
 
 
@@ -2394,68 +2669,133 @@ def same_words(got, want, what):
             bad.append(f"{n}: {words} of {p.packed.numel()} words, scale "
                        f"max |diff| {sc:.3g}, bias {bias:.3g}")
     if bad:
-        raise AssertionError(f"cli: {what} differ from the full run's: "
+        raise AssertionError(f"cli: {what} differ from the uniform run's: "
                              + "; ".join(bad))
     log(f"cli: {what}: every packed word, scale and bias of layers "
-        f"0-{CLI_DEPTH - 1} equal to the full run's, bit for bit")
+        f"0-{CLI_DEPTH - 1} equal to the uniform run's, bit for bit")
 
 
-def serve_cli_runs(ckpt, cfg, card):
+def f32_rel(got, want, what, tol=None):
+    """Relative L2 of f32 logits and their argmax agreement; raises if
+    ``got`` is not finite or, with ``tol``, the L2 is over it."""
+    got, want = got.float(), want.float()
+    rel = ((got - want).norm() / want.norm()).item()
+    if not torch.isfinite(got).all() or (tol is not None
+                                         and not rel <= tol):
+        raise AssertionError(f"{what}: relative L2 {rel:.4g} over {tol}")
+    return rel, (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+
+
+def check_f32_logits(dev, cfg, engine, comps, what):
+    """The Engine's f32 checkpoint (every linear K8f) against the plain
+    versions on the card (use_kernel=False: the plain K8f, attention and
+    KV write, TF32 off): the prefill logits of 4 of the served 256-token
+    prompts and one decode step's (batch 8, from a clone of the Engine's
+    int8 cache, at the last completion position), held to a relative L2
+    of 1e-5 through layer 1 (f32 sums in another order; the prefill over
+    an f32 cache, where no int8 rounding can flip) and measured through
+    all layers (the prefill over the served int8 cache). Returns
+    metrics."""
+    params = engine.params
+    rows = torch.as_tensor(np.stack([c.tokens[:256] for c in comps[:4]]),
+                           dtype=torch.int64, device=dev)
+    toks = (rows, 4)
+    got, want = (prefill_logits(dev, cfg, params, toks, 1, k, torch.float32)
+                 for k in (True, False))
+    pre1, _ = f32_rel(got, want, f"{what} prefill logits through layer 1",
+                      1e-5)
+    got, want = (prefill_logits(dev, cfg, params, toks, cfg.n_layers, k)
+                 for k in (True, False))
+    pre_full, pre_agree = f32_rel(got, want, f"{what} prefill logits")
+    del got, want
+    tok = last_tokens(comps, dev)
+    pos = max(len(c.tokens) for c in comps) - 1
+    one = dataclasses.replace(cfg, n_layers=1)
+    one_p = dict(params, layers=params["layers"][:1])
+    got, want = (decode_step(one, one_p, tok, {k: v.clone() for k, v in
+                                               engine.cache.items()},
+                             pos, use_kernel=k)[0] for k in (True, False))
+    dec1, _ = f32_rel(got, want, f"{what} decode logits through layer 1",
+                      1e-5)
+    dec_full, dec_agree = check_decode(cfg, params, engine.cache, tok, pos,
+                                       f"{what} ", hold=False)
+    log(f"{what}: kernels vs plain versions on the card, relative L2 "
+        f"through layer 1: prefill {pre1:.3g}, decode {dec1:.3g} (<= 1e-5); "
+        f"through {cfg.n_layers} layers (measured): prefill {pre_full:.3g} "
+        f"(argmax agreement {pre_agree:.4f}), decode {dec_full:.3g} "
+        f"({dec_agree:.4f})")
+    return dict(prefill_layer1_rel_l2=pre1, decode_layer1_rel_l2=dec1,
+                prefill_full_rel_l2=pre_full, prefill_full_agree=pre_agree,
+                decode_full_rel_l2=dec_full, decode_full_agree=dec_agree)
+
+
+def serve_cli_runs(dev, ckpt, model, cfg, card, what, kern=None):
     """``serve_cli.main`` on the checkpoint, slot and ``--paged``, int8
     KV, 8 random 256-token prompts, 32 new tokens, cold run then steady
-    run: the launches of both through the replay accounting (K3 or K5 24
-    a decode step; K4 and K10 24 a prefill group; no K1 or K2 at f32), the
-    same greedy tokens cold and steady, and slot and paged. Returns
-    metrics."""
+    run: the launches of both through the replay accounting (K3 or K5 one
+    a layer a decode step; K4 and K10 one a layer a prefill group; with
+    ``kern``, K8f, 6 a layer a step and a prefill group; nothing else at
+    f32, and ``dequant_matmul_ref`` never for a 'plane' linear), the same
+    greedy tokens cold and steady, and slot and paged; with ``kern``, the
+    slot run's logits as check_f32_logits holds them. Returns metrics."""
     L, m, tokens = cfg.n_layers, {}, {}
+    lin = {kern: 6 * L} if kern else {}
     for paged in (False, True):
-        what = "paged" if paged else "slot"
+        mode = "paged" if paged else "slot"
         kernels.reset_launch_counts()
         prefills = [0.0, 0]
-        with timed(engine_mod, "prefill", prefills):
-            res = serve_cli.main([ckpt, "--model", "opt-1.3b", *SERVE_ARGS]
+        with timed(engine_mod, "prefill", prefills), plane_on_kernels():
+            res = serve_cli.main([ckpt, "--model", model, *SERVE_ARGS]
                                  + (["--paged"] if paged else []))
         launches = {k: n for k, n in counts().items() if n}
         attn_kernel = "K5" if paged else "K3"
-        steps = check_replays(res["engine"], launches, {attn_kernel: L},
-                              {"K10": L}, prefills[1], f"cli serve {what}")
+        steps = check_replays(res["engine"], launches,
+                              {attn_kernel: L, **lin}, {"K10": L, **lin},
+                              prefills[1], f"cli serve {what} {mode}")
         if launches.get("K4") != L * prefills[1] or set(launches) != {
-                attn_kernel, "K4", "K10"}:
-            raise AssertionError(f"cli serve {what}: launched {launches} in "
-                                 f"{prefills[1]} prefill groups")
+                attn_kernel, "K4", "K10", *lin}:
+            raise AssertionError(f"cli serve {what} {mode}: launched "
+                                 f"{launches} in {prefills[1]} prefill "
+                                 f"groups")
         cold = [c.new_tokens.tolist() for c in res["cold"]]
         if [c.new_tokens.tolist() for c in res["steady"]] != cold or any(
                 len(t) != 32 for t in cold):
-            raise AssertionError(f"cli serve {what}: the steady run's greedy "
-                                 f"tokens differ from the cold run's")
-        tokens[what] = cold
-        m[what] = dict(cold_s=res["cold_s"], steady_s=res["steady_s"],
+            raise AssertionError(f"cli serve {what} {mode}: the steady run's "
+                                 f"greedy tokens differ from the cold run's")
+        tokens[mode] = cold
+        m[mode] = dict(cold_s=res["cold_s"], steady_s=res["steady_s"],
                        cold_tokens_per_s=res["cold_tokens_per_s"],
                        steady_tokens_per_s=res["steady_tokens_per_s"],
                        prefill_groups=prefills[1], decode_steps=steps,
                        launches=launches)
-        log(f"cli: serve_cli {what} (f32 OPT-1.3B, int8 KV, 8 x 256-token "
-            f"prompts, 32 new tokens): cold {res['cold_s']:.3f} s "
-            f"({res['cold_tokens_per_s']:.1f} tokens/s), steady "
-            f"{res['steady_s']:.3f} s ({res['steady_tokens_per_s']:.1f} "
-            f"tokens/s); cold and steady greedy tokens equal; launches "
-            f"{launches} ({prefills[1]} prefill groups, {steps} decode "
-            f"steps) ({card})")
+        log(f"cli: serve_cli {what} {mode} (f32 OPT-1.3B, {L} layers, int8 "
+            f"KV, 8 x 256-token prompts, 32 new tokens): cold "
+            f"{res['cold_s']:.3f} s ({res['cold_tokens_per_s']:.1f} "
+            f"tokens/s), steady {res['steady_s']:.3f} s "
+            f"({res['steady_tokens_per_s']:.1f} tokens/s); cold and steady "
+            f"greedy tokens equal; launches {launches} ({prefills[1]} "
+            f"prefill groups, {steps} decode steps) ({card})")
+        if kern and not paged:
+            m["logits"] = check_f32_logits(dev, cfg, res["engine"],
+                                           res["steady"],
+                                           f"cli serve {what}")
         del res
     if tokens["paged"] != tokens["slot"]:
-        raise AssertionError("cli serve: the paged run's tokens differ from "
-                             "the slot run's")
-    log("cli: serve_cli paged and slot: the same greedy tokens")
+        raise AssertionError(f"cli serve {what}: the paged run's tokens "
+                             f"differ from the slot run's")
+    log(f"cli: serve_cli {what} paged and slot: the same greedy tokens")
     return m
 
 
 def serve_bf16(dev, ckpt, card):
-    """The CLI's checkpoint on the main path's bf16 route: loaded onto
-    bf16 OPT-1.3B (the dense leaves in bf16), q|k|v fused, the head packed
-    int8, served through the slot Engine as ``serve`` serves the int4
-    model (K1, K2, K3, K4, K10; prefill logits, kernels vs plain versions,
-    relative L2 <= 2^-6). Returns metrics."""
-    cfg = opt_1b3(dtype=torch.bfloat16)
+    """The uniform checkpoint (CLI_DEPTH layers) on the main path's bf16
+    route: loaded onto bf16 OPT-1.3B of that depth (the dense leaves in
+    bf16), q|k|v fused, the head packed int8, served through the slot
+    Engine as ``serve`` serves the int4 model (K1, K2, K3, K4, K10;
+    prefill logits, kernels vs plain versions, relative L2 <= 2^-6).
+    Returns metrics."""
+    cfg = dataclasses.replace(opt_1b3(dtype=torch.bfloat16),
+                              n_layers=CLI_DEPTH)
     params, _ = load_packed_params(ckpt, cfg=cfg, device=dev)
 
     def bf16(tree):
@@ -2475,15 +2815,60 @@ def serve_bf16(dev, ckpt, card):
     return served
 
 
+def run_k9f_perplexity(dev, ckpt, cfg, card):
+    """K9f on a path: the uniform checkpoint's indices repacked as 'plane'
+    (uniform codebook: every linear K9f at f32), scored by ``perplexity``
+    on 2 batches of 2 x 256 synthetic tokens (6 K9f and one K4 a layer a
+    batch; ``dequant_matmul_ref`` never for a 'plane' linear), within 1e-5
+    relative of the same weights' 'pair' perplexity on the plain route
+    (the same function: the kernel folds over C - 1.5, the plain route
+    multiplies by the dequantized weight). Returns metrics."""
+    L = cfg.n_layers
+    params, _ = load_packed_params(ckpt, cfg=cfg, device=dev)
+    plane = repack(params, "plane", "pair")
+    batches = list(chunk_tokens(synthetic_stream(cfg.vocab_size, 1024, 0),
+                                256, 2))
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with plane_on_kernels():
+        got = perplexity(cfg, plane, batches, device=dev)
+    torch.cuda.synchronize()
+    k9f_s = time.perf_counter() - t0
+    launches = {k: n for k, n in counts().items() if n}
+    want_l = {"K9f": 6 * L * len(batches), "K4": L * len(batches)}
+    if launches != want_l:
+        raise AssertionError(f"cli K9f perplexity: launched {launches}, not "
+                             f"{want_l}")
+    t0 = time.perf_counter()
+    want = perplexity(cfg, params, batches, device=dev)
+    torch.cuda.synchronize()
+    pair_s = time.perf_counter() - t0
+    rel = abs(got - want) / want
+    if not (math.isfinite(got) and rel <= 1e-5):
+        raise AssertionError(f"cli K9f perplexity {got} vs the pair plain "
+                             f"route's {want}: {rel:.3g} apart")
+    log(f"cli: the uniform checkpoint repacked as 'plane' ({L} layers, "
+        f"f32): perplexity on K9f {got:.6f} in {k9f_s:.3f} s, launches "
+        f"{launches}; the 'pair' weights on the plain route {want:.6f} in "
+        f"{pair_s:.3f} s; {rel:.3g} apart (<= 1e-5) ({card})")
+    return dict(ppl_k9f=got, ppl_pair_plain=want, rel=rel, seconds=k9f_s,
+                pair_plain_s=pair_s, launches=launches)
+
+
 def run_cli(dev, card):
     """The user's two commands on the card, at OPT-1.3B's full width
     (random weights from seed 0, nothing downloaded): an HF-layout
     checkpoint written as two F16 safetensors shards and read back; the
-    quantize command on it (light, 4 bits, the JAX CLI's defaults,
-    ``--eval-ppl``) at full depth; the serve command on its checkpoint,
-    slot and paged; the checkpoint on the bf16 main path; and the spill
-    and background-drain branches at 4 layers, their packed words held to
-    the full run's. Returns the phase's metrics."""
+    quantize command on it with ``--codebook nf4`` at full depth (every
+    linear NF4 'plane': the eval on K8f) and the serve command on its
+    checkpoint, slot and paged; ``--codebook lloyd`` at CLI_DEPTH; the
+    uniform run (int4 'pair', the plain route at f32) at CLI_DEPTH, served
+    by the serve command and on the bf16 main path, its indices repacked
+    as 'plane' and scored on K9f; and the spill and background-drain
+    branches at CLI_DEPTH, their packed words held to the uniform run's.
+    Returns (the phase's metrics, K8f's and K9f's launches on the
+    path)."""
     m = {}
     cfg = opt_1b3()
     start = time.perf_counter()
@@ -2524,70 +2909,60 @@ def run_cli(dev, card):
         del params
         torch.cuda.empty_cache()
 
-        full = os.path.join(tmp, "full")
-        res, calib, peak, secs = quantize_cli(full, "opt-1.3b", hf_dir,
-                                              ["--eval-ppl"])
-        want_k4 = {"K4": cfg.n_layers * CALIB_SAMPLES // CALIB_BATCH}
-        if calib != want_k4:
-            raise AssertionError(f"cli: calibration launched {calib}, not "
-                                 f"{want_k4}")
-        check_cli_reports(res, cfg, "full run")
-        if res["spill"] or res["offload"] != "none":
-            raise AssertionError(f"cli: the full run spilled or offloaded "
-                                 f"({res['spill']}, {res['offload']})")
-        ppl = res["ppl"]
-        rel = abs(ppl["decode"] - ppl["quantized"]) / ppl["quantized"]
-        if not all(math.isfinite(v) for v in (ppl["fp32"], ppl["quantized"],
-                                              ppl["decode"])) or not (
-                rel <= PPL_RTOL):
-            raise AssertionError(f"cli: perplexities {ppl}: decode vs "
-                                 f"forward {rel:.4g} over {PPL_RTOL}")
-        full_words = packed_linears(full, cfg)
-        m["quantize"] = dict(
-            seconds=secs, peak_bytes=peak, timer=res["timer"],
-            total_error=res["total_error"], calibrate_launches=calib,
-            ppl=ppl, ppl_decode_rel=rel, peak_estimate=res["peak"])
-        log(f"cli: quantize_model_cli (f32 OPT-1.3B from the HF checkpoint, "
-            f"light, 4 bits, --eval-ppl): {secs:.1f} s; sections "
-            + json.dumps({k: v["total_s"] for k, v in res["timer"].items()})
-            + f"; calibration launches {calib}; {len(res['reports'])} "
-            f"linears, total error {res['total_error']:.6g}; perplexity "
-            f"fp32 {ppl['fp32']:.2f}, quantized {ppl['quantized']:.2f}, "
-            f"decode {ppl['decode']:.2f} ({rel:.3g} apart, <= {PPL_RTOL}; "
-            f"the 0.01-ppl warning {'fired' if ppl['warned'] else 'silent'}"
-            f"); every linear int4 'pair' on reload; peak device memory "
-            f"{peak / 1e9:.3f} GB (the CLI's simulated solve peak "
-            f"{res['peak'] / 1e9:.3f} GB) ({card})")
-        del res
+        # NF4 at full depth: the slice's path, every linear K8f.
+        nf4 = os.path.join(tmp, "nf4")
+        m["nf4"], _ = run_quantize_cli(nf4, "opt-1.3b", hf_dir, cfg,
+                                       "NF4 'plane'", card,
+                                       ["--codebook", "nf4"], "K8f")
+        path = {"K8f": sum(n.get("K8f", 0) for n in
+                           m["nf4"]["eval_launches"].values())}
+        torch.cuda.empty_cache()
+        m["nf4_serve"] = serve_cli_runs(dev, nf4, "opt-1.3b", cfg, card,
+                                        "NF4", "K8f")
         torch.cuda.empty_cache()
 
-        m["serve"] = serve_cli_runs(full, cfg, card)
-        torch.cuda.empty_cache()
-        m["bf16"] = serve_bf16(dev, full, card)
-        torch.cuda.empty_cache()
-
-        # The spill and drain branches at 4 layers, from limits computed
-        # with the CLI's own estimates.
+        # The 4-layer runs, from a 4-layer name of OPT-1.3B.
         name = f"opt-1.3b-{CLI_DEPTH}l"
         cfg4 = dataclasses.replace(cfg, n_layers=CLI_DEPTH)
         zoo.ZOO[name] = lambda **kw: dataclasses.replace(
             opt_1b3(**kw), n_layers=CLI_DEPTH)
-        s_est = est_stats_bytes(cfg4)
-        entries = [(n, k, 4 * (k * k + k + 1)) for n, k in (
-            (n, cfg.d_ff if n.endswith("fc2") else cfg.d_model)
-            for n in tr.layer_names(cfg4))]
-        sim_peak = offload_plan(entries, p4_bytes, math.inf, "never")["peak"]
-        limits = {"spill": p4_bytes + s_est + SPILL_HEADROOM / 2,
-                  "drain": sim_peak}
-        plan = offload_plan(entries, p4_bytes, limits["drain"], "auto")
-        if spill_needed(p4_bytes, s_est, limits["drain"]) or (
-                plan["action"] != "shed"):
-            raise AssertionError(f"cli: the drain limit {limits['drain']} "
-                                 f"gives no shed plan: {plan}")
         try:
+            m["lloyd"], _ = run_quantize_cli(
+                os.path.join(tmp, "lloyd"), name, hf_dir, cfg4,
+                "lloyd 'plane'", card, ["--codebook", "lloyd"], "K8f")
+            torch.cuda.empty_cache()
+            uni = os.path.join(tmp, "uniform")
+            m["quantize"], uni_words = run_quantize_cli(
+                uni, name, hf_dir, cfg4, "int4 'pair'", card)
+            torch.cuda.empty_cache()
+            m["serve"] = serve_cli_runs(dev, uni, name, cfg4, card,
+                                        "uniform")
+            torch.cuda.empty_cache()
+            m["bf16"] = serve_bf16(dev, uni, card)
+            torch.cuda.empty_cache()
+            m["k9f"] = run_k9f_perplexity(dev, uni, cfg4, card)
+            path["K9f"] = m["k9f"]["launches"]["K9f"]
+            torch.cuda.empty_cache()
+
+            # The spill and drain branches, from limits computed with the
+            # CLI's own estimates.
+            s_est = est_stats_bytes(cfg4)
+            entries = [(n, k, 4 * (k * k + k + 1)) for n, k in (
+                (n, cfg.d_ff if n.endswith("fc2") else cfg.d_model)
+                for n in tr.layer_names(cfg4))]
+            sim_peak = offload_plan(entries, p4_bytes, math.inf,
+                                    "never")["peak"]
+            limits = {"spill": p4_bytes + s_est + SPILL_HEADROOM / 2,
+                      "drain": sim_peak}
+            plan = offload_plan(entries, p4_bytes, limits["drain"], "auto")
+            if spill_needed(p4_bytes, s_est, limits["drain"]) or (
+                    plan["action"] != "shed"):
+                raise AssertionError(f"cli: the drain limit "
+                                     f"{limits['drain']} gives no shed "
+                                     f"plan: {plan}")
             for branch in ("spill", "drain"):
                 out = os.path.join(tmp, branch)
-                res, calib, peak, secs = quantize_cli(
+                res, calib, _, peak, secs = quantize_cli(
                     out, name, hf_dir, limit=limits[branch])
                 check_cli_reports(res, cfg4, f"{branch} run")
                 want_k4 = {"K4": CLI_DEPTH * CALIB_SAMPLES // CALIB_BATCH}
@@ -2603,8 +2978,7 @@ def run_cli(dev, card):
                     raise AssertionError(
                         f"cli {branch}: spill {res['spill']}, offload "
                         f"{res['offload']}, shed {res['shed']}")
-                same_words(packed_linears(out, cfg4),
-                           {n: full_words[n] for n in tr.layer_names(cfg4)},
+                same_words(packed_linears(out, cfg4), uni_words,
                            f"the {branch} run's layers")
                 m[branch] = dict(limit=limits[branch], seconds=secs,
                                  peak_bytes=peak, timer=res["timer"],
@@ -2622,7 +2996,7 @@ def run_cli(dev, card):
             del zoo.ZOO[name]
     m["phase_s"] = time.perf_counter() - start
     log(f"cli: the phase took {m['phase_s']:.1f} s ({card})")
-    return m
+    return m, path
 
 
 def main():
@@ -2689,6 +3063,20 @@ def main():
     else:
         plane_ptxas = None
         log("ptxas: plane_matmul.cu was built before this run, no report")
+    if "plane_f32.cu" in built:
+        f32_log = built["plane_f32.cu"]["log"]
+        f32_ptxas = {
+            **ptxas_report(f32_log, "f32_stream_kernel", f32_rule),
+            **ptxas_report(f32_log, "f32_tile_kernel", f32_rule)}
+        if len(f32_ptxas) != 10:
+            raise AssertionError(f"ptxas: the 4-bit K8f/K9f instantiations "
+                                 f"not found: {f32_ptxas}")
+        log("ptxas, 4-bit 'plane' f32 routes (K8f NF4, K9f int4; stream at "
+            "MT tokens, tile 64 x 64): [registers, spill store bytes, spill "
+            "load bytes] " + json.dumps(f32_ptxas))
+    else:
+        f32_ptxas = None
+        log("ptxas: plane_f32.cu was built before this run, no report")
 
     cfg = opt_1b3(dtype=torch.bfloat16)
     g = torch.Generator().manual_seed(0)
@@ -2708,6 +3096,7 @@ def main():
     engine.update(run_ew_engine(dev, cfg, state, smi))
     engine.update(run_sampled(dev, cfg, state, smi))
     cases.update(check_linears(dev, cfg, ["K6", "K7", "K8", "K9"]))
+    cases.update(check_linears_f32(dev, cfg))
     layout_launches, layout_metrics = run_layouts(dev, cfg, smi, state)
     launches.update(layout_launches)
     engine.update(layout_metrics)
@@ -2718,14 +3107,16 @@ def main():
     quant = run_quantize(dev, dataclasses.replace(cfg, n_layers=QUANT_DEPTH),
                          smi)
     torch.cuda.empty_cache()
-    cli = run_cli(dev, smi)
+    cli, path = run_cli(dev, smi)
+    launches.update(path)
 
     rows = []
     for k in (K1, K2, K3, K4, K5, K6, K7, K8, K9, K10, K11, K12, K13, K14,
-              K15):
+              K15, K8f, K9f):
         cs = cases[k.name]
-        # K1 and K6-K9 report one decode layer's four projections (M = 8);
-        # the others their first case. Every case is listed under "cases".
+        # K1, K6-K9 and K8f/K9f report one decode layer's four projections
+        # (M = 8); the others their first case. Every case is listed under
+        # "cases".
         main_cs = [c for c in cs if c["case"].endswith("M=8")] or cs[:1]
 
         def total(key, main_cs=main_cs):
@@ -2744,6 +3135,7 @@ def main():
     engine["ptxas_pair_stream_kernel"] = stream_ptxas
     engine["ptxas_decode_kernel"] = decode_ptxas
     engine["ptxas_plane"] = plane_ptxas
+    engine["ptxas_plane_f32"] = f32_ptxas
     engine["ptxas_append_kernel"] = append_ptxas
     print(json.dumps({"kernels": rows, "engine": engine, "quantize": quant,
                       "cli": cli, "benches": benches}))

@@ -132,6 +132,24 @@ class CudaKernel:
         self.launches += 1
 
 
+# Int32 tickets a device, 0 between launches: a kernel that combines its
+# blocks' partial sums by ticket (one a (batch row, KV head) in
+# ``decode_attention.cu``, one a column strip in ``plane_f32.cu``) has
+# the block that takes the last ticket reset it, so a graph replays with
+# no reset pass. Launches that share them run on one stream. A buffer
+# outgrown is kept, since a captured graph may still point at it.
+_TICKETS: Dict[torch.device, List[torch.Tensor]] = {}
+
+
+def zeroed_tickets(n: int, dev) -> torch.Tensor:
+    """At least ``n`` int32 tickets on ``dev``, 0 between launches."""
+    held = _TICKETS.setdefault(dev, [])
+    if not held or held[-1].numel() < n:
+        held.append(torch.zeros(max(n, 4096), dtype=torch.int32,
+                                device=dev))
+    return held[-1]
+
+
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0

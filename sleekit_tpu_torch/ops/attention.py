@@ -39,7 +39,7 @@ from typing import Optional
 
 import torch
 
-from sleekit_tpu_torch.kernels import CudaKernel
+from sleekit_tpu_torch.kernels import CudaKernel, zeroed_tickets
 
 _INT8_MAX = 127.0
 _SCALE_FLOOR = 1e-8
@@ -327,21 +327,6 @@ def decode_plan(B: int, KV: int, G: int, D: int, itemsize: int,
     return R, splits, 4 * B * KV * splits * G * (D + 2)
 
 
-# One int32 ticket per (batch row, KV head) a device, zero between launches:
-# the block that takes a (b, h)'s last ticket resets it, so a graph replays
-# with no reset pass. Launches that share them run on one stream. A buffer
-# outgrown is kept, since a captured graph may still point at it.
-_TICKETS: dict = {}
-
-
-def _tickets(n: int, dev) -> torch.Tensor:
-    held = _TICKETS.setdefault(dev, [])
-    if not held or held[-1].numel() < n:
-        held.append(torch.zeros(max(n, 4096), dtype=torch.int32,
-                                device=dev))
-    return held[-1]
-
-
 def launch_decode(kernel: CudaKernel, q, k_new, v_new, cache_k, cache_v,
                   pos, layer: int, scale: float, alibi_slopes, k_scale,
                   v_scale, page_table=None):
@@ -387,7 +372,7 @@ def launch_decode(kernel: CudaKernel, q, k_new, v_new, cache_k, cache_v,
              v_scale.data_ptr() if v_scale is not None else 0,
              0 if alibi_slopes is None else alibi_slopes.data_ptr(),
              pos_ptr, table, out.data_ptr(), buf.data_ptr() + at,
-             _tickets(B * KV, dev).data_ptr()]
+             zeroed_tickets(B * KV, dev).data_ptr()]
     kernel(*ptrs, pos_scalar, layer, B, KV, H // KV, P, PS, MAXP, D, R,
            splits, float(scale), int(q.dtype == torch.bfloat16), kind,
            scale_bf16)

@@ -18,7 +18,10 @@ packed words streamed from device memory and decoded on chip.
   :func:`plane_affine_matmul` - the 'plane' layout (``_pallas_impl``:
   ``_kernel`` over a table, ``_mantissa_kernel`` over an affine grid),
   K1's two routes (``csrc/dequant_routes.cuh``) under the 'plane' tile
-  rules in ``csrc/plane_matmul.cu``.
+  rules in ``csrc/plane_matmul.cu``, for bf16 x; kernels K8f and K9f,
+  the same wrappers at f32 x (the JAX kernels' f32 ``compute_dtype``):
+  f32 operands and accumulation on the CUDA cores, a streaming route at
+  M <= ``DECODE_M`` and a tiled one above, in ``csrc/plane_f32.cu``.
 
 K1, K2, K6 and K7 fuse the prologue (layernorm/rmsnorm masked to the
 valid K, relu, gelu, silu_glu) and the epilogue ``(a*acc + b*rowsum)*scale
@@ -31,7 +34,8 @@ the TPU kernel does, but accumulates over ``C - 1.5`` and folds ``b +
 catastrophically when x has a large mean (after relu), and its f32
 rounding flips about one bf16 output in ten. K6, K7 and K9 centre the same
 way (``_CENTRE``); the int8 layout is centred already, and K8's table is
-not folded.
+not folded. At f32 x the plain versions of K8f and K9f keep f32
+throughout: the table unrounded, x itself (no prologue), an f32 output.
 
 The JAX package chunks prefill-size M through its kernel
 (``PREFILL_CHUNK_M``, a TPU VMEM limit); the CUDA kernels tile M
@@ -58,7 +62,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from sleekit_tpu_torch.kernels import CudaKernel
+from sleekit_tpu_torch.kernels import CudaKernel, zeroed_tickets
 from sleekit_tpu_torch.ops.pack import (
     PAIR3_TILE, PAIR3_WORDS, PAIR3X_GROUP, PAIR3X_WORDS, PLANE_GROUP,
     PackedLinear, unpack_indices, vals_per_word)
@@ -89,6 +93,13 @@ STREAM_COLS = 32
 STREAM_WARPS = 8
 STREAM_BLOCKS_PER_SM = 2
 H100_SMS = 132
+
+# K8f/K9f's streaming route (``csrc/plane_f32.cu`` ``f32_stream_kernel``):
+# a block of STREAM_WARPS warps streams F32_STREAM_COLS columns (4 a
+# lane) over its slice of K, in units of PLANE_F32_UNIT[nbits] word rows
+# of one tile (32 K rows, 40 at 3 bits; ``Rule::UR``).
+F32_STREAM_COLS = 128
+PLANE_F32_UNIT = {1: 1, 2: 2, 3: 4, 4: 4, 8: 8}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # (x, words, scale, bias, ln_scale, ln_bias, ln_bf16, residual, out, xp, rs,
@@ -129,6 +140,20 @@ K9 = CudaKernel(
     [_P] * 9 + [_I] * 6 + [_F] * 2,
     replaces="sleekit_tpu/ops/dequant_matmul.py:771 _pallas_impl "
              "(_mantissa_kernel)")
+# (x, words, scale, bias, lut, out, part, tickets, M, N, K, kw, splits,
+#  nbits, ksize, step, zero)
+K8f = CudaKernel(
+    "K8f", "plane_f32.cu", "plane_lut_matmul_f32",
+    [_P] * 8 + [_I] * 7 + [_F] * 2,
+    replaces="sleekit_tpu/ops/dequant_matmul.py:771 _pallas_impl "
+             "(_kernel, table, f32 compute_dtype :821)")
+# (x, words, scale, bias, out, part, tickets, M, N, K, kw, splits, nbits,
+#  a, b)
+K9f = CudaKernel(
+    "K9f", "plane_f32.cu", "plane_affine_matmul_f32",
+    [_P] * 7 + [_I] * 6 + [_F] * 2,
+    replaces="sleekit_tpu/ops/dequant_matmul.py:771 _pallas_impl "
+             "(_mantissa_kernel, f32 compute_dtype :821)")
 
 # Offset of each layout's centred weight: the kernels accumulate over the
 # decoded weight minus this midpoint of its range (exact in f32), so the
@@ -237,10 +262,10 @@ def pair3_matmul_plain(x, packed, scale, bias, *, k, a_aff, b_aff,
                            residual)
 
 
-def _k8_table(lut, nbits, affine):
-    """K8's value of each of the 2^nbits indices, rounded to bf16 (held
-    as f32): ``lut`` and 0 past its end, or for an affine codebook
-    ``idx*step + zero`` in f32."""
+def _k8_table(lut, nbits, affine, rounded=True):
+    """K8's value of each of the 2^nbits indices, held as f32: ``lut`` and
+    0 past its end, or for an affine codebook ``idx*step + zero`` in f32;
+    rounded to bf16 (``rounded``, K8's bf16 operands) or not (K8f)."""
     size = 2 ** nbits
     if affine is not None:
         step, zero = (torch.tensor(v, dtype=torch.float32) for v in affine)
@@ -248,30 +273,38 @@ def _k8_table(lut, nbits, affine):
     else:
         vals = torch.zeros(size, dtype=torch.float32)
         vals[:lut.shape[0]] = lut.detach().float().cpu()
-    return vals.to(torch.bfloat16).float()
+    return vals.to(torch.bfloat16).float() if rounded else vals
 
 
 def plane_lut_matmul_plain(x, packed, scale, bias, lut, *, nbits, k,
                            affine=None):
-    """Plain PyTorch version of kernel K8: ``bf16((x @ table[idx]) * scale
-    + bias)`` over 'plane' words, f32 accumulation (:func:`_k8_table`)."""
+    """Plain PyTorch version of kernel K8 (bf16 x): ``bf16((x @
+    bf16(table[idx])) * scale + bias)`` over 'plane' words, f32
+    accumulation; and of K8f (f32 x): ``(x @ table[idx]) * scale + bias``
+    in f32 with the table unrounded (:func:`_k8_table`)."""
+    f32 = x.dtype == torch.float32
     idx = unpack_indices(packed, nbits, k, layout="plane").long()
-    table = _k8_table(lut, nbits, affine).to(x.device)
+    table = _k8_table(lut, nbits, affine, rounded=not f32).to(x.device)
     out = (x.float() @ table[idx]) * scale
     if bias is not None:
         out = out + bias.float()
-    return out.to(torch.bfloat16)
+    return out if f32 else out.to(torch.bfloat16)
 
 
 def plane_affine_matmul_plain(x, packed, scale, bias, *, nbits, k, a_aff,
                               b_aff):
-    """Plain PyTorch version of kernel K9: K1's fold over 'plane' words
-    (``C - 1.5`` with ``C = 1 + idx/2^nbits``), no prologue."""
+    """Plain PyTorch version of kernel K9 (bf16 x): K1's fold over 'plane'
+    words (``C - 1.5`` with ``C = 1 + idx/2^nbits``), no prologue; and of
+    K9f (f32 x): ``(a*(x @ (C - 1.5)) + b*rowsum(x))*scale + bias`` in
+    f32."""
     idx = unpack_indices(packed, nbits, k, layout="plane")
     c = idx.float() / float(2 ** nbits) - 0.5        # C - 1.5, exact
-    return _epilogue_plain(x.float() @ c, x, a_aff,
-                           _centred(a_aff, b_aff, "plane"), scale, bias,
-                           None)
+    b_c = _centred(a_aff, b_aff, "plane")
+    if x.dtype != torch.float32:
+        return _epilogue_plain(x.float() @ c, x, a_aff, b_c, scale, bias,
+                               None)
+    out = (a_aff * (x @ c) + b_c * x.sum(dim=1, keepdim=True)) * scale
+    return out if bias is None else out + bias
 
 
 def int8_matmul_plain(x, packed, scale, bias, *, k, out_n, a_aff, b_aff,
@@ -317,19 +350,34 @@ def stream_units(kw: int, layout: str, nbits: int = 0) -> int:
     return kw // PAIR3X_WORDS * 6
 
 
+def _splits(strips: int, units: int, sms: int) -> int:
+    """K splits over blocks of a streaming kernel's ``strips`` column
+    strips and ``units`` units of K: nearest STREAM_BLOCKS_PER_SM blocks
+    an SM (so at least one an SM), but never so many that a warp of a
+    slice has no unit (K too short: one split)."""
+    most = max(1, units // STREAM_WARPS)
+    want = (2 * STREAM_BLOCKS_PER_SM * sms + strips) // (2 * strips)
+    return max(1, min(most, want))
+
+
 def stream_plan(n: int, kw: int, layout: str, sms: int = H100_SMS,
                 nbits: int = 0):
     """(strips, splits) of the streaming kernel of K1, K6-K9 over (kw, n)
-    words (``nbits`` for 'plane'):
-    STREAM_COLS-column strips, and K split over blocks so that they come
-    nearest to STREAM_BLOCKS_PER_SM an SM (so at least one an SM), but
-    never so far that a warp of a slice has no unit (K too short: one
-    split). The partial sums' scratch is (splits, M, n) f32 with one int32
-    ticket a strip; none at one split."""
+    words (``nbits`` for 'plane'): STREAM_COLS-column strips and
+    :func:`_splits` over its units. The partial sums' scratch is (splits,
+    M, n) f32 with one int32 ticket a strip; none at one split."""
     strips = -(-n // STREAM_COLS)
-    most = max(1, stream_units(kw, layout, nbits) // STREAM_WARPS)
-    want = (2 * STREAM_BLOCKS_PER_SM * sms + strips) // (2 * strips)
-    return strips, max(1, min(most, want))
+    return strips, _splits(strips, stream_units(kw, layout, nbits), sms)
+
+
+def f32_stream_plan(n: int, kw: int, nbits: int, sms: int = H100_SMS):
+    """(strips, splits) of K8f/K9f's streaming route over (kw, n) 'plane'
+    words of ``nbits``: F32_STREAM_COLS-column strips and :func:`_splits`
+    over its units of PLANE_F32_UNIT[nbits] word rows. Above one split
+    the scratch holds the (splits, M, n) f32 partials (and, for K9f, the
+    (splits, strips, M) row sums), with one ticket a strip."""
+    strips = -(-n // F32_STREAM_COLS)
+    return strips, _splits(strips, kw // PLANE_F32_UNIT[nbits], sms)
 
 
 @functools.lru_cache(maxsize=None)
@@ -378,15 +426,36 @@ def _scratch(x: torch.Tensor, k: int, n: int = 0, kw: int = 0,
             p + tickets if tickets else 0)
 
 
+def _f32_scratch(x: torch.Tensor, n: int, kw: int, nbits: int,
+                 rows: bool):
+    """K8f/K9f's scratch: at M <= DECODE_M over more than one split
+    (:func:`f32_stream_plan`, with the device's SM count), one f32 buffer
+    of the partials (with the row sums for K9f, ``rows``) and the device's
+    zeroed tickets. Returns (the buffer, splits, the addresses of the
+    partials and the tickets, 0 where absent)."""
+    m = x.shape[0]
+    if m > DECODE_M:
+        return None, 1, 0, 0
+    strips, splits = f32_stream_plan(n, kw, nbits, _sms(x.device.index or 0))
+    if splits == 1:
+        return None, 1, 0, 0
+    buf = torch.empty(splits * m * (n + (strips if rows else 0)),
+                      dtype=torch.float32, device=x.device)
+    return (buf, splits, buf.data_ptr(),
+            zeroed_tickets(strips, x.device).data_ptr())
+
+
 def _check(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(msg)
 
 
-def _check_common(x, k, scale, bias, pre, ln_scale, ln_bias, residual, n):
+def _check_common(x, k, scale, bias, pre, ln_scale, ln_bias, residual, n,
+                  dtype=torch.bfloat16):
     dev = x.device
-    _check(x.dtype == torch.bfloat16 and x.dim() == 2 and x.is_contiguous(),
-           "x must be a contiguous 2-D bf16 tensor")
+    _check(x.dtype == dtype and x.dim() == 2 and x.is_contiguous(),
+           "x must be a contiguous 2-D "
+           f"{'f32' if dtype == torch.float32 else 'bf16'} tensor")
     _check(pre in _PRE, f"unknown prologue {pre!r}")
     _check(x.shape[1] == (2 * k if pre == "silu_glu" else k),
            f"x has {x.shape[1]} columns for K={k} and prologue {pre!r}")
@@ -488,6 +557,7 @@ def pair3_matmul(x, packed, scale, bias, *, k, a_aff, b_aff, pre=None,
 
 
 def _check_plane(x, packed, scale, bias, nbits, k):
+    """(kw, N) of a 'plane' call on bf16 x (K8, K9) or f32 x (K8f, K9f)."""
     kw, n = packed.shape
     _check(packed.dtype == torch.int32 and packed.is_contiguous()
            and packed.device == x.device,
@@ -496,7 +566,9 @@ def _check_plane(x, packed, scale, bias, nbits, k):
     _check(kw % PLANE_GROUP == 0 and kw * vpw >= k,
            f"packed has {kw} word rows, not whole plane tiles covering "
            f"K={k}")
-    _check_common(x, k, scale, bias, None, None, None, None, n)
+    _check_common(x, k, scale, bias, None, None, None, None, n,
+                  torch.float32 if x.dtype == torch.float32
+                  else torch.bfloat16)
     return kw, n
 
 
@@ -506,8 +578,10 @@ def plane_lut_matmul(x, packed, scale, bias, lut, *, nbits, k,
     words, with v the codebook ``lut`` (any size up to 2^nbits, any order)
     or, for an affine codebook (8 bits), ``idx*step + zero``; one counted
     launch of the prologue pass and the streaming (M <= DECODE_M) or
-    tensor-core kernel. A CUDA tensor launches the kernel; a CPU tensor
-    takes :func:`plane_lut_matmul_plain`."""
+    tensor-core kernel. At f32 x, kernel K8f: ``(x @ v[idx]) * scale +
+    bias`` in f32, v unrounded, one counted launch of its streaming or
+    tiled kernel. A CUDA tensor launches the kernel; a CPU tensor takes
+    :func:`plane_lut_matmul_plain`."""
     if not x.is_cuda:
         return plane_lut_matmul_plain(x, packed, scale, bias, lut,
                                       nbits=nbits, k=k, affine=affine)
@@ -520,20 +594,29 @@ def plane_lut_matmul(x, packed, scale, bias, lut, *, nbits, k,
                "values on x's device")
     step, zero = affine if affine is not None else (0.0, 0.0)
     m = x.shape[0]
+    lut_ptr = 0 if affine is not None else lut.data_ptr()
+    ksize = 0 if affine is not None else lut.shape[0]
+    if x.dtype == torch.float32:
+        out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+        _buf, splits, part, tickets = _f32_scratch(x, n, kw, nbits, False)
+        K8f(x.data_ptr(), packed.data_ptr(), scale.data_ptr(), _ptr(bias),
+            lut_ptr, out.data_ptr(), part, tickets, m, n, k, kw, splits,
+            nbits, ksize, float(step), float(zero))
+        return out
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
     _buf, splits, xp, rs, part, tickets = _scratch(x, k, n, kw, "plane",
                                                    nbits)
     K8(x.data_ptr(), packed.data_ptr(), scale.data_ptr(), _ptr(bias),
-       0 if affine is not None else lut.data_ptr(), out.data_ptr(), xp, rs,
-       part, tickets, m, n, k, kw, splits, nbits,
-       0 if affine is not None else lut.shape[0], float(step), float(zero))
+       lut_ptr, out.data_ptr(), xp, rs, part, tickets, m, n, k, kw, splits,
+       nbits, ksize, float(step), float(zero))
     return out
 
 
 def plane_affine_matmul(x, packed, scale, bias, *, nbits, k, a_aff, b_aff):
     """Kernel K9: ``bf16((a*(x @ C) + b*rowsum(x))*scale + bias)`` over
     'plane' words, ``C = 1 + idx/2^nbits`` (nbits <= 7), launched as K8
-    is. A CUDA tensor launches the kernel; a CPU tensor takes
+    is; at f32 x, kernel K9f, the same in f32 (launched as K8f is). A CUDA
+    tensor launches the kernel; a CPU tensor takes
     :func:`plane_affine_matmul_plain`."""
     if not x.is_cuda:
         return plane_affine_matmul_plain(x, packed, scale, bias, nbits=nbits,
@@ -541,6 +624,13 @@ def plane_affine_matmul(x, packed, scale, bias, *, nbits, k, a_aff, b_aff):
     _check(nbits <= 7, "the mantissa kernel takes at most 7-bit indices")
     kw, n = _check_plane(x, packed, scale, bias, nbits, k)
     m = x.shape[0]
+    if x.dtype == torch.float32:
+        out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+        _buf, splits, part, tickets = _f32_scratch(x, n, kw, nbits, True)
+        K9f(x.data_ptr(), packed.data_ptr(), scale.data_ptr(), _ptr(bias),
+            out.data_ptr(), part, tickets, m, n, k, kw, splits, nbits,
+            float(a_aff), _centred(a_aff, b_aff, "plane"))
+        return out
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
     _buf, splits, xp, rs, part, tickets = _scratch(x, k, n, kw, "plane",
                                                    nbits)
@@ -588,9 +678,12 @@ def int8_matmul(x, packed, scale, bias, *, k, out_n, a_aff, b_aff,
 
 def can_fuse_glue(x: torch.Tensor, w: PackedLinear) -> bool:
     """Whether K1/K2/K6/K7 take this matmul (and so its prologue/residual
-    fusion): bf16 activations (f32 keeps full precision on the reference
-    path, as in the JAX package), an affine codebook, and the pair
-    (<= 7 bits), pair3, pair3x or int8 layout."""
+    fusion): bf16 activations, an affine codebook, and the pair (<= 7
+    bits), pair3, pair3x or int8 layout. At f32 these layouts take
+    :func:`dequant_matmul_ref`, as the JAX package takes its XLA route;
+    'plane' takes K8/K9 (bf16) or K8f/K9f (f32) through
+    :func:`quantized_matmul`, its norm and activation composed around
+    them."""
     ok_pair = w.layout in ("pair", "pair3", "pair3x") and w.nbits <= 7
     ok_int8 = w.layout == "int8" and w.nbits == 8
     return ((ok_pair or ok_int8) and w.affine is not None
@@ -618,8 +711,9 @@ def _kernel_matmul(x, w, use_kernel, pre=None, ln_scale=None, ln_bias=None,
 
 
 def _plane_matmul(x, w, use_kernel):
-    """'plane' weights with bf16 x: K9 for an affine codebook of at most 7
-    bits, K8 for a table or 8 bits (or their plain versions)."""
+    """'plane' weights with bf16 or f32 x: K9 (K9f) for an affine codebook
+    of at most 7 bits, K8 (K8f) for a table or 8 bits (or their plain
+    versions)."""
     if w.affine is not None and w.nbits <= 7:
         a, b = _pair_affine(w)
         fn = plane_affine_matmul if use_kernel else plane_affine_matmul_plain
@@ -632,15 +726,19 @@ def _plane_matmul(x, w, use_kernel):
 
 def quantized_matmul(x: torch.Tensor, w: PackedLinear,
                      use_kernel: Optional[bool] = None) -> torch.Tensor:
-    """y = x @ deq(w) + bias. Matmuls that a kernel takes (bf16 x over the
-    pair, pair3, pair3x and int8 layouts with an affine codebook, or over
-    'plane') run it when ``use_kernel`` (default: x is on CUDA), else its
-    plain version; the rest run the reference."""
+    """y = x @ deq(w) + bias. Matmuls that a kernel takes run it when
+    ``use_kernel`` (default: x is on CUDA), else its plain version: bf16 x
+    over the pair, pair3, pair3x and int8 layouts with an affine codebook
+    (K1, K6, K7, K2), and bf16 or f32 x over 'plane' (K8/K9, K8f/K9f), as
+    the JAX package sends 'plane' to its Pallas kernel at either dtype.
+    The rest run :func:`dequant_matmul_ref`: f32 x over the pair*, int8
+    and linear layouts (the JAX package's XLA route) and ``k_splits >
+    1`` (tensor parallelism)."""
     if use_kernel is None:
         use_kernel = x.is_cuda
     if can_fuse_glue(x, w):
         return _kernel_matmul(x.contiguous(), w, use_kernel)
-    if (w.layout == "plane" and x.dtype == torch.bfloat16
+    if (w.layout == "plane" and x.dtype in (torch.bfloat16, torch.float32)
             and w.k_splits == 1):
         return _plane_matmul(x.contiguous(), w, use_kernel)
     return dequant_matmul_ref(x, w)

@@ -887,6 +887,178 @@ def test_k8_k9_match_plain(dev, codebook, m, K, N):
     _bf16_close(got, plain(*args, **kw))
 
 
+_PLANE_CODEBOOKS = ["nf4", "table3", "table8", "affine8", "uniform3",
+                    "uniform4", "table1", "uniform1", "uniform2"]
+
+
+def _plane_f32_call(dev, g, codebook, m, K, N, bias=True):
+    """(kernel, fn, plain, args, kw, x): K8f (tables: NF4, a k = 3 table at
+    2 bits, an unsorted 8-entry table at 3 bits, a 2-entry table at 1 bit;
+    the 8-bit affine grid) or K9f (uniform 1-4 bits) on random 'plane'
+    words of a (K, N) matrix, with f32 x (m, K)."""
+    from sleekit_tpu_torch.codebooks import Codebook
+    from sleekit_tpu_torch.ops import dequant_matmul as dm
+    from sleekit_tpu_torch.ops.pack import bits_for_codebook, pack_indices
+
+    lut = {"nf4": Codebook.nf4().values,
+           "table3": torch.tensor([-1.0, 0.1, 1.0]),
+           "table8": torch.tensor([0.3, -1.0, 0.7, 0.05, -0.4, 1.0, -0.1,
+                                   0.5]),
+           "table1": torch.tensor([0.25, -0.5]),
+           "affine8": torch.linspace(-1, 1, 256),
+           "uniform1": torch.linspace(-1, 1, 2),
+           "uniform2": torch.linspace(-1, 1, 4),
+           "uniform3": torch.linspace(-1, 1, 8),
+           "uniform4": torch.linspace(-1, 1, 16)}[codebook]
+    nbits = bits_for_codebook(lut.numel())
+    packed = pack_indices(torch.randint(0, lut.numel(), (K, N), generator=g),
+                          nbits, layout="plane").to(dev)
+    x = torch.randn(m, K, generator=g).to(dev)
+    scale = torch.rand(N, generator=g).to(dev) + 0.5
+    b = torch.randn(N, generator=g).to(dev) if bias else None
+    if codebook.startswith("uniform"):
+        kernel, fn, plain = dm.K9f, dm.plane_affine_matmul, \
+            dm.plane_affine_matmul_plain
+        step = 2.0 / (lut.numel() - 1)
+        kw = dict(nbits=nbits, k=K, a_aff=step * 2 ** nbits,
+                  b_aff=-1.0 - step * 2 ** nbits)
+        args = (packed, scale, b)
+    else:
+        kernel, fn, plain = dm.K8f, dm.plane_lut_matmul, \
+            dm.plane_lut_matmul_plain
+        kw = dict(nbits=nbits, k=K,
+                  affine=(2.0 / 255, -1.0) if codebook == "affine8" else None)
+        args = (packed, scale, b, lut.to(dev))
+    return kernel, fn, plain, args, kw, x
+
+
+def _f32_close(got, ref):
+    """Within 1e-5 of the largest |ref|: two f32 sums of the same products
+    in another order (K up to 2048 terms)."""
+    assert got.dtype == ref.dtype == torch.float32
+    err = (got - ref).abs().max().item()
+    assert torch.isfinite(got).all()
+    assert err <= 1e-5 * ref.abs().max().item(), err
+
+
+@pytest.mark.parametrize("codebook", _PLANE_CODEBOOKS)
+@pytest.mark.parametrize("m", [1, 2, 8, 9, 64, 520])
+@pytest.mark.parametrize("K,N", [(700, 198), (2048, 2052)])
+@pytest.mark.parametrize("bias", [True, False])
+def test_k8f_k9f_match_plain(dev, codebook, m, K, N, bias):
+    """K8f and K9f (f32 x) on 'plane' words against their plain versions
+    (f32, the table unrounded, TF32 off), within 1e-5 of the largest
+    output: on the streaming route (m <= 8; 1, 2 and 8 tokens a lane's
+    accumulators, K split over blocks at K = 2048) and the tiled route (m
+    = 9, 64, 520 in 64 x 64 tiles), with K (700) not a multiple of any
+    plane tile and, at 3 bits, K = 2048 ending inside the last 320-row
+    tile; N not a multiple of the 128-column strip nor of 4 at 198 (4-byte
+    word loads); with and without a bias. One counted launch a call."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    g = torch.Generator().manual_seed(N + K + m)
+    kernel, fn, plain, args, kw, x = _plane_f32_call(dev, g, codebook, m, K,
+                                                     N, bias)
+    before = kernel.launches
+    got = fn(x, *args, **kw)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    _f32_close(got, plain(x, *args, **kw))
+
+
+@pytest.mark.parametrize("codebook", ["nf4", "uniform4", "affine8"])
+@pytest.mark.parametrize("m", [2, 8, 64])
+def test_k8f_k9f_replay_in_cuda_graph(dev, codebook, m):
+    """K8f and K9f captured in a CUDA graph at OPT-1.3B's fc2 shape (K
+    8192, N 2048: at m <= 8 K split over blocks, the partials in a
+    scratch allocated under capture, the tickets the device's): two
+    replays after x changes in place each equal the eager call for the new
+    x, bit for bit, and an eager call equals a second one; the capture
+    counts one launch."""
+    from sleekit_tpu_torch.ops import dequant_matmul as dm
+
+    g = torch.Generator().manual_seed(m)
+    K, N = 8192, 2048
+    kernel, fn, _, args, kw, x = _plane_f32_call(dev, g, codebook, m, K, N)
+    if m <= dm.DECODE_M:
+        assert dm.f32_stream_plan(N, args[0].shape[0], kw["nbits"],
+                                  dm._sms(0))[1] > 1
+    first = fn(x, *args, **kw)
+    assert torch.equal(first, fn(x, *args, **kw))
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = kernel.launches
+    with torch.cuda.graph(graph):
+        out = fn(x, *args, **kw)
+    assert kernel.launches == before + 1
+    for _ in range(2):
+        x.copy_(torch.randn(m, K, generator=g).to(dev))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, fn(x, *args, **kw))
+
+
+def test_k8f_k9f_raise_without_scratch(dev):
+    """A streaming launch of K8f or K9f over more than one split without
+    the partials and tickets, or at a width the kernels do not take (5
+    bits), returns a CUDA error that the binding raises."""
+    from sleekit_tpu_torch.ops import dequant_matmul as dm
+    from sleekit_tpu_torch.ops.pack import pack_indices
+
+    m, K, N = 4, 512, 64
+    x = torch.zeros(m, K, device=dev)
+    scale = torch.ones(N, device=dev)
+    lut = torch.linspace(-1, 1, 16, device=dev)
+    out = torch.empty(m, N, device=dev)
+    packed = pack_indices(torch.zeros(K, N, dtype=torch.int64), 4,
+                          layout="plane").to(dev)
+    kw = packed.shape[0]
+    for splits, nbits in ((2, 4), (1, 5)):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            dm.K8f(x.data_ptr(), packed.data_ptr(), scale.data_ptr(), 0,
+                   lut.data_ptr(), out.data_ptr(), 0, 0, m, N, K, kw, splits,
+                   nbits, 16, 0.0, 0.0)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            dm.K9f(x.data_ptr(), packed.data_ptr(), scale.data_ptr(), 0,
+                   out.data_ptr(), 0, 0, m, N, K, kw, splits, nbits, 1.0,
+                   0.0)
+
+
+def test_f32_plane_model_runs_k8f(dev, monkeypatch):
+    """A small f32 model with NF4 'plane' linears on the card: its forward
+    and decode_perplexity launch K8f for every linear (no K8, and
+    dequant_matmul_ref never for a 'plane' linear), the decode graph
+    equals the eager runner bit for bit, and the two perplexities agree
+    within 1%."""
+    from sleekit_tpu_torch import kernels
+    from sleekit_tpu_torch.codebooks import Codebook
+    from sleekit_tpu_torch.models import data, eval as ev
+    from sleekit_tpu_torch.models.fake_quant import random_packed_params
+    from sleekit_tpu_torch.models.zoo import tiny_test
+    from sleekit_tpu_torch.ops import dequant_matmul as dm
+
+    ref = dm.dequant_matmul_ref
+
+    def no_plane(x, w):
+        assert w.layout != "plane", "a 'plane' linear took the plain route"
+        return ref(x, w)
+
+    monkeypatch.setattr(dm, "dequant_matmul_ref", no_plane)
+    cfg = tiny_test(d_model=256, d_ff=512, n_heads=4, max_seq_len=256)
+    params, _ = random_packed_params(cfg, 0, codebook=Codebook.nf4(),
+                                     layout="plane", device=dev)
+    stream = data.synthetic_stream(cfg.vocab_size, 4 * 64, seed=0)
+    batches = list(ev.chunk_tokens(stream, 64, 2))
+    kernels.reset_launch_counts()
+    fwd = ev.perplexity(cfg, params, batches, device=dev)
+    linears = 6 * cfg.n_layers
+    assert dm.K8f.launches == linears * len(batches) and dm.K8.launches == 0
+    graph = ev.decode_perplexity(cfg, params, batches, device=dev)
+    eager = ev.decode_perplexity(cfg, params, batches, device=dev,
+                                 graphs=False)
+    assert graph == eager
+    assert abs(graph - fwd) <= 0.01 * fwd, (graph, fwd)
+
+
 @pytest.mark.parametrize("G", [1, 4])
 @pytest.mark.parametrize("alibi", [False, True])
 @pytest.mark.parametrize("cache", ["int8", "bf16", "f32", "int8 f32 q"])

@@ -255,16 +255,25 @@ def test_plane_kernels_plain_match_jax_kernel(name, monkeypatch):
 
 
 @pytest.mark.parametrize("name", ["nf4", "uniform4"])
-def test_plane_f32_reference_matches_xla(name):
-    """f32 activations on 'plane' take the reference path: equal to
+def test_plane_f32_reference_matches_xla(name, monkeypatch):
+    """f32 activations on 'plane' take K8f's (NF4) or K9f's (uniform
+    int4) plain version, not the reference path (the JAX package sends
+    'plane' to its Pallas kernel at f32 as well): equal to
     dequant_matmul_xla within 1e-5."""
     rng = np.random.RandomState(7)
     jw, tw = _plane(rng, PLANE_LUTS[name], 300, 40)
     x = rng.randn(3, 300).astype(np.float32)
     want = np.asarray(jdm.dequant_matmul_xla(jnp.asarray(x), jw))
+    taken = []
+    for fn in ("plane_lut_matmul_plain", "plane_affine_matmul_plain",
+               "dequant_matmul_ref"):
+        monkeypatch.setattr(tdm, fn, lambda *a, _o=getattr(tdm, fn), _n=fn,
+                            **k: taken.append(_n) or _o(*a, **k))
     got = tdm.quantized_matmul(t(x), tw, use_kernel=True)
     assert got.dtype == torch.float32
     np.testing.assert_allclose(f32(got), want, rtol=1e-5, atol=1e-5)
+    assert taken == ["plane_lut_matmul_plain" if name == "nf4"
+                     else "plane_affine_matmul_plain"]
 
 
 @pytest.mark.parametrize("layout", ["pair3x", "plane"])

@@ -145,16 +145,16 @@ def test_unported_engine_modes_name_their_roadmap_item(kwargs, error, match):
 
 
 def test_kernel_sources_and_build_paths():
-    """Every TPU kernel, K1 to K15, has a CUDA kernel that names its source
-    in the package and the TPU kernel it replaces; the build output goes to
-    the git-ignored _build dir, and a source's library name changes with
-    its text."""
+    """Every TPU kernel, K1 to K15 and the f32 route of K8 and K9 (K8f,
+    K9f), has a CUDA kernel that names its source in the package and the
+    TPU kernel it replaces; the build output goes to the git-ignored
+    _build dir, and a source's library name changes with its text."""
     from sleekit_tpu_torch import kernels
     from sleekit_tpu_torch.ops import (  # noqa: F401
         attention, dequant_matmul, paged_attention)
 
     names = {k.name: k for k in kernels.KERNELS}
-    assert set(names) == {f"K{i}" for i in range(1, 16)}
+    assert set(names) == {f"K{i}" for i in range(1, 16)} | {"K8f", "K9f"}
     assert {k.source for k in names.values()} == {
         p.name for p in kernels.CSRC.glob("*.cu")}
     for k in names.values():

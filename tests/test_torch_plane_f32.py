@@ -1,0 +1,218 @@
+"""The 'plane' layout at f32 activations (kernels K8f and K9f) against the
+JAX package: their plain versions, reached through ``quantized_matmul``'s
+dispatch, against the Pallas kernel in interpret mode (f32
+``compute_dtype``); the bf16 plain versions as they were, bit for bit;
+and the path that runs them, ``quantize_model_cli --codebook nf4`` and
+``--codebook lloyd`` (every linear packed 'plane') with ``--eval-ppl``,
+then ``serve_cli`` on the NF4 checkpoint, port against JAX on a tiny OPT
+from an HF-layout checkpoint."""
+
+import re
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sleekit_tpu.experiments import quantize_model_cli as jq_cli
+from sleekit_tpu.experiments import serve_cli as js_cli
+from sleekit_tpu.ops import dequant_matmul as jdm
+from sleekit_tpu_torch.experiments import quantize_model_cli as tq_cli
+from sleekit_tpu_torch.experiments import serve_cli as ts_cli
+from sleekit_tpu_torch.models import transformer as ttr
+from sleekit_tpu_torch.models import zoo as tzoo
+from sleekit_tpu_torch.ops import dequant_matmul as tdm
+from sleekit_tpu_torch.ops.pack import unpack_indices
+from sleekit_tpu_torch.serve.checkpoint import load_packed_params
+
+from tests._torch_port_util import (  # noqa: F401 (a fixture)
+    TINY_OPT, f32, one_torch_thread, run_main, t, tiny_opt_checkpoint)
+from tests.test_torch_dequant_matmul import PLANE_LUTS, _pair, _plane
+
+QUANT_ARGS = ["--model", TINY_OPT, "--samples", "16", "--seq-len", "32",
+              "--batch", "32", "--preset", "light", "--nbits", "4",
+              "--eval-ppl"]
+SERVE_ARGS = ["--model", TINY_OPT, "--random", "4", "--prompt-len", "12",
+              "--max-new-tokens", "6", "--max-seq-len", "128"]
+
+
+def _taken(monkeypatch):
+    """The names of the plain functions that the calls after this one
+    reach, in order: K8/K8f's, K9/K9f's and the reference."""
+    taken = []
+    for fn in ("plane_lut_matmul_plain", "plane_affine_matmul_plain",
+               "dequant_matmul_ref"):
+        monkeypatch.setattr(tdm, fn, lambda *a, _o=getattr(tdm, fn), _n=fn,
+                            **k: taken.append(_n) or _o(*a, **k))
+    return taken
+
+
+@pytest.mark.parametrize("m", [3, 64])
+@pytest.mark.parametrize("name", list(PLANE_LUTS))
+def test_plane_f32_plain_matches_jax_kernel(name, m, monkeypatch):
+    """K8f (NF4, a k = 3 table at 2 bits, an unsorted 8-entry table, the
+    8-bit affine grid) and K9f (uniform 3 and 4 bits, the ternary grid at
+    2 bits) plain versions, reached through quantized_matmul's dispatch
+    with f32 x, == dequant_matmul_pallas (interpret: the Pallas kernel at
+    its f32 compute_dtype) over 'plane' words at K 700 (off every plane
+    tile), within 1e-5 of the largest |y|: K9f folds over C - 1.5 where
+    JAX folds over C (its a*(x@C) and b*rowsum cancel), and XLA computes
+    the 8-bit grid's idx*step + zero as one fused multiply-add where the
+    port rounds the product first. The f32 plain version is the one
+    taken (not dequant_matmul_ref), and the output is f32."""
+    rng = np.random.RandomState(len(name) + m)
+    jw, tw = _plane(rng, PLANE_LUTS[name], 700, 96)
+    x = rng.randn(m, 700).astype(np.float32)
+    want = np.asarray(jdm.dequant_matmul_pallas(jnp.asarray(x), jw,
+                                                interpret=True))
+    taken = _taken(monkeypatch)
+    for use_kernel in (False, True):
+        got = tdm.quantized_matmul(t(x), tw, use_kernel=use_kernel)
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(f32(got), want, rtol=0,
+                                   atol=1e-5 * np.abs(want).max(),
+                                   err_msg=name)
+    kind = "lut" if tw.affine is None or tw.nbits == 8 else "affine"
+    assert taken == [f"plane_{kind}_matmul_plain"] * 2
+
+
+@pytest.mark.parametrize("name", ["nf4", "table8", "affine8", "uniform4",
+                                  "ternary"])
+def test_plane_bf16_plain_unchanged(name):
+    """At bf16 x the plain versions of K8 and K9 compute as they did
+    before the f32 route, bit for bit: K8 ``bf16((x @ bf16(v[idx])) *
+    scale + bias)``, K9 ``bf16((a*(x @ (C - 1.5)) + (b + 1.5a)*rowsum(x))
+    * scale + bias)``, f32 products and sums."""
+    rng = np.random.RandomState(3)
+    _, tw = _plane(rng, PLANE_LUTS[name], 700, 96)
+    x = t(rng.randn(5, 700).astype(np.float32)).to(torch.bfloat16)
+    idx = unpack_indices(tw.packed, tw.nbits, 700, layout="plane").long()
+    xf = x.float()
+    if tw.affine is None or tw.nbits == 8:
+        if tw.affine is not None:
+            step, zero = (torch.tensor(v, dtype=torch.float32)
+                          for v in tw.affine)
+            vals = torch.arange(2 ** tw.nbits, dtype=torch.float32) * step \
+                + zero
+        else:
+            vals = torch.zeros(2 ** tw.nbits)
+            vals[:tw.lut.shape[0]] = tw.lut
+        want = ((xf @ vals.to(torch.bfloat16).float()[idx]) * tw.scale
+                + tw.bias).to(torch.bfloat16)
+    else:
+        a, b = tdm._pair_affine(tw)
+        c = idx.float() / float(2 ** tw.nbits) - 0.5
+        want = ((a * (xf @ c) + (b + 1.5 * a) * xf.sum(dim=1, keepdim=True))
+                * tw.scale + tw.bias).to(torch.bfloat16)
+    got = tdm.quantized_matmul(x, tw)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, want), name
+
+
+def test_plane_dispatch_by_dtype_and_split(monkeypatch):
+    """On the CPU, quantized_matmul sends 'plane' at bf16 and f32 x to
+    K8/K8f's and K9/K9f's plain versions (the kernels on the card); only
+    'plane' with k_splits > 1 (tensor parallelism, which raises there
+    until it is ported) and the f32 'pair' layout (the JAX package's XLA
+    route) reach dequant_matmul_ref."""
+    import dataclasses
+
+    rng = np.random.RandomState(0)
+    _, nf4 = _plane(rng, PLANE_LUTS["nf4"], 256, 32)
+    _, uni = _plane(rng, PLANE_LUTS["uniform4"], 256, 32)
+    _, pair = _pair(rng, 4, 256, 32)
+    x = torch.from_numpy(rng.randn(2, 256).astype(np.float32))
+    taken = _taken(monkeypatch)
+    for w in (nf4, uni):
+        for xx in (x, x.to(torch.bfloat16)):
+            tdm.quantized_matmul(xx, w)
+    assert taken == ["plane_lut_matmul_plain"] * 2 + [
+        "plane_affine_matmul_plain"] * 2
+    taken.clear()
+    with pytest.raises(NotImplementedError, match="k_splits > 1"):
+        tdm.quantized_matmul(x, dataclasses.replace(nf4, k_splits=2))
+    tdm.quantized_matmul(x, pair)
+    assert taken == ["dequant_matmul_ref"] * 2
+
+
+# ---- the commands on the 'plane' layout -----------------------------------
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory, one_torch_thread):  # noqa: F811
+    """The tiny OPT's HF checkpoint and one quantize run of each package
+    on it for each codebook: {codebook: (jax stdout, port stdout, port
+    result)}, and the root."""
+    root = tmp_path_factory.mktemp("plane_cli")
+    out = {"root": root}
+    with tiny_opt_checkpoint(root) as hf:
+        for cb in ("nf4", "lloyd"):
+            argv = QUANT_ARGS + ["--codebook", cb, "--checkpoint", str(hf)]
+            jout, _ = run_main(jq_cli.main, [str(root / f"jax_{cb}")] + argv)
+            tout, res = run_main(tq_cli.main, [str(root / f"port_{cb}")]
+                                 + argv + ["--device", "cpu"])
+            out[cb] = (jout, tout, res)
+        yield out
+
+
+def _number(pattern, text):
+    return float(re.search(pattern, text).group(1))
+
+
+@pytest.mark.parametrize("cb", ["nf4", "lloyd"])
+def test_plane_cli_matches_jax(runs, cb):
+    """``quantize_model_cli --codebook nf4`` and ``--codebook lloyd`` of
+    both packages on one HF checkpoint: the same meta, every linear
+    'plane' (4 bits) in both, the same per-layer report order, the same
+    packed words (bit for bit), tables and scales within 1e-6 relative;
+    total error and the perplexities (fp32, quantized, decode-scored;
+    JAX scores through dequant_matmul_xla on the CPU, the port through
+    the plain K8f) within 1e-5 relative."""
+    root = runs["root"]
+    jout, tout, res = runs[cb]
+    cfg = tzoo.tiny_test()
+    tparams, tmeta = load_packed_params(str(root / f"port_{cb}"),
+                                        device="cpu")
+    jparams, jmeta = load_packed_params(str(root / f"jax_{cb}"),
+                                        device="cpu")
+    assert tmeta == jmeta == {"model": TINY_OPT, "preset": "light",
+                              "nbits": 4, "codebook": cb}
+    for name in ttr.layer_names(cfg):
+        got = ttr.get_linear_param(tparams, name)
+        want = ttr.get_linear_param(jparams, name)
+        assert (got.layout, got.nbits, got.affine) == (
+            want.layout, want.nbits, want.affine) == ("plane", 4, None)
+        assert torch.equal(got.packed, want.packed), name
+        np.testing.assert_allclose(got.lut.numpy(), want.lut.numpy(),
+                                   rtol=1e-6, atol=1e-7, err_msg=name)
+        np.testing.assert_allclose(got.scale.numpy(), want.scale.numpy(),
+                                   rtol=1e-6, err_msg=name)
+        np.testing.assert_allclose(got.bias.numpy(), want.bias.numpy(),
+                                   rtol=1e-5, atol=1e-6, err_msg=name)
+    layer_lines = [re.findall(r"^  (layers\.\S+)\s+err=", out, re.M)
+                   for out in (jout, tout)]
+    assert layer_lines[0] == layer_lines[1]
+    assert len(layer_lines[1]) == len(ttr.layer_names(cfg))
+    err = _number(r"total layer error (\S+)", jout)
+    assert abs(res["total_error"] - err) <= 1e-5 * err
+    jppl = [_number(rf"{k} (\d+\.\d+)", jout)
+            for k in ("fp32", "quantized", "decode-scored")]
+    tppl = [res["ppl"][k] for k in ("fp32", "quantized", "decode")]
+    np.testing.assert_allclose(tppl, jppl, rtol=1e-5)
+    assert not res["ppl"]["warned"] and "WARNING" not in jout + tout
+
+
+def test_serve_cli_nf4_matches_jax(runs):
+    """``serve_cli`` of both packages on the port's NF4 checkpoint at f32
+    (every linear 'plane': K8f's plain version in the port, the XLA route
+    in JAX): equal greedy tokens, request by request, cold and steady."""
+    ckpt = str(runs["root"] / "port_nf4")
+    jout, _ = run_main(js_cli.main, [ckpt] + SERVE_ARGS)
+    tout, res = run_main(ts_cli.main, [ckpt] + SERVE_ARGS
+                         + ["--device", "cpu"])
+    line = re.compile(r"^\[(\d+)\] \+(\d+) tokens \((\w+)\): (\[.*\])$", re.M)
+    want, got = line.findall(jout), line.findall(tout)
+    assert len(want) == len(got) == 4
+    assert got == want
+    assert [c.new_tokens.tolist() for c in res["steady"]] == [
+        c.new_tokens.tolist() for c in res["cold"]]
