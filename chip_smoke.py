@@ -121,9 +121,17 @@
    layer 0's fc1 on the card against the CPU (objective within 1e-3, 99%
    of the codewords equal); serves the packed model (q|k|v fused, int8
    head) as 3 serves the int4 model, and holds its prefill logits to the
-   dequantized dense model's (relative L2 <= 2^-6); and profiles one fc2
-   solve (trace under the git-ignored ``traces/quantize_fc2``): its
-   device time by phase and launches a column;
+   dequantized dense model's (relative L2 <= 2^-6); solves the same 24
+   linears again with ``layer_parallel=True`` (each shape group as stacks
+   in chunks that fit the card, no kernel launched), both routes' wall
+   seconds, chunk sizes and peak memory printed: every layer's error
+   within rel 1e-4 of the serial route's and at least 99% of its packed
+   codewords equal, and that packed model served as the serial one is
+   (its greedy tokens equal to the serial model's where every word is);
+   and profiles one fc2 solve and the batched route's fc2 chunk (traces
+   under the git-ignored ``traces/quantize_fc2`` and
+   ``traces/quantize_fc2_chunk``): device time by phase, launches a
+   column and the card's busy share;
 10. runs the user's two commands (``experiments/quantize_model_cli.py``
    and ``serve_cli.py``) as a user does, on f32 OPT-1.3B at full width
    (random weights from seed 0, nothing downloaded): writes its HF-layout
@@ -155,9 +163,19 @@
    statistics, ``pack_host``) and once shedding the largest statistics to
    a background drain; each run's packed words bit for bit the uniform
    run's, no statistics left behind;
-11. prints the kernels line (K1-K15, K8f and K9f, with ``quantize`` and
-   ``cli`` entries beside ``engine``), the card's name and power limit,
-   and, last, the result line.
+11. runs the reference's ablation CLIs (``experiments/{dump_stats,
+   compare,bits,scaling,correction,ordering,dampening,local_search,
+   distribution,results}.py``): ``dump_stats`` writes OPT-125m's 72
+   linears (full width and depth, random weights from seed 0, the JAX
+   CLI's defaults) into the temporary directory, every Hessian finite;
+   each analysis CLI runs over layer 0's six linears (``bits`` at grid 5,
+   the others at 10, ``scaling`` with every ``--run-*`` flag) with the
+   JAX CLIs' headers, finite values, local search never raising the
+   error and 5 bits below 1 bit; ``distribution --save-data`` and
+   ``results`` on compare's table; each CLI's seconds printed;
+12. prints the kernels line (K1-K15, K8f and K9f, with ``quantize``,
+   ``cli`` and ``ablation`` entries beside ``engine``), the card's name
+   and power limit, and, last, the result line.
 
 Any failure raises; there is no CPU branch and no fallback. It needs a
 CUDA device and exits non-zero without one.
@@ -167,6 +185,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
@@ -186,8 +205,9 @@ sys.path.insert(0, ROOT)
 from sleekit_tpu_torch import kernels  # noqa: E402
 from sleekit_tpu_torch.codebooks import Codebook, UniformCodebook  # noqa: E402
 from sleekit_tpu_torch.experiments import (  # noqa: E402
-    attn_bench, kernel_bench, prefill_bench, profile_decode,
-    quantize_model_cli, serve_cli)
+    attn_bench, bits, compare, correction, dampening, distribution,
+    dump_stats, kernel_bench, local_search, ordering, prefill_bench,
+    profile_decode, quantize_model_cli, results, scaling, serve_cli)
 from sleekit_tpu_torch.experiments.quantize_model_cli import (  # noqa: E402
     SPILL_HEADROOM, est_stats_bytes, offload_plan, spill_needed, tree_bytes)
 from sleekit_tpu_torch import pipeline as pipe_mod  # noqa: E402
@@ -2039,11 +2059,12 @@ def patched(owner, name, wrap):
 
 def record_multipliers(mults):
     """A wrapper of ``hessian_inv_chol_robust`` that appends each call's
-    dampening multiplier to ``mults``."""
+    dampening multiplier to ``mults`` (one a layer: a batched call returns
+    a list)."""
     def wrap(inner):
         def robust(*a, **kw):
             hinv, mult = inner(*a, **kw)
-            mults.append(mult)
+            mults.extend(mult if isinstance(mult, list) else [mult])
             return hinv, mult
         return robust
     return wrap
@@ -2101,8 +2122,11 @@ def run_quantize(dev, cfg, card):
     qcfg = preset_config("light", nbits=4)
     layer0 = {n: stats[n] for n in tr.layer_names(cfg)
               if n.startswith("layers.0.")}
+    # The batched route's statistics: the serial run frees its entries.
+    batched_stats = dict(stats)
     mults = []
     with tempfile.TemporaryDirectory(prefix="quantize_resume_") as resume:
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         with patched(solver_mod, "hessian_inv_chol_robust",
                      record_multipliers(mults)):
@@ -2111,6 +2135,7 @@ def run_quantize(dev, cfg, card):
                                              free_stats=True)
         torch.cuda.synchronize()
         m["quantize_s"] = time.perf_counter() - t0
+        m["quantize_peak_bytes"] = torch.cuda.max_memory_allocated()
         if stats or len(reports) != 6 * cfg.n_layers or len(mults) != len(
                 reports):
             raise AssertionError("quantize: not every linear solved once")
@@ -2130,6 +2155,9 @@ def run_quantize(dev, cfg, card):
             f"{m['quantize_s']:.3f} s, {m['damp_retries']} solves with a "
             f"damping retry (multipliers {m['damp_multipliers']}); by shape "
             + json.dumps(by_shape) + f" ({card})")
+        log(f"quantize: serial route: {m['quantize_s']:.3f} s wall, one "
+            f"layer a solve, peak {m['quantize_peak_bytes'] / 1e9:.3f} GB "
+            f"allocated ({card})")
         t0 = time.perf_counter()
         dense_q, again = quantize_model(cfg, params, {}, qcfg,
                                         resume_dir=resume)
@@ -2151,10 +2179,23 @@ def run_quantize(dev, cfg, card):
     log(f"quantize: every packed linear dequantizes to the resume pass's Q "
         f"(max |err| {worst:.3g} of its largest entry)")
 
+    fc2 = [n for n in tr.layer_names(cfg) if n.endswith(".fc2")]
+    fc2_stats = [batched_stats[n] for n in fc2]
+    batched, batched_m = run_layer_parallel(cfg, params, batched_stats,
+                                            packed, reports, card)
+    m.update(batched_m)
     m.update(compare_presets(cfg, params, layer0, card))
     m.update(card_vs_cpu(cfg, params, layer0["layers.0.fc1"], card))
-    m.update(profile_solve(cfg, params, layer0["layers.0.fc2"], card))
-    del layer0
+    st = layer0["layers.0.fc2"]
+    m.update(profile_solve(
+        tr.get_linear_param(params, "layers.0.fc2")["kernel"].T.float(),
+        st.hessian, st.mean, "fc2", card))
+    m.update(profile_solve(
+        torch.stack([tr.get_linear_param(params, n)["kernel"].T.float()
+                     for n in fc2]),
+        torch.stack([st.hessian for st in fc2_stats]),
+        torch.stack([st.mean for st in fc2_stats]), "fc2_chunk", card))
+    del layer0, fc2_stats
 
     packed = pack_lm_head(cfg, tr.fuse_qkv_params(cfg, packed), nbits=8)
     del params
@@ -2168,10 +2209,23 @@ def run_quantize(dev, cfg, card):
     if not (isinstance(head, PackedLinear) and head.layout == "int8"):
         raise AssertionError("quantize: the head is not int8")
     prompts = make_prompts(cfg)
-    _, served, full, engine, _ = serve(dev, cfg, card, "quant", packed, K1,
-                                       prompts, NEW_TOKENS, compare=True)
+    _, served, full, engine, comps = serve(dev, cfg, card, "quant", packed,
+                                           K1, prompts, NEW_TOKENS,
+                                           compare=True)
     del engine, full
     m.update(served)
+    batched = pack_lm_head(cfg, tr.fuse_qkv_params(cfg, batched), nbits=8)
+    _, _, full, engine, batched_comps = serve(
+        dev, cfg, card, "quant batched", batched, K1, prompts, NEW_TOKENS)
+    del engine, full, batched
+    agree = np.mean([np.mean(np.asarray(a.tokens) == np.asarray(b.tokens))
+                     for a, b in zip(batched_comps, comps)])
+    m["batched_served_token_agreement"] = float(agree)
+    if m["batched_words_equal"] and agree != 1.0:
+        raise AssertionError("quantize: the batched route's words equal the "
+                             "serial route's, its served tokens do not")
+    log(f"quantize: the batched route's packed model served as the serial "
+        f"one is; greedy tokens {agree:.4f} equal to the serial model's")
     toks = group_tokens(prompts, dev)
     got = prefill_logits(dev, cfg, packed, toks, cfg.n_layers, True)
     want = prefill_logits(dev, cfg, dense_q, toks, cfg.n_layers, False)
@@ -2182,6 +2236,93 @@ def run_quantize(dev, cfg, card):
         f"dequantized dense model's (plain versions), {cfg.n_layers} layers: "
         f"relative L2 {rel:.4g} (<= 2^-6), argmax agreement {agree:.4f}")
     return m
+
+
+# The batched route against the serial one on the card: the two round in
+# other places (the sqerr order's column sums reduce in another order
+# over L lanes, which can swap near-tied columns; cuSOLVER's batched
+# Cholesky and cuBLAS's batched triangular solve and GEMMs round Hinv and
+# the trailing updates otherwise), and the sweep carries a flipped
+# rounding decision along its row, longest in fc2's 8,192 columns. A
+# wrong lane, order or factor would miss these bounds by orders of
+# magnitude; on the CPU the two routes are bit for bit equal.
+BATCHED_LAYER_RTOL, BATCHED_MIN_SHARE, BATCHED_TOTAL_RTOL = 2e-3, 0.95, 1e-4
+
+
+def run_layer_parallel(cfg, params, stats, serial, serial_reports, card):
+    """The same linears through ``quantize_model(layer_parallel=True,
+    pack=True, free_stats=True)``: each shape group solved as stacks in
+    chunks that fit the card, no kernel launched. Against the serial
+    route: every layer's error within BATCHED_LAYER_RTOL and at least
+    BATCHED_MIN_SHARE of its packed codewords equal, the summed error
+    within BATCHED_TOTAL_RTOL; one damping multiplier a layer. Returns
+    (the packed params, metrics: wall, each group's chunk sizes, peak
+    memory, the errors' and codewords' distance)."""
+    qcfg = preset_config("light", nbits=4)
+    chunks, mults = {}, []
+
+    def record(inner):
+        def batch(params, stats, group, *a):
+            chunks.setdefault(shape_of(group[0]), []).append(len(group))
+            return inner(params, stats, group, *a)
+        return batch
+
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with patched(quant_mod, "_solve_layer_batch", record), patched(
+            solver_mod, "hessian_inv_chol_robust", record_multipliers(mults)):
+        packed, reports = quantize_model(cfg, params, stats, qcfg, pack=True,
+                                         layer_parallel=True,
+                                         free_stats=True)
+    torch.cuda.synchronize()
+    m = {"batched_quantize_s": time.perf_counter() - t0,
+         "batched_peak_bytes": torch.cuda.max_memory_allocated(),
+         "batched_chunks": chunks,
+         "batched_launches": {k: n for k, n in counts().items() if n}}
+    if m["batched_launches"]:
+        raise AssertionError(f"quantize batched: launched "
+                             f"{m['batched_launches']}")
+    if (stats or [r.name for r in reports] != [r.name for r in serial_reports]
+            or len(mults) != len(reports)
+            or sum(map(sum, chunks.values())) != len(reports)):
+        raise AssertionError("quantize batched: not every linear solved once")
+    rels, shares, equal = {}, {}, True
+    for rs, rp in zip(serial_reports, reports):
+        rels[rs.name] = abs(rp.error - rs.error) / rs.error
+        a, b = (tr.get_linear_param(p, rs.name) for p in (serial, packed))
+        ia, ib = (unpack_indices(p.packed, p.nbits, p.in_features, p.layout)
+                  for p in (a, b))
+        shares[rs.name] = (ia == ib).float().mean().item()
+        if not (rels[rs.name] <= BATCHED_LAYER_RTOL
+                and shares[rs.name] >= BATCHED_MIN_SHARE):
+            raise AssertionError(f"quantize batched: {rs.name}'s error "
+                                 f"{rels[rs.name]:.3g} from the serial "
+                                 f"route's, {shares[rs.name]:.4f} of its "
+                                 f"codewords equal")
+        equal = equal and torch.equal(a.packed, b.packed)
+    total_s = sum(r.error for r in serial_reports)
+    total_rel = abs(sum(r.error for r in reports) - total_s) / total_s
+    if not total_rel <= BATCHED_TOTAL_RTOL:
+        raise AssertionError(f"quantize batched: the summed error "
+                             f"{total_rel:.3g} from the serial route's")
+    m.update(batched_error_rel=rels, batched_codeword_share=shares,
+             batched_total_error_rel=total_rel, batched_words_equal=equal,
+             batched_damp_multipliers=sorted(set(mults)))
+    log(f"quantize: batched route (layer_parallel): "
+        f"{m['batched_quantize_s']:.3f} s wall, chunks by shape "
+        + json.dumps(chunks) + f", peak {m['batched_peak_bytes'] / 1e9:.3f} "
+        f"GB allocated; against the serial route: summed error "
+        f"{total_rel:.3g} apart (<= {BATCHED_TOTAL_RTOL:g}), each layer's "
+        f"within {max(rels.values()):.3g} (<= {BATCHED_LAYER_RTOL:g}), "
+        f"codewords equal {min(shares.values()):.5f} at worst (>= "
+        f"{BATCHED_MIN_SHARE:g}), packed words all equal: {equal}; damping "
+        f"multipliers {m['batched_damp_multipliers']} ({card})")
+    log("quantize: batched vs serial by layer [error rel, codeword share] "
+        + json.dumps({n: [round(rels[n], 7), round(shares[n], 5)]
+                      for n in rels}))
+    return packed, m
 
 
 def compare_presets(cfg, params, layer0, card):
@@ -2272,29 +2413,30 @@ PHASES = (("scaling", pipe_mod, "compute_scaling"),
           ("sweep", solver_mod, "gptq_sweep"))
 
 
-def profile_solve(cfg, params, st, card):
-    """Layer 0's fc2 (2048 x 8192) through quantize_layer (light, 4 bits):
-    its wall time unprofiled, then once under ``torch.profiler`` with each
-    phase (scaling grid, ordering, Cholesky and inverse, the sweep) run
-    between synchronizations: the device time of each phase, the sweep's
-    split between the trailing GEMMs (kernels named ``gemm``) and the
-    column loop (the rest), its launches a column, and the device's busy
-    share of the unprofiled solve (trace under the git-ignored
-    ``traces/quantize_fc2``)."""
+def profile_solve(W, H, mean, what, card):
+    """A solve through quantize_layer (light, 4 bits): one fc2 layer, W
+    (2048, 8192), or a stack of them (L, 2048, 8192), the batched route's
+    chunk: its wall time unprofiled, then once under ``torch.profiler``
+    with each phase (scaling grid, ordering, Cholesky and inverse, the
+    sweep) run between synchronizations: the device time of each phase,
+    the sweep's split between the trailing GEMMs (kernels named ``gemm``)
+    and the column loop (the rest), its launches a column, and the
+    device's busy share of the unprofiled solve (trace under the
+    git-ignored ``traces/quantize_<what>``). Returns metrics named
+    ``<what>_...``."""
     qcfg = preset_config("light", nbits=4)
-    W = tr.get_linear_param(params, "layers.0.fc2")["kernel"].T.float()
-    quantize_layer(W, st.hessian, st.mean, qcfg)      # warm
+    quantize_layer(W, H, mean, qcfg)      # warm
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    quantize_layer(W, st.hessian, st.mean, qcfg)
+    quantize_layer(W, H, mean, qcfg)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     with contextlib.ExitStack() as stack:
         for name, owner, attr in PHASES:
             stack.enter_context(patched(owner, attr, timed_phase(name)))
         with device_trace(os.path.join(ROOT, "traces",
-                                       "quantize_fc2")) as prof:
-            quantize_layer(W, st.hessian, st.mean, qcfg)
+                                       f"quantize_{what}")) as prof:
+            quantize_layer(W, H, mean, qcfg)
             torch.cuda.synchronize()
     events = prof.events()
     names = {name for name, _, _ in PHASES}
@@ -2322,15 +2464,18 @@ def profile_solve(cfg, params, st, card):
         raise AssertionError(f"quantize profile: phases {sorted(ranges)}, "
                              f"{sweep_launches} sweep launches")
     device_ms = sum(split.values())
-    n_cols = W.shape[1]
-    out = {"fc2_solve_wall_ms": wall_ms, "fc2_solve_device_ms": device_ms,
-           "fc2_busy": device_ms / wall_ms,
-           "fc2_launches_per_column": sweep_launches / n_cols,
-           "fc2_device_ms_by_phase": split}
-    log(f"quantize: one fc2 solve (light, 4 bits, 2048 x {n_cols}): "
-        f"{wall_ms:.1f} ms wall unprofiled, {device_ms:.1f} ms on the card "
-        f"(busy {out['fc2_busy']:.3f}); {out['fc2_launches_per_column']:.2f} "
-        f"launches a column in the sweep; device ms by phase "
+    n_cols = W.shape[-1]
+    lanes = W.shape[0] if W.ndim == 3 else 1
+    out = {f"{what}_solve_wall_ms": wall_ms,
+           f"{what}_solve_device_ms": device_ms,
+           f"{what}_busy": device_ms / wall_ms,
+           f"{what}_launches_per_column": sweep_launches / n_cols,
+           f"{what}_device_ms_by_phase": split}
+    log(f"quantize: {what}: {lanes} fc2 solve(s) at once (light, 4 bits, "
+        f"{W.shape[-2]} x {n_cols}): {wall_ms:.1f} ms wall unprofiled, "
+        f"{device_ms:.1f} ms on the card (busy {out[f'{what}_busy']:.3f}); "
+        f"{out[f'{what}_launches_per_column']:.2f} launches a column in the "
+        f"sweep; device ms by phase "
         + json.dumps({k: round(v, 3) for k, v in split.items()})
         + f" ({card})")
     return out
@@ -2999,6 +3144,150 @@ def run_cli(dev, card):
     return m, path
 
 
+# ---- the reference's ablation CLIs -----------------------------------------
+
+# The headers of the JAX package's CLIs (tests/test_experiments.py),
+# written out: the scaling CLI with every --run-* flag.
+BITS_LABELS = (1, 1.5, 2, 2.3, 2.8, 3, 3.2, 3.9, 4, 5)
+ABLATION_HEADERS = {
+    "compare": "Data\tStandard\tCorrection\tScaling\tSleekitLight\t"
+               "SleekitHeavy",
+    "scaling": "Data\tMSE\tMax\tDiag\tDiag1\tDiag3\tDiag10\tHessian\t"
+               "OBQAware",
+    "correction": "Data\tScaling\tGPTQ\tGPTQ+BiasCorrection\t"
+                  "GPTQWithBiasCorrection",
+    "ordering": "Data\tScaling\tDiag\tDiagErr\tDiagSqErr",
+    "dampening": "Data\tScaling\tDamp0.001\tDamp0.003\tDamp0.01\t"
+                 "Damp0.03\tDamp0.1\tDamp0.3\tDamp1.0",
+    "local_search": "Data\tScaling\tGPTQ\tGPTQ+LS10\tGPTQ+LS100",
+    "bits": "Data" + "".join(f"\tStandard{b}-bit" for b in BITS_LABELS)
+            + "".join(f"\tSleekitLight{b}-bit" for b in BITS_LABELS),
+}
+GRID10 = ["--grid-size", "10"]
+ABLATIONS = (
+    (compare, GRID10), (bits, ["--grid-size", "5"]),
+    (scaling, GRID10 + ["--run-max", "--run-diag", "--run-diag1",
+                        "--run-diag3", "--run-diag10", "--run-hessian",
+                        "--run-obq-aware"]),
+    (correction, GRID10), (ordering, GRID10), (dampening, GRID10),
+    (local_search, GRID10))
+# dump_stats's model: OPT-125m at full width and depth, on the JAX CLI's
+# defaults (8 x 128 tokens, batch 2, seed 0).
+ABLATION_MODEL = "opt-125m"
+
+
+def quiet(main, argv):
+    """(stdout, seconds) of a CLI's ``main(argv)`` on the card."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        main(argv)
+    torch.cuda.synchronize()
+    return buf.getvalue(), time.perf_counter() - t0
+
+
+def run_ablation(card):
+    """The reference's ablation CLIs on the card: ``dump_stats`` writes
+    OPT-125m's 72 linears (random weights from seed 0, its calibration on
+    the card; the launches it makes are counted) into the temporary
+    directory, every Hessian finite; then each analysis CLI runs over
+    layer 0's six linears (a root holding only them), ``bits`` at grid 5
+    and the others at grid 10, ``scaling`` with every ``--run-*`` flag:
+    the JAX CLIs' headers, the six layer names, every value finite,
+    GPTQ+LS100 <= 1.001 x GPTQ, the 5-bit standard error below the 1-bit
+    one; ``distribution --save-data`` writes every weight of the six;
+    ``results`` on compare's table names SleekitHeavy. Returns each CLI's
+    seconds, dump_stats's launches and bytes."""
+    m = {"seconds": {}}
+    with tempfile.TemporaryDirectory(prefix="ablation_") as tmp:
+        data = os.path.join(tmp, ABLATION_MODEL)
+        kernels.reset_launch_counts()
+        out, m["seconds"]["dump_stats"] = quiet(
+            dump_stats.main, [data, "--model", ABLATION_MODEL])
+        m["dump_stats_launches"] = {k: n for k, n in counts().items() if n}
+        cfg = zoo.get_config(ABLATION_MODEL)
+        names = sorted(n.replace(".", "_") for n in tr.layer_names(cfg))
+        if sorted(os.listdir(data)) != names:
+            raise AssertionError(f"ablation: dump_stats wrote "
+                                 f"{len(os.listdir(data))} layer dirs, not "
+                                 f"{len(names)}")
+        nbytes = 0
+        for name in names:
+            path = os.path.join(data, name)
+            files = sorted(os.listdir(path))
+            if files != ["bias.npy", "hessian.npy", "mean.npy", "weight.npy"]:
+                raise AssertionError(f"ablation: {name} holds {files}")
+            nbytes += sum(os.path.getsize(os.path.join(path, f))
+                          for f in files)
+            if not np.isfinite(np.load(os.path.join(path,
+                                                    "hessian.npy"))).all():
+                raise AssertionError(f"ablation: {name}'s Hessian is not "
+                                     f"finite")
+        m["dump_stats_bytes"] = nbytes
+        log(f"ablation: dump_stats {ABLATION_MODEL} ({cfg.n_layers} layers, "
+            f"{len(names)} linears): {m['seconds']['dump_stats']:.1f} s, "
+            f"{nbytes / 1e9:.3f} GB on disk, launches "
+            f"{m['dump_stats_launches']} ({out.strip()}; {card})")
+
+        root = os.path.join(tmp, "layer0")
+        layer0 = [n for n in names if n.startswith("layers_0_")]
+        for name in layer0:
+            os.makedirs(os.path.join(root, name))
+            for f in os.listdir(os.path.join(data, name)):
+                os.link(os.path.join(data, name, f),
+                        os.path.join(root, name, f))
+        tables = {}
+        for cli, argv in ABLATIONS:
+            what = cli.__name__.rsplit(".", 1)[-1]
+            out, m["seconds"][what] = quiet(cli.main, [root] + argv)
+            rows = [line.split("\t") for line in out.strip().split("\n")]
+            header = "\t".join(rows[0])
+            if header != ABLATION_HEADERS[what]:
+                raise AssertionError(f"ablation: {what}'s header {header!r}")
+            if [r[0] for r in rows[1:]] != layer0:
+                raise AssertionError(f"ablation: {what}'s layers "
+                                     f"{[r[0] for r in rows[1:]]}")
+            for r in rows[1:]:
+                vals = [float(v) for v in r[1:] if v != "mse"]
+                if not all(math.isfinite(v) for v in vals):
+                    raise AssertionError(f"ablation: {what} {r}")
+                if what == "local_search" and not vals[2] <= 1.001 * vals[0]:
+                    raise AssertionError(f"ablation: local search raised "
+                                         f"{r[0]}'s error: {r}")
+                if what == "bits" and not vals[9] < vals[0]:
+                    raise AssertionError(f"ablation: {r[0]}'s 5-bit "
+                                         f"error is not below its 1-bit one")
+            tables[what] = out
+            log(f"ablation: {what} over layer 0's six linears: "
+                f"{m['seconds'][what]:.1f} s ({card})")
+            for line in out.strip().split("\n"):
+                log(f"ablation:   {line}")
+        path = os.path.join(tmp, "values.npy")
+        out, m["seconds"]["distribution"] = quiet(
+            distribution.main, [root, "--scaling", "mse", "--save-data",
+                                path] + GRID10)
+        n_weights = sum(np.load(os.path.join(root, n, "weight.npy")).size
+                        for n in layer0)
+        values = np.load(path)
+        if values.shape != (n_weights,) or not np.isfinite(values).all():
+            raise AssertionError(f"ablation: distribution wrote "
+                                 f"{values.shape} values")
+        tsv = os.path.join(tmp, "compare_3b.csv")
+        with open(tsv, "w") as f:
+            f.write(tables["compare"])
+        out, m["seconds"]["results"] = quiet(results.main, [tsv])
+        if "SleekitHeavy" not in out:
+            raise AssertionError(f"ablation: results printed {out!r}")
+        log(f"ablation: distribution {m['seconds']['distribution']:.1f} s "
+            f"({values.size} values), results "
+            f"{m['seconds']['results']:.2f} s:")
+        for line in out.strip().split("\n"):
+            log(f"ablation:   {line}")
+    m["total_s"] = sum(m["seconds"].values())
+    log(f"ablation: the phase's CLIs took {m['total_s']:.1f} s ({card})")
+    return m
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
@@ -3109,6 +3398,8 @@ def main():
     torch.cuda.empty_cache()
     cli, path = run_cli(dev, smi)
     launches.update(path)
+    torch.cuda.empty_cache()
+    ablation = run_ablation(smi)
 
     rows = []
     for k in (K1, K2, K3, K4, K5, K6, K7, K8, K9, K10, K11, K12, K13, K14,
@@ -3138,7 +3429,7 @@ def main():
     engine["ptxas_plane_f32"] = f32_ptxas
     engine["ptxas_append_kernel"] = append_ptxas
     print(json.dumps({"kernels": rows, "engine": engine, "quantize": quant,
-                      "cli": cli, "benches": benches}))
+                      "cli": cli, "ablation": ablation, "benches": benches}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -34,27 +34,18 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from sleekit_tpu_torch.models.quantize import (
+    hbm_limit, solve_workspace, sync_device)
+
 # Headroom the JAX package keeps (its own figures): over the calibration
-# footprint before it spills, for the largest solve workspace (at K =
-# 8192, scaled by K^2, floored), and over the simulated solve peak.
+# footprint before it spills, and over the simulated solve peak (the
+# solve's workspace estimate is ``models/quantize.py``'s).
 SPILL_HEADROOM = 1.5e9
-WORKSPACE_AT_8192 = 3.5e9
-WORKSPACE_FLOOR = 0.5e9
 PEAK_MARGIN = 0.5e9
 DRAIN_GROUP_BYTES = 2e9
 
 
 # ---- the device-memory decisions (plain functions of sizes) ---------------
-
-
-def hbm_limit(device) -> float:
-    """The device's memory budget in bytes: ``QUANT_HBM_LIMIT`` if set (to
-    exercise the spill and drain branches on a large card, or on the
-    CPU), else the card's total memory."""
-    env = os.environ.get("QUANT_HBM_LIMIT")
-    if env:
-        return float(env)
-    return float(torch.cuda.mem_get_info(device)[1])
 
 
 def est_stats_bytes(cfg) -> float:
@@ -90,11 +81,6 @@ def spill_needed(params_bytes: float, stats_bytes: float,
     """Whether calibration must sweep layer-outer with host statistics:
     params and statistics do not fit with the calibration headroom."""
     return params_bytes + stats_bytes + SPILL_HEADROOM > limit
-
-
-def solve_workspace(k: int) -> float:
-    """A solve's workspace estimate at input dimension ``k``."""
-    return max(WORKSPACE_FLOOR, WORKSPACE_AT_8192 * (k / 8192.0) ** 2)
 
 
 def offload_plan(entries: Sequence[Tuple[str, int, int]],
@@ -226,11 +212,6 @@ def _tree_to(tree, dev):
     return tree
 
 
-def _sync(dev) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-
-
 def main(argv=None):
     parser = argparse.ArgumentParser(
         description="Quantize a model to a packed serving checkpoint")
@@ -321,7 +302,7 @@ def main(argv=None):
             stats = calibrate_spill(cfg, params, batches)
         else:
             stats = calibrate(cfg, params, batches)
-        _sync(dev)
+        sync_device(dev)
     stats = StatsTable(stats)
     drainer: Optional[threading.Thread] = None
     if budgeted and not result["spill"]:
@@ -367,7 +348,7 @@ def main(argv=None):
                                           pack=args.pack, verbose=True,
                                           free_stats=True,
                                           pack_host=result["spill"])
-        _sync(dev)
+        sync_device(dev)
     if drainer is not None:
         drainer.join()
     result["stats_left"] = sorted(stats)

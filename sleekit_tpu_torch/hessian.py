@@ -7,7 +7,9 @@ updated by :func:`update_stats` on the device of the activations (the
 ``torch.linalg.cholesky_ex`` and one triangular solve; a failed
 factorization (``info > 0``, where JAX's ``cholesky`` yields NaN) gives a
 NaN factor, which :func:`hessian_inv_chol_robust` answers with more
-dampening.
+dampening. The bias correction, the dampening and the inverse factor
+take one matrix (n, n) or a stack (L, n, n) of independent layers (the
+batched layer solve), each lane on its own.
 """
 
 from __future__ import annotations
@@ -119,10 +121,11 @@ def random_psd_matrix(seed: int, size: int, rank: int, damp: float = 0.0,
 def remove_input_bias(H: torch.Tensor,
                       input_mean: torch.Tensor) -> torch.Tensor:
     """Bias correction folded into the Hessian: H - mu muᵀ (the error along
-    the input mean goes into the layer bias)."""
-    if H.ndim != 2 or input_mean.ndim != 1:
-        raise ValueError("remove_input_bias takes H (n, n) and mean (n,)")
-    return H - torch.outer(input_mean, input_mean)
+    the input mean goes into the layer bias). H (..., n, n), mean (..., n)."""
+    if H.ndim < 2 or input_mean.shape != H.shape[:-1]:
+        raise ValueError("remove_input_bias takes H (..., n, n) and mean "
+                         "(..., n)")
+    return H - input_mean[..., :, None] * input_mean[..., None, :]
 
 
 def remove_dead_values(H: torch.Tensor, W: torch.Tensor
@@ -136,36 +139,64 @@ def remove_dead_values(H: torch.Tensor, W: torch.Tensor
     return H, torch.where(dead[None, :], 0.0, W)
 
 
-def dampen(H: torch.Tensor, damp: float) -> torch.Tensor:
-    """GPTQ dampening: H + damp * mean(diag(H)) * I."""
+def diag_of(H: torch.Tensor) -> torch.Tensor:
+    """The diagonal of each matrix of a stack (..., n, n)."""
+    return torch.diagonal(H, dim1=-2, dim2=-1)
+
+
+def dampen(H: torch.Tensor, damp) -> torch.Tensor:
+    """GPTQ dampening: H + damp * mean(diag(H)) * I, for each matrix of a
+    stack; ``damp`` a number, or a tensor of one per matrix."""
     H = H.clone()
-    H.diagonal().add_(damp * torch.mean(torch.diagonal(H)))
+    if isinstance(damp, torch.Tensor):
+        damp = damp[..., None]
+    diag_of(H).add_(damp * torch.mean(diag_of(H), dim=-1, keepdim=True))
     return H
 
 
 def hessian_inv_chol(H: torch.Tensor) -> torch.Tensor:
     """Upper Cholesky factor of H⁻¹ by the flip trick: flip H, take its
     lower Cholesky factor L, invert it (one triangular solve) and flip
-    back. All NaN where the factorization fails."""
-    Hf = H.flip(0, 1)
+    back. All NaN in each matrix whose factorization fails."""
+    Hf = H.flip(-2, -1)
     L, info = torch.linalg.cholesky_ex(Hf)
-    L = torch.where(info == 0, L, torch.nan)
-    eye = torch.eye(H.shape[0], dtype=H.dtype, device=H.device)
-    return torch.linalg.solve_triangular(L, eye, upper=False).flip(0, 1)
+    L = torch.where((info == 0)[..., None, None], L, torch.nan)
+    eye = torch.eye(H.shape[-1], dtype=H.dtype, device=H.device)
+    return torch.linalg.solve_triangular(
+        L, eye.expand(L.shape), upper=False).flip(-2, -1)
+
+
+def _not_finite(hinv: torch.Tensor) -> np.ndarray:
+    """Whether each matrix of ``hinv`` holds a non-finite entry."""
+    return ~torch.isfinite(hinv).all(dim=-1).all(dim=-1).cpu().numpy()
 
 
 def hessian_inv_chol_robust(H: torch.Tensor, damp: float,
-                            max_retries: int = 4
-                            ) -> Tuple[torch.Tensor, float]:
-    """:func:`hessian_inv_chol` of ``dampen(H, damp)``; while the factor is
-    not finite (at most ``max_retries`` times) the dampening becomes
-    max(10 x, 1e-4). Returns (Hinv, the multiplier of ``damp`` used), in
-    f32 as the JAX package computes it."""
-    base = eff = np.float32(damp)
-    hinv = hessian_inv_chol(dampen(H, float(eff)))
-    tries = 0
-    while tries < max_retries and not bool(torch.isfinite(hinv).all()):
-        eff = max(eff * np.float32(10.0), np.float32(1e-4))
-        hinv = hessian_inv_chol(dampen(H, float(eff)))
-        tries += 1
-    return hinv, float(eff / base)
+                            max_retries: int = 4):
+    """:func:`hessian_inv_chol` of ``dampen(H, damp)``; while a factor is
+    not finite (at most ``max_retries`` times) its dampening becomes
+    max(10 x, 1e-4), in f32 as the JAX package computes it. Returns
+    (Hinv, the multiplier of ``damp`` used): a float for one matrix, a
+    list of one a matrix for a stack (L, n, n), where each lane retries
+    on its own and keeps the first finite factor it gets (a lane that
+    factors at once keeps multiplier 1), as under the JAX package's
+    ``vmap``."""
+    base = np.float32(damp)
+    eff = np.full(H.shape[:-2], base, np.float32)
+    hinv = hessian_inv_chol(dampen(H, float(base)))
+    bad = _not_finite(hinv)
+    for _ in range(max_retries):
+        if not bad.any():
+            break
+        eff[bad] = np.maximum(eff[bad] * np.float32(10.0), np.float32(1e-4))
+        if H.ndim == 2:
+            hinv = hessian_inv_chol(dampen(H, float(eff)))
+        else:
+            lanes = torch.from_numpy(np.flatnonzero(bad)).to(H.device)
+            hinv[lanes] = hessian_inv_chol(dampen(
+                H[lanes], torch.from_numpy(eff[bad]).to(H.device)))
+        bad = _not_finite(hinv)
+    mults = eff / base
+    if H.ndim == 2:
+        return hinv, float(mults)
+    return hinv, [float(m) for m in mults]

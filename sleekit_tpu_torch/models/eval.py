@@ -18,6 +18,7 @@ token-equal to the JAX package.
 
 from __future__ import annotations
 
+import gc
 import time
 from typing import Iterable, Optional
 
@@ -169,7 +170,9 @@ class DecodeGraph:
         capture of one step (which runs nothing). ``torch.cuda.graph``
         would first synchronize, collect Python's garbage and empty the
         allocator's cache: host time at every capture that none of this
-        needs."""
+        needs. Python's collector is off during the capture: a collection
+        there could destroy an unreachable runner's graph, and destroying
+        a graph while a stream captures invalidates the capture."""
         t0 = time.perf_counter()
         self.graph = None
         if self._stream is None:
@@ -181,13 +184,19 @@ class DecodeGraph:
         graph = torch.cuda.CUDAGraph()
         if self.mode in ("sample", "topkp") and self.generator is not None:
             graph.register_generator_state(self.generator)
-        with kernels.captured_launches() as calls, \
-                torch.cuda.stream(self._stream):
-            graph.capture_begin()
-            try:
-                self._step(cache)
-            finally:
-                graph.capture_end()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with kernels.captured_launches() as calls, \
+                    torch.cuda.stream(self._stream):
+                graph.capture_begin()
+                try:
+                    self._step(cache)
+                finally:
+                    graph.capture_end()
+        finally:
+            if collecting:
+                gc.enable()
         self.graph, self._key, self.captured = graph, key, calls
         self.captures += 1
         self.capture_s += time.perf_counter() - t0

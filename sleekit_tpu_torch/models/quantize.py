@@ -8,7 +8,9 @@ sweeps layer by layer and keeps the statistics on the host;
 :func:`quantize_model` runs
 :func:`~sleekit_tpu_torch.pipeline.quantize_layer` for every linear and
 stores either the dequantized f32 weights (reference semantics) or the
-packed serving format. :func:`pack_lm_head` packs the unembed head.
+packed serving format; with ``layer_parallel`` the linears of one shape
+are solved as stacks, in chunks that fit the device's memory.
+:func:`pack_lm_head` packs the unembed head.
 """
 
 from __future__ import annotations
@@ -30,6 +32,41 @@ from sleekit_tpu_torch.models.transformer import (
 from sleekit_tpu_torch.ops.pack import PackedLinear, pack_quantized
 from sleekit_tpu_torch.pipeline import QuantConfig, quantize_layer
 from sleekit_tpu_torch.scaling import compute_non_saturating_scaling
+
+
+# Headroom the JAX package keeps for a solve's workspace (its own figures):
+# at K = 8192, scaled by K^2, floored.
+WORKSPACE_AT_8192 = 3.5e9
+WORKSPACE_FLOOR = 0.5e9
+
+
+def solve_workspace(k: int) -> float:
+    """A solve's workspace estimate at input dimension ``k``."""
+    return max(WORKSPACE_FLOOR, WORKSPACE_AT_8192 * (k / 8192.0) ** 2)
+
+
+def hbm_limit(device) -> float:
+    """The device's memory budget in bytes: ``QUANT_HBM_LIMIT`` if set (to
+    exercise the spill and drain branches on a large card, or on the
+    CPU), else the card's total memory."""
+    env = os.environ.get("QUANT_HBM_LIMIT")
+    if env:
+        return float(env)
+    return float(torch.cuda.mem_get_info(device)[1])
+
+
+def chunk_size(dev, left: int, k: int, lane_bytes: float = 0.0) -> int:
+    """How many of the ``left`` same-shape solves at input dimension ``k``
+    fit the device's memory at once (at least one): its budget
+    (:func:`hbm_limit`) less what PyTorch holds there now, over a lane's
+    workspace estimate plus ``lane_bytes`` (its statistics, if they come
+    from another device). Without a budget (the CPU, no
+    ``QUANT_HBM_LIMIT``) all of them."""
+    if dev.type != "cuda" and not os.environ.get("QUANT_HBM_LIMIT"):
+        return left
+    used = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+    free = hbm_limit(dev) - used
+    return max(1, min(left, int(free // (solve_workspace(k) + lane_bytes))))
 
 
 @dataclasses.dataclass
@@ -179,11 +216,18 @@ def quantize_model(cfg: TransformerConfig, params,
     already there. ``free_stats`` pops each consumed entry from the
     caller's ``stats``. The smallest Hessians are solved first; statistics
     that live on another device (the host) are copied to the weights'
-    device one layer ahead of their solve."""
-    if layer_parallel or mesh is not None:
+    device one layer ahead of their solve.
+
+    ``layer_parallel=True`` groups the linears by shape and solves each
+    group as stacks (one ``quantize_layer`` over L layers at once), in
+    chunks that fit the device's memory (:func:`chunk_size`), the
+    statistics copied to the device a chunk at a time; each report's
+    ``wall_s`` is its chunk's wall over the chunk's size. A per-layer
+    (lloyd) codebook stays serial, as in the JAX package."""
+    if mesh is not None:
         raise NotImplementedError(
-            "layer_parallel and mesh solves are not ported yet (ROADMAP, "
-            "modules to port: parallel/)")
+            "mesh solves are not ported yet (ROADMAP, modules to port: "
+            "parallel/)")
     if resume_dir is not None:
         os.makedirs(resume_dir, exist_ok=True)
     params = _copy_tree(params)
@@ -207,6 +251,11 @@ def quantize_model(cfg: TransformerConfig, params,
             print(f"  {name:24s} err={reports[name].error:12.5g} "
                   f"{wall:6.2f}s", flush=True)
 
+    def solved(name, out, wall):
+        if resume_dir is not None:
+            _save_layer_artifact(resume_dir, name, *out)
+        finish(name, out, wall)
+
     pending = []
     for name in names:
         if resume_dir is not None:
@@ -219,6 +268,35 @@ def quantize_model(cfg: TransformerConfig, params,
     # Smallest K first: the solve's workspace grows as K^2, and with
     # free_stats the resident statistics shrink as layers finish.
     pending.sort(key=lambda n: (stats[n].hessian.numel(), n))
+
+    if layer_parallel and not per_layer_cb:
+        groups: Dict[Tuple[int, int], List[str]] = {}
+        for name in pending:
+            kernel = get_linear_param(params, name)["kernel"]    # (in, out)
+            groups.setdefault((kernel.shape[1], kernel.shape[0]),
+                              []).append(name)
+        # Keyed (out, in): K = in first, then out.
+        for (_, k), group in sorted(groups.items(),
+                                    key=lambda kv: (kv[0][1], kv[0][0])):
+            while group:
+                t0 = time.perf_counter()
+                dev = get_linear_param(params, group[0])["kernel"].device
+                st = stats[group[0]]
+                lane_bytes = (0.0 if st.hessian.device == dev else
+                              (st.hessian.numel() + st.mean.numel()) * 4.0)
+                chunk = group[:chunk_size(dev, len(group), k, lane_bytes)]
+                group = group[len(chunk):]
+                outs = _solve_with_hbm_retry(
+                    lambda chunk=chunk: _solve_layer_batch(
+                        params, stats, chunk, qconfig,
+                        cb if explicit_cb else None))
+                wall = (time.perf_counter() - t0) / len(chunk)
+                for name, out in zip(chunk, outs):
+                    solved(name, out, wall)
+                # The chunk's stacks, before the next chunk's free memory
+                # is read.
+                del outs, out
+        pending = []
 
     prefetched: Dict[str, LayerStats] = {}
     for idx, name in enumerate(pending):
@@ -235,16 +313,43 @@ def quantize_model(cfg: TransformerConfig, params,
 
         def solve():
             out = quantize_layer(W, st.hessian, st.mean, qconfig, cb_solve)
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
+            sync_device(dev)
             return out
 
         out = _solve_with_hbm_retry(solve)
         del st
-        if resume_dir is not None:
-            _save_layer_artifact(resume_dir, name, *out)
-        finish(name, out, time.perf_counter() - t0)
+        solved(name, out, time.perf_counter() - t0)
     return params, [reports[name] for name in names]
+
+
+def sync_device(dev) -> None:
+    """Wait for the work queued on ``dev`` (a no-op on the CPU)."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _solve_layer_batch(params, stats, group: List[str], qconfig: QuantConfig,
+                       codebook):
+    """One ``quantize_layer`` over the stacked weights, Hessians and means
+    of ``group`` (same-shape linears), on the weights' device: each
+    layer's statistics are copied into the stack from wherever they live.
+    Returns one (Q, bias_delta, scale, err) a layer, in ``group``'s
+    order."""
+    kernels = [get_linear_param(params, n)["kernel"] for n in group]
+    dev = kernels[0].device
+    n_in, n_out = kernels[0].shape
+    L = len(group)
+    Ws = torch.empty((L, n_out, n_in), device=dev)
+    Hs = torch.empty((L, n_in, n_in), device=dev)
+    mus = torch.empty((L, n_in), device=dev)
+    for i, (name, kernel) in enumerate(zip(group, kernels)):
+        Ws[i].copy_(kernel.T)
+        Hs[i].copy_(stats[name].hessian, non_blocking=True)
+        mus[i].copy_(stats[name].mean, non_blocking=True)
+    Q, bd, sc, err = quantize_layer(Ws, Hs, mus, qconfig, codebook)
+    del Ws, Hs, mus
+    sync_device(dev)
+    return [(Q[i], bd[i], sc[i], err[i]) for i in range(L)]
 
 
 def _solve_with_hbm_retry(fn, attempts: int = 8, wait_s: float = 20.0):

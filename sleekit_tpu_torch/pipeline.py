@@ -99,7 +99,19 @@ def quantize_layer(weight: torch.Tensor, hessian: torch.Tensor,
     """The per-layer pipeline on the tensors' device. Returns (Q, the
     dequantized f32 weights; the bias delta (W - Q) @ mean; the
     per-channel scale; the per-channel error against the Hessian it
-    optimized). ``codebook`` overrides the config's (a trained one)."""
+    optimized). ``codebook`` overrides the config's (a trained one).
+
+    ``weight`` (m, n), ``hessian`` (n, n), ``mean`` (n,); or a stack of
+    independent layers of one shape, (L, m, n), (L, n, n) and (L, n), one
+    codebook for all, solved at once (every output with L leading)."""
+    if (weight.ndim not in (2, 3)
+            or hessian.shape != (*weight.shape[:-2], weight.shape[-1],
+                                 weight.shape[-1])
+            or mean.shape != hessian.shape[:-1]):
+        raise ValueError(
+            f"quantize_layer takes weight ([L,] m, n), hessian ([L,] n, n) "
+            f"and mean ([L,] n), not {tuple(weight.shape)}, "
+            f"{tuple(hessian.shape)} and {tuple(mean.shape)}")
     cb = codebook if codebook is not None else config.make_codebook()
     W = weight.float()
     H = hessian.float()
@@ -107,13 +119,14 @@ def quantize_layer(weight: torch.Tensor, hessian: torch.Tensor,
     if config.bias_correction:
         H = remove_input_bias(H, mean)
     scale = compute_scaling(
-        W, cb, H, mode=config.scaling_mode, grid_size=config.grid_size,
-        min_factor=config.min_factor, max_factor=config.max_factor,
-        block_size=config.block_size, obq_refine=config.obq_refine)
+        W, cb, H, mode=config.scaling_mode, axis=None,
+        grid_size=config.grid_size, min_factor=config.min_factor,
+        max_factor=config.max_factor, block_size=config.block_size,
+        obq_refine=config.obq_refine)
     Q = quantize_with_scaling(
         W, scale, cb, H=H, act_order=config.order_mode, damp=config.damp,
         nb_ls_moves=config.nb_ls_moves, block_size=config.block_size)
-    bias_delta = torch.sum((W - Q) * mean[None, :], dim=1)
+    bias_delta = torch.sum((W - Q) * mean[..., None, :], dim=-1)
     return Q, bias_delta, scale, channelwise_error(W, Q, H)
 
 

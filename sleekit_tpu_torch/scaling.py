@@ -6,6 +6,11 @@ the non-saturating scale: round-to-nearest error (``mse``, ``diag[P]``,
 is built as ``jnp.linspace`` computes it in the JAX package's compiled
 search, in f32, so the port's factors are the JAX package's bit for bit
 (``torch.linspace`` differs in the last bit of some).
+
+Each function takes ``data`` with its channels on ``axis``, or, with
+``axis=None``, a matrix (m, n) or a stack of independent layers (L, m, n)
+scaled per row, with H (L, n, n) a layer: the batched layer solve runs
+every grid factor once for all L layers.
 """
 
 from __future__ import annotations
@@ -15,8 +20,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-from sleekit_tpu_torch.hessian import dampen, hessian_inv_chol
-from sleekit_tpu_torch.solver import compute_order, gptq_sweep, quantize_opt
+from sleekit_tpu_torch.hessian import dampen, diag_of, hessian_inv_chol
+from sleekit_tpu_torch.solver import (
+    compute_order, gptq_sweep, permute_columns, permute_hessian,
+    quantize_opt)
 
 
 def grid_factors(start: float, stop: float, num: int) -> np.ndarray:
@@ -49,25 +56,30 @@ def apply_scaling(data: torch.Tensor, scale: torch.Tensor,
 # ---- closed-form scalings --------------------------------------------------
 
 
-def _other_axes(data: torch.Tensor, axis: int):
+def _reduced_axes(data: torch.Tensor, axis: Optional[int]):
+    """The axes a per-channel statistic reduces: all but ``axis``, or the
+    last (``axis=None``: the rows of each matrix are the channels)."""
+    if axis is None:
+        return (-1,)
     return tuple(i for i in range(data.ndim) if i != axis)
 
 
-def compute_norm_scaling(data: torch.Tensor, axis: int = 0) -> torch.Tensor:
+def compute_norm_scaling(data: torch.Tensor,
+                         axis: Optional[int] = 0) -> torch.Tensor:
     """Scale for unit RMS per channel."""
-    sqnorm = torch.mean(torch.square(data), dim=_other_axes(data, axis))
+    sqnorm = torch.mean(torch.square(data), dim=_reduced_axes(data, axis))
     return torch.sqrt(torch.clamp(sqnorm, min=1e-16))
 
 
 def compute_non_saturating_scaling(data: torch.Tensor, codebook,
-                                   axis: int = 0) -> torch.Tensor:
+                                   axis: Optional[int] = 0) -> torch.Tensor:
     """Smallest per-channel scale with no saturation against the codebook
     range. Requires a mixed-sign codebook."""
     mincode, maxcode = codebook.min(), codebook.max()
     if float(mincode) >= 0 or float(maxcode) <= 0:
         raise ValueError(
             "Codebook should have both negative and positive values.")
-    other = _other_axes(data, axis)
+    other = _reduced_axes(data, axis)
     mindata = torch.amin(data, dim=other)
     maxdata = torch.amax(data, dim=other)
     # Divide by tensors: CUDA divides by a Python number as a product
@@ -86,45 +98,50 @@ def quantize_with_scaling(data: torch.Tensor, scale: torch.Tensor, quantizer,
                           nb_ls_moves: int = 0,
                           block_size: int = 128) -> torch.Tensor:
     """Divide by the scale, solve (GPTQ if H is given, else round), multiply
-    back."""
-    if data.ndim != 2 or scale.shape != (data.shape[0],):
-        raise ValueError("quantize_with_scaling takes data (m, n) and a "
-                         "scale (m,)")
-    scaled = data / scale[:, None]
+    back. ``data`` ([L,] m, n), ``scale`` ([L,] m)."""
+    if data.ndim not in (2, 3) or scale.shape != data.shape[:-1]:
+        raise ValueError("quantize_with_scaling takes data ([L,] m, n) and "
+                         "a scale ([L,] m)")
+    scaled = data / scale[..., None]
     if H is not None:
         q = quantize_opt(scaled, H, quantizer, act_order=act_order,
                          damp=damp, nb_ls_moves=nb_ls_moves,
                          block_size=block_size)
     else:
         q = quantizer(scaled)
-    return q * scale[:, None]
+    return q * scale[..., None]
 
 
 # ---- grid searches ---------------------------------------------------------
 
 
 def _weighted_mse(H: Optional[torch.Tensor], E: torch.Tensor) -> torch.Tensor:
-    """Per-channel error: plain MSE (H None), diagonal-weighted (1-D H) or
-    the full quadratic form (2-D H)."""
+    """Per-channel error: plain MSE (H None), diagonal-weighted (H a
+    diagonal a layer) or the full quadratic form (H a matrix a layer)."""
     if H is None:
-        return torch.sum(torch.square(E), dim=1)
-    if H.ndim == 1:
-        return torch.sum(H[None, :] * torch.square(E), dim=1)
+        return torch.sum(torch.square(E), dim=-1)
+    if H.ndim == E.ndim - 1:
+        return torch.sum(H[..., None, :] * torch.square(E), dim=-1)
     return torch.sum((E @ H) * E, dim=-1)
 
 
-def _move_axis_first(data: torch.Tensor, axis: int) -> torch.Tensor:
-    return data.permute(axis, *_other_axes(data, axis)).reshape(
-        data.shape[axis], -1)
+def _rows(data: torch.Tensor, axis: Optional[int]) -> torch.Tensor:
+    """The data as f32 matrices with one channel a row: ``data`` itself
+    for ``axis=None``, else the channel axis moved first and the rest
+    flattened."""
+    if axis is None:
+        return data.float()
+    other = tuple(i for i in range(data.ndim) if i != axis)
+    return data.permute(axis, *other).reshape(data.shape[axis], -1).float()
 
 
-def _grid_argmin(factors, eval_factor, num_channels: int, device,
+def _grid_argmin(factors, eval_factor, channels, device,
                  return_err: bool = False):
-    """Per-channel best factor over ``factors`` (f32 scalars, or (m,)
-    tensors of per-channel factors); the first wins on ties (a strict <
-    update)."""
-    best_err = torch.full((num_channels,), torch.inf, device=device)
-    best_choice = torch.full((num_channels,), torch.inf, device=device)
+    """Per-channel best factor over ``factors`` (f32 scalars, or tensors
+    of per-channel factors of shape ``channels``); the first wins on ties
+    (a strict < update)."""
+    best_err = torch.full(channels, torch.inf, device=device)
+    best_choice = torch.full(channels, torch.inf, device=device)
     for s in factors:
         err = eval_factor(s)
         better = err < best_err
@@ -135,25 +152,26 @@ def _grid_argmin(factors, eval_factor, num_channels: int, device,
     return best_choice
 
 
-def compute_min_mse_scaling(data: torch.Tensor, codebook, axis: int = 0,
+def compute_min_mse_scaling(data: torch.Tensor, codebook,
+                            axis: Optional[int] = 0,
                             H: Optional[torch.Tensor] = None,
                             min_factor: float = 0.05, max_factor: float = 1.0,
                             grid_size: int = 100) -> torch.Tensor:
     """Grid search over [min_factor, max_factor] x the non-saturating scale,
     scoring each channel's round-to-nearest error."""
-    flat = _move_axis_first(data, axis).float()
-    initial_scale = compute_non_saturating_scaling(flat, codebook, 0)
+    flat = _rows(data, axis)
+    initial_scale = compute_non_saturating_scaling(flat, codebook, None)
 
     def eval_factor(s):
-        scale = (s * initial_scale)[:, None]
+        scale = (s * initial_scale)[..., None]
         return _weighted_mse(H, codebook(flat / scale) * scale - flat)
 
     factors = grid_factors(min_factor, max_factor, grid_size).tolist()
-    return initial_scale * _grid_argmin(factors, eval_factor, flat.shape[0],
-                                        flat.device)
+    return initial_scale * _grid_argmin(factors, eval_factor,
+                                        flat.shape[:-1], flat.device)
 
 
-def compute_obq_scaling(data: torch.Tensor, codebook, axis: int,
+def compute_obq_scaling(data: torch.Tensor, codebook, axis: Optional[int],
                         H: torch.Tensor, damp: float = 0.01,
                         act_order: str = "diag", min_factor: float = 0.05,
                         max_factor: float = 1.0, grid_size: int = 100,
@@ -166,43 +184,44 @@ def compute_obq_scaling(data: torch.Tensor, codebook, axis: int,
     then ``refine`` per-channel factors over +-1 coarse step around each
     channel's winner (2 * refine sweeps), keeping the coarse winner where
     it scores lower."""
-    W = _move_axis_first(data, axis).float()
-    initial_scale = compute_non_saturating_scaling(W, codebook, 0)
+    W = _rows(data, axis)
+    initial_scale = compute_non_saturating_scaling(W, codebook, None)
     H = H.float()
     H_opt = dampen(H, damp)
-    order = compute_order(W / initial_scale[:, None], H_opt, codebook,
+    order = compute_order(W / initial_scale[..., None], H_opt, codebook,
                           act_order)
-    Wp = W[:, order]
-    Hperm = H[order][:, order]
-    Hinv = hessian_inv_chol(H_opt[order][:, order])
+    Wp = permute_columns(W, order)
+    Hperm = permute_hessian(H, order)
+    Hinv = hessian_inv_chol(permute_hessian(H_opt, order))
 
     def eval_factor(s):
-        scale = (s * initial_scale)[:, None]
+        scale = (s * initial_scale)[..., None]
         Q = gptq_sweep(Wp / scale, Hinv, codebook,
                        block_size=block_size) * scale
         return _weighted_mse(Hperm, Q - Wp)
 
-    m, dev = W.shape[0], W.device
+    channels, dev = W.shape[:-1], W.device
     if refine > 0:
         coarse = grid_factors(min_factor, max_factor, refine).tolist()
-        center, e_center = _grid_argmin(coarse, eval_factor, m, dev,
+        center, e_center = _grid_argmin(coarse, eval_factor, channels, dev,
                                         return_err=True)
         step = (max_factor - min_factor) / max(refine - 1, 1)
         offsets = torch.from_numpy(grid_factors(-step, step, refine)).to(dev)
-        fine = torch.clamp(center[None, :] + offsets[:, None], min_factor,
-                           max_factor)
-        best, e_best = _grid_argmin(fine, eval_factor, m, dev,
+        fine = torch.clamp(
+            center[None] + offsets.reshape(-1, *[1] * center.ndim),
+            min_factor, max_factor)
+        best, e_best = _grid_argmin(fine, eval_factor, channels, dev,
                                     return_err=True)
         return initial_scale * torch.where(e_center < e_best, center, best)
     factors = grid_factors(min_factor, max_factor, grid_size).tolist()
-    return initial_scale * _grid_argmin(factors, eval_factor, m, dev)
+    return initial_scale * _grid_argmin(factors, eval_factor, channels, dev)
 
 
 # ---- dispatcher ------------------------------------------------------------
 
 
 def compute_scaling(data: torch.Tensor, codebook, H: Optional[torch.Tensor],
-                    mode: str = "mse", axis: int = 0,
+                    mode: str = "mse", axis: Optional[int] = 0,
                     min_factor: float = 0.05, max_factor: float = 1.0,
                     grid_size: int = 100, obq_damp: float = 0.01,
                     obq_act_order: str = "diag", block_size: int = 128,
@@ -226,9 +245,10 @@ def compute_scaling(data: torch.Tensor, codebook, H: Optional[torch.Tensor],
         if len(mode) > 7:
             H = dampen(H, 0.01 * float(mode[7:]))
     elif mode.startswith("diag"):
-        H = torch.diagonal(H)
+        H = diag_of(H)
         if len(mode) > 4:
-            H = H + 0.01 * float(mode[4:]) * torch.mean(H)
+            H = H + 0.01 * float(mode[4:]) * torch.mean(H, dim=-1,
+                                                        keepdim=True)
     else:
         raise ValueError(f"Unknown scaling mode {mode}")
     return compute_min_mse_scaling(

@@ -1416,6 +1416,36 @@ def test_graph_launches_are_captured_times_replays(dev):
     assert run.replays == 6
 
 
+def test_capture_runs_without_the_collector(dev, monkeypatch):
+    """Python's collector is off while a runner captures its step, and on
+    again after: a collection inside the capture could destroy an
+    unreachable runner's graph, which invalidates the capture (chip_smoke's
+    quantize phase hit it serving a second model: CUDA error 901 at K1's
+    launch inside the capture)."""
+    import gc
+
+    from sleekit_tpu_torch.models.eval import DecodeGraph
+    from sleekit_tpu_torch.models.transformer import init_kv_cache
+
+    cfg, params = _tiny_int4(dev)
+    cache = init_kv_cache(cfg, 4, 64, torch.int8, device=dev)
+    states = []
+    begin = torch.cuda.CUDAGraph.capture_begin
+
+    def capture_begin(graph, *a, **kw):
+        states.append(gc.isenabled())
+        begin(graph, *a, **kw)
+
+    monkeypatch.setattr(torch.cuda.CUDAGraph, "capture_begin", capture_begin)
+    assert gc.isenabled()
+    run = DecodeGraph(cfg, params, 4, 8, device=dev)
+    run.pos.fill_(3)
+    run.run(cache, 4)
+    torch.cuda.synchronize()
+    assert states == [False] and gc.isenabled()
+    assert run.captures == 1 and run.replays == 3
+
+
 def _runner_tokens(cfg, params, dev, graphs, steps=6, cache=None):
     from sleekit_tpu_torch.models.eval import DecodeGraph
     from sleekit_tpu_torch.models.transformer import init_kv_cache, prefill
@@ -1519,6 +1549,36 @@ def test_quantize_layer_card_matches_cpu(dev):
     same = (cb.quantize_index(cpu[0] / cpu[2][:, None])
             == cb.quantize_index(card[0] / card[2][:, None]))
     assert same.float().mean() >= 0.99
+
+
+def test_batched_quantize_layer_card_matches_serial(dev):
+    """quantize_layer (light, 4 bits) over a stack of three 256 x 512
+    layers on the card against each layer's serial solve on the card:
+    every error within 2e-3 relative and at least 95% of the codewords
+    equal, chip_smoke's bounds (the order's column sums over L lanes,
+    cuSOLVER's batched Cholesky and cuBLAS's batched products round in
+    other places than the single calls, and the sweep carries a flipped
+    decision along its row)."""
+    import numpy as np
+    from sleekit_tpu_torch.pipeline import preset_config, quantize_layer
+
+    rng = np.random.default_rng(1)
+    W = torch.from_numpy(rng.standard_normal((3, 256, 512)).astype(
+        np.float32) * 0.02).to(dev)
+    X = torch.from_numpy((rng.standard_normal((3, 2048, 512)) + 0.1).astype(
+        np.float32)).to(dev)
+    H, mean = X.transpose(1, 2) @ X / 2048, X.mean(1)
+    cfg = preset_config("light", nbits=4)
+    cb = cfg.make_codebook()
+    batched = quantize_layer(W, H, mean, cfg)
+    assert all(torch.isfinite(t).all() for t in batched)
+    for i in range(3):
+        serial = quantize_layer(W[i], H[i], mean[i], cfg)
+        e_b, e_s = float(batched[3][i].sum()), float(serial[3].sum())
+        assert abs(e_b - e_s) <= 2e-3 * e_s, (i, e_b, e_s)
+        same = (cb.quantize_index(batched[0][i] / batched[2][i, :, None])
+                == cb.quantize_index(serial[0] / serial[2][:, None]))
+        assert same.float().mean() >= 0.95, i
 
 
 def _write_safetensors(path, tensors):

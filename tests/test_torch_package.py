@@ -14,6 +14,11 @@ import sleekit_tpu_torch
 
 ROOT = Path(__file__).resolve().parents[1]
 
+# The reference's ablation CLIs, ported under the same module names.
+ABLATION_CLIS = ("common", "dump_stats", "compare", "bits", "scaling",
+                 "correction", "ordering", "dampening", "local_search",
+                 "distribution", "results")
+
 
 def test_port_imports_no_jax_and_no_sleekit_tpu():
     """Every module of the port imports in a fresh interpreter without
@@ -24,6 +29,8 @@ def test_port_imports_no_jax_and_no_sleekit_tpu():
     assert {"sleekit_tpu_torch.serve.engine",
             "sleekit_tpu_torch.serve.checkpoint",
             "sleekit_tpu_torch.codebooks"} <= set(names)
+    assert {f"sleekit_tpu_torch.experiments.{m}" for m in ABLATION_CLIS} <= (
+        set(names))
     code = (
         "import importlib, json, sys\n"
         f"for n in {names!r}: importlib.import_module(n)\n"
@@ -109,6 +116,18 @@ def test_entry_points_raise_without_cuda(tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve_cli.main([str(tmp_path), "--model", "tiny"])
     assert not (tmp_path / "q").exists()
+
+    # The ablation CLIs: every one but ``results`` (numpy only, no
+    # device) runs on the card unless told otherwise.
+    import importlib
+
+    for name in ABLATION_CLIS:
+        if name in ("common", "results"):
+            continue
+        cli = importlib.import_module(f"sleekit_tpu_torch.experiments.{name}")
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cli.main([str(tmp_path / "d")])
+    assert not (tmp_path / "d").exists()
 
 
 def test_sleekit_follows_its_layer():

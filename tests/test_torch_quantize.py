@@ -141,8 +141,9 @@ def test_quantize_model_matches_jax(tmp_path):
 def test_free_stats_host_stats_and_pack_host():
     """free_stats pops each solved entry from the caller's dict; host
     statistics (here a model on the CPU, so the same device) solve as
-    device ones; pack_host packs on the CPU; the unported modes raise
-    NotImplementedError naming their ROADMAP item."""
+    device ones; pack_host packs on the CPU; the unported mesh solve
+    raises NotImplementedError naming its ROADMAP item (layer_parallel:
+    tests/test_torch_quantize_parallel.py)."""
     _, _, tcfg, tp = _models(n_layers=1)
     stats = tq.calibrate(tcfg, tp, _batches(2, 16))
     kept = dict(stats)
@@ -154,9 +155,9 @@ def test_free_stats_host_stats_and_pack_host():
         pa, pb = ttr.get_linear_param(a, name), ttr.get_linear_param(b, name)
         assert pb.packed.device.type == "cpu"
         assert torch.equal(pa.packed, pb.packed)
-    for kw in (dict(layer_parallel=True), dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*parallel"):
-            tq.quantize_model(tcfg, tp, kept, cfg, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*parallel"):
+        tq.quantize_model(tcfg, tp, kept, cfg, layer_parallel=True,
+                          mesh=object())
 
 
 @pytest.mark.parametrize("family", list(FAMILIES))
