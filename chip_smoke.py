@@ -173,9 +173,27 @@
    JAX CLIs' headers, finite values, local search never raising the
    error and 5 bits below 1 bit; ``distribution --save-data`` and
    ``results`` on compare's table; each CLI's seconds printed;
-12. prints the kernels line (K1-K15, K8f and K9f, with ``quantize``,
-   ``cli`` and ``ablation`` entries beside ``engine``), the card's name
-   and power limit, and, last, the result line.
+12. serves tensor-parallel (``parallel/``): holds K1 on one rank's q,
+   o, fc1 and fc2 shards of a two-way split layer (o and fc2 over
+   ``split_packed_k`` rows, without bias or residual), K2 on one vocab
+   shard and K3 at 16 local heads against their plain versions, timed as
+   in 2; runs ``tp_decode_step`` over a world-1 NCCL group at OPT-1.3B
+   (full width and depth, unfused int4 'pair', int8 head, int8 KV with
+   bf16 scales, batch 8): its logits within a relative L2 of 2^-6 of the
+   single-device kernel step's, the step captured in a CUDA graph with
+   its 48 all-reduces and replayed bit for bit as the eager step, then 32
+   greedy steps of ``DecodeGraph`` over the mesh (graph tokens = eager
+   tokens, launches and all-reduces counted from the replays, timed
+   beside the single-device unfused graph loop); then two spawned ranks
+   on this one card over gloo serve the model split two ways: 4 x 256
+   prompts through ``tp_prefill``, 32 eager greedy steps, both ranks'
+   tokens equal, logits within 2^-6 of the single-device kernels', each
+   rank's 6 K1, 1 K3 (at prefill K4 and K10) and 2 all-reduces a layer
+   and 1 K2 and 1 all-gather a step counted exactly (its times measure
+   two ranks sharing a card through the host's gloo, not TP's speed);
+13. prints the kernels line (K1-K15, K8f and K9f, with ``quantize``,
+   ``cli``, ``ablation`` and ``tp`` entries beside ``engine``), the
+   card's name and power limit, and, last, the result line.
 
 Any failure raises; there is no CPU branch and no fallback. It needs a
 CUDA device and exits non-zero without one.
@@ -188,12 +206,15 @@ import dataclasses
 import io
 import json
 import math
+import multiprocessing
 import os
+import queue
 import re
 import subprocess
 import sys
 import tempfile
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -246,6 +267,12 @@ from sleekit_tpu_torch.solver import channelwise_error  # noqa: E402
 from sleekit_tpu_torch.serve import engine as engine_mod  # noqa: E402
 from sleekit_tpu_torch.serve.checkpoint import load_packed_params  # noqa: E402
 from sleekit_tpu_torch.serve.engine import Engine, Request  # noqa: E402
+from sleekit_tpu_torch.parallel.distributed import (  # noqa: E402
+    init_process_group)
+from sleekit_tpu_torch.parallel.mesh import (  # noqa: E402
+    make_mesh, prepare_params_for_tp, shard_params)
+from sleekit_tpu_torch.parallel.tp_decode import (  # noqa: E402
+    _local_cfg as tp_local_cfg, tp_decode_step, tp_prefill)
 from sleekit_tpu_torch.utils.profiling import (  # noqa: E402
     cuda_ms, device_trace, trace_summary)
 
@@ -396,27 +423,38 @@ def layout_words(dev, gd, layout, K, N):
     return w
 
 
-def check_linears(dev, cfg, names):
+def check_linears(dev, cfg, names, tp=1):
     """Dequant-matmul kernels ``names`` on the four projections of a
     layer: K1 (int4 'pair'), K6 ('pair3x') and K7 ('pair3') with their
     prologues and residuals, K8 (the NF4 table) and K9 (the uniform int4
     grid) on 'plane' words with none (the model composes them), at decode
     M = 8, at M = 64 (the Engine's most common prefill: 4 rows of the
     16 bucket, 1 row of the 64 bucket) and at the largest prefill M (4
-    rows of the 256 bucket).
+    rows of the 256 bucket). With ``tp``, one rank's shards of a
+    tensor-parallel layer instead: q and fc1 on a 1/tp of the columns with
+    the norm, o and fc2 on a 1/tp of the rows with neither bias nor
+    residual (added after the all-reduce), at the two-rank phase's decode
+    M = 4 and prefill M = 1024.
     Yardstick: ``torch.matmul`` on a bf16 weight of the same shape."""
-    gd = torch.Generator(device=dev).manual_seed(len(names))
+    gd = torch.Generator(device=dev).manual_seed(len(names) + tp)
     d, ff = cfg.d_model, cfg.d_ff
     shapes = [("qkv", d, 3 * d, "layernorm", False),
               ("o", d, d, None, True),
               ("fc1", d, ff, "layernorm", False),
               ("fc2", ff, d, "relu", True)]
+    sizes, tag = (8, 64, 1024), ""
+    if tp > 1:
+        shapes = [("q", d, d // tp, "layernorm", False),
+                  ("o", d // tp, d, None, False),
+                  ("fc1", d, ff // tp, "layernorm", False),
+                  ("fc2", ff // tp, d, "relu", False)]
+        sizes, tag = (TP_BATCH, TP_BATCH * TP_PROMPT), f"tp{tp} "
     nf4 = Codebook.nf4().values.to(dev)
     cases = {}
     for kern in names:
         layout = LINEAR_LAYOUTS[kern]
         cases[kern] = []
-        for m in (8, 64, 1024):
+        for m in sizes:
             for name, K, N, pre, res in shapes:
                 if layout == "plane":
                     pre, res = None, False
@@ -427,6 +465,8 @@ def check_linears(dev, cfg, names):
                          for _ in range(n_copy)]
                 scale = 0.02 + 0.002 * torch.rand(N, device=dev, generator=gd)
                 bias = 0.01 * torch.randn(N, device=dev, generator=gd)
+                if tp > 1 and name in ("o", "fc2"):
+                    bias = None
                 x = torch.randn(m, K, device=dev, generator=gd).to(
                     torch.bfloat16)
                 kw = {}
@@ -466,7 +506,7 @@ def check_linears(dev, cfg, names):
                     return f(x, words[i], scale, bias, *extra, **kw)
                 got, want = call(fn, 0), call(plain, 0)
                 torch.cuda.synchronize()
-                err = bf16_check(got, want, f"{kern} {name} M={m}")
+                err = bf16_check(got, want, f"{kern} {tag}{name} M={m}")
                 ms = cuda_ms(lambda i: call(fn, i), n_copy)
                 plain_ms = cuda_ms(lambda i: call(plain, i), n_copy, iters=5,
                                    warmup=1, graph=False)
@@ -476,17 +516,18 @@ def check_linears(dev, cfg, names):
                         for w in words]
                 lib_ms = cuda_ms(lambda i: torch.matmul(xp, wdeq[i]), n_copy)
                 del wdeq
-                nbytes = (x.numel() * 2 + kw_rows * N * 4 + 2 * N * 4
-                          + m * N * 2
+                nbytes = (x.numel() * 2 + kw_rows * N * 4
+                          + (1 if bias is None else 2) * N * 4 + m * N * 2
                           + (2 * K * 2 if pre == "layernorm" else 0)
                           + (m * N * 2 if res else 0)
                           + (16 * 4 if kern == "K8" else 0))
                 b_ms, b_by = bound(nbytes, 2.0 * m * K * N)
                 cases[kern].append(dict(
-                    case=f"{name} M={m}", max_abs_err=err, ms=ms,
+                    case=f"{tag}{name} M={m}", max_abs_err=err, ms=ms,
                     plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
                     bound_by=b_by, bytes=nbytes))
-                log(f"{kern} {name:4s} M={m:5d} K={K} N={N}: err {err:.3g} "
+                log(f"{kern} {tag}{name:4s} M={m:5d} K={K} N={N}: err "
+                    f"{err:.3g} "
                     f"| kernel {ms:.4f} ms plain {plain_ms:.3f} ms matmul "
                     f"{lib_ms:.4f} ms bound {b_ms:.4f} ms ({b_by})")
                 del words
@@ -605,14 +646,20 @@ def check_linears_f32(dev, cfg):
     return cases
 
 
-def check_k2(dev, g, cfg):
+def check_k2(dev, g, cfg, tp=1):
     """K2 on the int8 head (OPT-1.3B: 2048 x 51200 for vocab 50272) with
     the final layernorm prologue, at decode M = 8 (the streaming route),
     at M = 64 (the Engine's most common prefill) and at M = 1024 (the
-    256-bucket group; both on the tensor-core route). Yardstick:
-    ``torch.matmul`` of the bf16 pre(x) with the bf16 head."""
+    256-bucket group; both on the tensor-core route). With ``tp``, rank
+    0's vocab shard (1/tp of the padded width, all of it the vocabulary's)
+    at the two-rank phase's M = 4 and 1024. Yardstick: ``torch.matmul``
+    of the bf16 pre(x) with the bf16 head."""
     K, V = cfg.d_model, cfg.vocab_size
     Np = -(-V // 1024) * 1024
+    sizes, tag = (8, 64, 1024), ""
+    if tp > 1:
+        Np = V = Np // tp
+        sizes, tag = (TP_BATCH, TP_BATCH * TP_PROMPT), f"tp{tp} "
     packed = torch.randint(-128, 128, (K, Np), dtype=torch.int8,
                            generator=g).to(dev)
     scale = (0.001 * torch.rand(Np, generator=g)).to(dev)
@@ -622,12 +669,12 @@ def check_k2(dev, g, cfg):
               ln_bias=torch.zeros(K, dtype=torch.bfloat16, device=dev))
     wdeq = packed[:, :V].to(torch.bfloat16)
     cases = []
-    for m in (8, 64, 1024):
+    for m in sizes:
         x = torch.randn(m, K, generator=g).to(dev, torch.bfloat16)
         got = dm.int8_matmul(x, packed, scale, None, **kw)
         want = dm.int8_matmul_plain(x, packed, scale, None, **kw)
         torch.cuda.synchronize()
-        err = bf16_check(got, want, f"K2 head M={m}")
+        err = bf16_check(got, want, f"K2 {tag}head M={m}")
         ms = cuda_ms(lambda i: dm.int8_matmul(x, packed, scale, None, **kw),
                      1)
         plain_ms = cuda_ms(lambda i: dm.int8_matmul_plain(
@@ -639,21 +686,25 @@ def check_k2(dev, g, cfg):
         # packed padding past out_n.
         nbytes = x.numel() * 2 + K * V + V * 4 + m * V * 2 + 2 * K * 2
         b_ms, b_by = bound(nbytes, 2.0 * m * K * V)
-        log(f"K2 head M={m} K={K} N={V}: err {err:.3g} | kernel {ms:.4f} ms "
-            f"plain {plain_ms:.3f} ms matmul {lib_ms:.4f} ms bound "
-            f"{b_ms:.4f} ms ({b_by})")
-        cases.append(dict(case=f"head M={m}", max_abs_err=err, ms=ms,
+        log(f"K2 {tag}head M={m} K={K} N={V}: err {err:.3g} | kernel "
+            f"{ms:.4f} ms plain {plain_ms:.3f} ms matmul {lib_ms:.4f} ms "
+            f"bound {b_ms:.4f} ms ({b_by})")
+        cases.append(dict(case=f"{tag}head M={m}", max_abs_err=err, ms=ms,
                           plain_ms=plain_ms, library_ms=lib_ms,
                           bound_ms=b_ms, bound_by=b_by, bytes=nbytes))
     return cases
 
 
-def check_k3(dev, g, cfg):
+def check_k3(dev, g, cfg, tp=1):
     """K3 at serving decode (OPT-1.3B: B 8, H = KV 32, D 64, S 512, 24
     layers of int8 cache with bf16 scales), scalar and ragged positions:
     pos 256 (one split of the fused kernel's rows) and 280 (two, as in the
-    decode steps' positions 272-287)."""
+    decode steps' positions 272-287). With ``tp``, at one rank's heads
+    (H = KV 32 / tp) and the two-rank phase's batch, B 4."""
     L, B, H, S, D = cfg.n_layers, 8, cfg.n_heads, 512, cfg.head_dim
+    tag = ""
+    if tp > 1:
+        B, H, tag = TP_BATCH, H // tp, f"tp{tp} "
     kq, ks = attn._quant_rows(torch.randn(L, B, H, S, D, device=dev))
     vq, vs = attn._quant_rows(torch.randn(L, B, H, S, D, device=dev))
     ks, vs = ks[..., 0].bfloat16(), vs[..., 0].bfloat16()
@@ -662,10 +713,10 @@ def check_k3(dev, g, cfg):
     vn = torch.randn(B, H, D, generator=g).to(dev, torch.bfloat16)
     scale = 1.0 / math.sqrt(D)
     cases = []
-    ragged = torch.tensor([17, 100, 200, 256, 300, 400, 511, 60],
+    ragged = torch.tensor([17, 100, 200, 256, 300, 400, 511, 60][:B],
                           dtype=torch.int32, device=dev)
-    for label, pos in (("pos 256", 256), ("pos 280", 280),
-                       ("ragged pos", ragged)):
+    for label, pos in ((f"{tag}pos 256", 256), (f"{tag}pos 280", 280),
+                       (f"{tag}ragged pos", ragged)):
         planes = [kq, vq, ks, vs]
         ref = [t.clone() for t in planes]
         got = attn.fused_decode_append(q, kn, vn, planes[0], planes[1], pos,
@@ -689,7 +740,7 @@ def check_k3(dev, g, cfg):
         nbytes = (rows * (2 * D + 2 * 2) + 3 * B * H * D * 2 + B * H * D * 2)
         b_ms, b_by = bound(nbytes, 4.0 * rows * D)
         lib_ms = None
-        if label == "pos 256":
+        if label.endswith("pos 256"):
             n_lay = min(4, L)
             kd = [(kq[i, :, :, :257].float()
                    * ks[i, :, :, :257, None].float()).bfloat16()
@@ -3288,9 +3339,310 @@ def run_ablation(card):
     return m
 
 
+# ---- tensor-parallel serving (parallel/) -----------------------------------
+
+
+# The two-rank phase: 4 prompts of 256 tokens (the 256-bucket group's
+# shape), then TP_STEPS greedy decode steps; both ranks on one card over
+# gloo (NCCL refuses two ranks on one device).
+TP_BATCH, TP_PROMPT, TP_STEPS = 4, 256, 32
+TP_DEPTH = 24
+TP_TIMEOUT_S = 600
+
+
+def sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def tp_counts(group):
+    """The kernels' launches (those launched) and the group's collectives."""
+    return {**{k: n for k, n in counts().items() if n},
+            **{k: n for k, n in group.counts.items() if n}}
+
+
+def tp_expected(cfg, steps, prefill=False, gathers=1):
+    """One TP run's launches and collectives: a layer's six K1 (q, k, v, o,
+    fc1, fc2) and two all-reduces; K3 a layer a decode step, K4 and K10 a
+    layer a prefill; K2 and the logits' all-gather once a step (an
+    all-gather only over more than one rank)."""
+    L = cfg.n_layers
+    want = {"K1": 6 * L * steps, "K2": steps, "all_reduce": 2 * L * steps}
+    if prefill:
+        want.update(K4=L, K10=L)
+    else:
+        want["K3"] = L * steps
+    if gathers:
+        want["all_gather"] = steps
+    return want
+
+
+def hold_counts(got, want, what):
+    if got != want:
+        raise AssertionError(f"{what}: launches and collectives {got}, "
+                             f"expected {want}")
+
+
+def run_tp_one_rank(dev, cfg, card, tmp):
+    """``tp_decode_step`` over a world-1 NCCL group on this card at
+    OPT-1.3B's full width and depth (int4 'pair', unfused, int8 head, int8
+    KV with bf16 scales, batch 8 from a 256-token prefill): its logits
+    against the single-device kernel step's on the same unfused params
+    (relative L2 <= 2^-6); the step captured in a CUDA graph with its 48
+    all-reduces, the replay's logits and cache equal to the eager step's
+    bit for bit; then 32 greedy steps of ``DecodeGraph`` over the mesh,
+    graph and eager: the same tokens, the launches and all-reduces counted
+    from the replays, the graph loop timed beside the single-device
+    unfused one."""
+    init_process_group(init_method=f"file://{tmp}/world1", rank=0,
+                       world_size=1, device=dev)
+    try:
+        mesh = make_mesh(model=1)
+        group = mesh.group
+        params, _ = random_packed_params(cfg, 0, device=dev)
+        params = pack_lm_head(cfg, params)
+        local = shard_params(cfg, params, mesh)
+        toks = torch.from_numpy(np.random.default_rng(2).integers(
+            0, cfg.vocab_size, (8, 256))).to(dev)
+        cache = init_kv_cache(cfg, 8, 512, torch.int8, device=dev)
+        logits, _ = prefill(cfg, params, toks, cache)
+        nxt = logits[:, -1].argmax(-1)[:, None]
+        pos = torch.full((8,), 256, dtype=torch.int32, device=dev)
+
+        def clone():
+            return {k: v.clone() for k, v in cache.items()}
+
+        ref, _ = decode_step(cfg, params, nxt, clone(), pos)
+        eager_cache = clone()
+        eager, _ = tp_decode_step(cfg, local, nxt, eager_cache, pos, mesh)
+        rel, agree = rel_l2(eager.float(), ref.float(),
+                            "tp world 1 vs single-device decode logits")
+        graph_cache, g = clone(), torch.cuda.CUDAGraph()
+        kernels.reset_launch_counts()
+        group.reset_counts()
+        with kernels.captured_launches() as calls, torch.cuda.graph(
+                g, capture_error_mode="thread_local"):
+            out, _ = tp_decode_step(cfg, local, nxt, graph_cache, pos, mesh)
+        captured = {**{k.name: n for k, n in calls.items()},
+                    **{k: n for k, n in group.counts.items() if n}}
+        hold_counts(captured, tp_expected(cfg, 1, gathers=0),
+                    "tp world 1: the captured step")
+        g.replay()
+        torch.cuda.synchronize()
+        if not torch.equal(out, eager) or not all(
+                torch.equal(graph_cache[k], eager_cache[k])
+                for k in cache):
+            raise AssertionError("tp world 1: the replayed step's logits or "
+                                 "cache differ from the eager step's")
+        del g, out
+        log(f"tp world 1 (NCCL): decode logits vs the single-device kernel "
+            f"step (unfused): relative L2 {rel:.4g} (<= 2^-6), max |err| "
+            f"{(eager.float() - ref.float()).abs().max().item():.4g}, "
+            f"argmax agreement {agree:.4f}; the step captured in a CUDA "
+            f"graph with {captured['all_reduce']} all-reduces: replay = "
+            f"eager, bit for bit")
+
+        m, tokens = {"tp1_rel_l2": rel, "tp1_argmax_agreement": agree}, {}
+        for what, graphs, mesh_ in (("tp", False, mesh), ("tp", True, mesh),
+                                    ("single", True, None)):
+            run = DecodeGraph(cfg, local, 8, TP_STEPS, device=dev,
+                              graphs=graphs, mesh=mesh_)
+            c = clone()
+            for _ in range(2):      # the first call captures
+                run.last.copy_(nxt[:, 0])
+                run.pos.copy_(pos)
+                for k in c:
+                    c[k].copy_(cache[k])
+                kernels.reset_launch_counts()
+                group.reset_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run.run(c, TP_STEPS)
+                torch.cuda.synchronize()
+                step_ms = (time.perf_counter() - t0) / TP_STEPS * 1e3
+            route = f"{what}_{'graph' if graphs else 'eager'}"
+            m[f"{route}_ms_per_step"] = step_ms
+            tokens[route] = run.tokens.clone()
+            if mesh_ is not None:
+                want = tp_expected(cfg, TP_STEPS, gathers=0)
+                hold_counts(tp_counts(group), want, f"tp world 1 {route}")
+        if not torch.equal(tokens["tp_graph"], tokens["tp_eager"]):
+            raise AssertionError("tp world 1: the graph route's tokens differ "
+                                 "from the eager route's")
+        m["tp1_tokens_equal_single"] = bool(torch.equal(
+            tokens["tp_graph"], tokens["single_graph"]))
+        m["tp1_launches_graph_run"] = tp_expected(cfg, TP_STEPS, gathers=0)
+        log(f"tp world 1: batch 8, ctx 256-{256 + TP_STEPS}, {TP_STEPS} "
+            f"steps: graph loop {m['tp_graph_ms_per_step']:.3f} ms/step "
+            f"(eager {m['tp_eager_ms_per_step']:.3f}), the single-device "
+            f"unfused graph loop {m['single_graph_ms_per_step']:.3f} ms/step; "
+            f"graph tokens = eager tokens, = single-device tokens: "
+            f"{m['tp1_tokens_equal_single']}; launches and all-reduces "
+            f"counted from the replays: {m['tp1_launches_graph_run']} ({card})")
+        return m
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def tp_rank(rank, init, cfg, device, out):
+    """One of the two-rank phase's ranks (a spawned process, both on
+    ``device``, gloo): builds the model ``cfg`` (seed 0), its shard, prefills the 4 x 256
+    prompts and decodes TP_STEPS greedy steps eagerly, counting launches
+    and collectives; rank 0 then runs the single-device kernels on the
+    unsplit params, teacher-forced on the same tokens, and measures the
+    logits' relative L2. Sends (rank, ok, result or traceback)."""
+    try:
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        init_process_group(backend="gloo", init_method=init, rank=rank,
+                           world_size=2, device=dev)
+        mesh = make_mesh(model=2, device=dev)
+        group = mesh.group
+        params, _ = random_packed_params(cfg, 0, device=dev)
+        params = pack_lm_head(cfg, params)
+        local = shard_params(cfg, prepare_params_for_tp(cfg, params, 2),
+                             mesh)
+        toks = torch.from_numpy(np.random.default_rng(3).integers(
+            0, cfg.vocab_size, (TP_BATCH, TP_PROMPT))).to(dev)
+        cache = init_kv_cache(tp_local_cfg(cfg, 2), TP_BATCH, 512,
+                              torch.int8, device=dev)
+        res = {}
+        kernels.reset_launch_counts()
+        group.reset_counts()
+        sync(dev)
+        t0 = time.perf_counter()
+        pre, _ = tp_prefill(cfg, local, toks, cache, mesh)
+        sync(dev)
+        res["prefill_s"] = time.perf_counter() - t0
+        res["prefill_counts"] = tp_counts(group)
+        fed, logits = [pre[:, -1].argmax(-1)[:, None]], []
+        kernels.reset_launch_counts()
+        group.reset_counts()
+        t0 = time.perf_counter()
+        for i in range(TP_STEPS):
+            step, _ = tp_decode_step(cfg, local, fed[-1], cache,
+                                     TP_PROMPT + i, mesh)
+            logits.append(step.float())
+            fed.append(step.argmax(-1)[:, None])
+        sync(dev)
+        res["decode_ms_per_step"] = (time.perf_counter() - t0) / TP_STEPS * 1e3
+        res["decode_counts"] = tp_counts(group)
+        res["tokens"] = torch.cat(fed[1:], dim=1).cpu().numpy()
+        if rank == 0:
+            ref_cache = init_kv_cache(cfg, TP_BATCH, 512, torch.int8,
+                                      device=dev)
+            ref, _ = prefill(cfg, params, toks, ref_cache)
+            res["prefill_rel_l2"], res["prefill_argmax_agreement"] = rel_l2(
+                pre.float(), ref.float(), "tp2 prefill logits", hold=False)
+            rels, agree = [], []
+            for i in range(TP_STEPS):
+                ref, _ = decode_step(cfg, params, fed[i], ref_cache,
+                                     TP_PROMPT + i)
+                r, a = rel_l2(logits[i], ref.float(), "tp2 decode logits",
+                              hold=False)
+                rels.append(r)
+                agree.append(a)
+            res["decode_rel_l2_max"] = max(rels)
+            res["decode_argmax_agreement"] = float(np.mean(agree))
+        out.put((rank, True, res))
+    except Exception:  # sent to the parent, which fails on it
+        out.put((rank, False, traceback.format_exc()))
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def run_tp_two_ranks(cfg, card, tmp, device="cuda:0"):
+    """Two spawned ranks on this one card over gloo serve ``cfg`` (OPT-1.3B
+    at full width, TP_DEPTH layers) split by ``prepare_params_for_tp(..., 2)``:
+    ``tp_prefill`` of 4 x 256 prompts, then 32 eager greedy decode steps.
+    Both ranks emit the same tokens; the logits are within a relative L2
+    of 2^-6 of the single-device kernels' (teacher-forced on the same
+    tokens); each rank launches 6 K1, 1 K3 (prefill: K4 and K10) and 2
+    all-reduces a layer, and 1 K2 and 1 all-gather a step. Its times
+    measure two ranks sharing one card through the host's gloo, not
+    tensor parallelism's speed."""
+    ctx = multiprocessing.get_context("spawn")
+    out = ctx.Queue()
+    init = f"file://{tmp}/world2"
+    procs = [ctx.Process(target=tp_rank, args=(r, init, cfg, device, out))
+             for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        while len(got) < len(procs):
+            try:
+                rank, ok, res = out.get(timeout=1.0)
+            except queue.Empty:
+                dead = [p.exitcode for p in procs if p.exitcode]
+                if dead or time.perf_counter() - t0 > TP_TIMEOUT_S:
+                    raise AssertionError(f"tp: ranks exited ({dead}) or "
+                                         f"timed out without a result")
+                continue
+            if not ok:
+                raise AssertionError(f"tp rank {rank} failed:\n{res}")
+            got[rank] = res
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    wall = time.perf_counter() - t0
+    for rank, res in got.items():
+        hold_counts(res["prefill_counts"], tp_expected(cfg, 1, prefill=True),
+                    f"tp2 rank {rank} prefill")
+        hold_counts(res["decode_counts"], tp_expected(cfg, TP_STEPS),
+                    f"tp2 rank {rank} decode")
+    if not np.array_equal(got[0]["tokens"], got[1]["tokens"]):
+        raise AssertionError("tp2: the ranks' tokens differ")
+    r0 = got[0]
+    for key in ("prefill_rel_l2", "decode_rel_l2_max"):
+        if not r0[key] <= 2 ** -6:
+            raise AssertionError(f"tp2 {key} {r0[key]:.4g} over 2^-6")
+    m = {f"tp2_{k}": v for k, v in r0.items() if k != "tokens"}
+    m["tp2_phase_s"] = wall
+    log(f"tp two ranks (gloo, one card): OPT-1.3B at {cfg.n_layers} layers, "
+        f"prefill 4 x 256 then {TP_STEPS} greedy steps; logits vs the "
+        f"single-device kernels: prefill relative L2 "
+        f"{r0['prefill_rel_l2']:.4g}, decode max {r0['decode_rel_l2_max']:.4g}"
+        f" (<= 2^-6), argmax agreement {r0['decode_argmax_agreement']:.4f}; "
+        f"both ranks' tokens equal; launches and collectives a rank: "
+        f"prefill {r0['prefill_counts']}, decode {r0['decode_counts']}; "
+        f"prefill {r0['prefill_s']:.3f} s, decode "
+        f"{r0['decode_ms_per_step']:.2f} ms/step eager (two ranks sharing "
+        f"the card through host gloo: not TP's speed); the phase {wall:.1f}"
+        f" s ({card})")
+    return m
+
+
+def run_tp(dev, cfg, card):
+    """The tensor-parallel phase: the kernels at a rank's shapes, the
+    world-1 NCCL step and graph, and the two-rank run. Returns (its
+    metrics, the kernels' cases)."""
+    start = time.perf_counter()
+    g = torch.Generator().manual_seed(19)
+    cases = {**check_linears(dev, cfg, ["K1"], tp=2),
+             "K2": check_k2(dev, g, cfg, tp=2),
+             "K3": check_k3(dev, g, cfg, tp=2)}
+    with tempfile.TemporaryDirectory() as tmp:
+        m = run_tp_one_rank(dev, cfg, card, tmp)
+        torch.cuda.empty_cache()
+        m.update(run_tp_two_ranks(
+            dataclasses.replace(cfg, n_layers=TP_DEPTH), card, tmp))
+    m["phase_s"] = time.perf_counter() - start
+    log(f"tp: the phase took {m['phase_s']:.1f} s ({card})")
+    return m, cases
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
+    start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -3400,6 +3752,10 @@ def main():
     launches.update(path)
     torch.cuda.empty_cache()
     ablation = run_ablation(smi)
+    torch.cuda.empty_cache()
+    tp, tp_cases = run_tp(dev, cfg, smi)
+    for name, cs in tp_cases.items():
+        cases[name] = cases[name] + cs   # after the main path's cases
 
     rows = []
     for k in (K1, K2, K3, K4, K5, K6, K7, K8, K9, K10, K11, K12, K13, K14,
@@ -3428,8 +3784,10 @@ def main():
     engine["ptxas_plane"] = plane_ptxas
     engine["ptxas_plane_f32"] = f32_ptxas
     engine["ptxas_append_kernel"] = append_ptxas
+    log(f"chip_smoke: {time.perf_counter() - start:.1f} s ({smi})")
     print(json.dumps({"kernels": rows, "engine": engine, "quantize": quant,
-                      "cli": cli, "ablation": ablation, "benches": benches}))
+                      "cli": cli, "ablation": ablation, "tp": tp,
+                      "benches": benches}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,17 +9,28 @@ Prompts: .npy object/int32 array of token id sequences, or (with
 --random N) N random prompts for smoke/throughput runs. Prints one line
 per completion plus aggregate tokens/s for a cold run and a steady run of
 the same requests. It runs on the CUDA device unless ``--device cpu`` is
-given. Tensor-parallel (``--tp``) and replica (``--replicas``) serving
-are not ported yet.
+given.
+
+``--tp N`` serves tensor-parallel over N ranks (``parallel/``): run alone,
+the command starts its N ranks itself, one a CUDA device (NCCL; it raises
+with fewer devices than N) or, with ``--device cpu``, N CPU processes
+(gloo); under ``torchrun --nproc-per-node N`` it joins the group torchrun
+made. Rank 0 prints. Replica serving (``--replicas``) comes with
+``serve/router.py``, not ported yet.
 """
 
 from __future__ import annotations
 
 import argparse
+import multiprocessing
+import os
+import queue
+import tempfile
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 def main(argv=None):
@@ -44,26 +55,123 @@ def main(argv=None):
     parser.add_argument("--page-size", type=int, default=64)
     parser.add_argument("--total-pages", type=int, default=None)
     parser.add_argument("--tp", type=int, default=1,
-                        help="tensor-parallel ways (not ported yet)")
+                        help="tensor-parallel ranks (one a device); params "
+                             "must NOT be pre-split (prepare_params_for_tp "
+                             "runs here)")
     parser.add_argument("--replicas", type=int, default=1,
                         help="independent replica engines (not ported yet)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu")
     args = parser.parse_args(argv)
-    if args.tp > 1 or args.replicas > 1:
+    if args.replicas > 1:
         raise NotImplementedError(
-            "--tp and --replicas are not ported yet (ROADMAP, modules to "
-            "port: parallel/ and serve/router.py)")
+            "--replicas is not ported yet (ROADMAP, modules to port: "
+            "serve/router.py)")
+    if args.tp == 1:
+        return _serve(args, None, print)
+    if dist.is_initialized() or "WORLD_SIZE" in os.environ:
+        return _serve_rank(args)
+    return _spawn_ranks(args)
 
+
+def _serve_rank(args, rank=None, init_method=None, out=None):
+    """This process's rank of ``--tp``: joins the group (torchrun's, or
+    the one :func:`_spawn_ranks` starts) and serves. Rank 0 prints, or
+    with ``out`` (a queue) sends its lines and result there."""
+    from sleekit_tpu_torch.parallel.distributed import (
+        global_mesh, init_process_group)
+
+    if not dist.is_initialized():
+        init_process_group(init_method=init_method, rank=rank,
+                           world_size=None if rank is None else args.tp,
+                           device=args.device)
+    if dist.get_world_size() != args.tp:
+        raise ValueError(f"--tp {args.tp} over a group of "
+                         f"{dist.get_world_size()} ranks")
+    cpu = torch.device(args.device).type == "cpu"
+    mesh = global_mesh(args.tp, device="cpu" if cpu else None)
+    lines = []
+
+    def say(*parts):
+        if mesh.rank == 0 and out is None:
+            print(*parts)
+        elif mesh.rank == 0:
+            lines.append(" ".join(str(p) for p in parts))
+
+    res = _serve(args, mesh, say)
+    if out is not None and mesh.rank == 0:
+        del res["engine"]   # stays with its rank
+        out.put((lines, res))
+    dist.barrier()
+    return res
+
+
+def _rank_main(rank, args, init_method, out):
+    torch.set_num_threads(max(1, torch.get_num_threads() // args.tp))
+    try:
+        _serve_rank(args, rank, init_method, out)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _spawn_ranks(args):
+    """Start ``--tp`` ranks, one a CUDA device (or CPU processes), and
+    print rank 0's lines; returns its result. Raises once a rank has
+    exited without rank 0's result."""
+    if torch.device(args.device).type == "cuda":
+        found = torch.cuda.device_count()
+        if found < args.tp:
+            raise RuntimeError(f"--tp {args.tp} needs {args.tp} CUDA "
+                               f"devices; found {found}")
+    ctx = multiprocessing.get_context("spawn")
+    out = ctx.Queue()
+    with tempfile.TemporaryDirectory() as tmp:
+        init = f"file://{os.path.join(tmp, 'rendezvous')}"
+        procs = [ctx.Process(target=_rank_main, args=(r, args, init, out))
+                 for r in range(args.tp)]
+        for p in procs:
+            p.start()
+        try:
+            while True:
+                try:
+                    lines, res = out.get(timeout=1.0)
+                    break
+                except queue.Empty:
+                    dead = [p.exitcode for p in procs if p.exitcode]
+                    if dead:
+                        raise RuntimeError(f"--tp: a rank exited with "
+                                           f"{dead[0]}") from None
+        finally:
+            for p in procs:
+                p.join(timeout=60)
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+    failed = [p.exitcode for p in procs if p.exitcode]
+    if failed:
+        raise RuntimeError(f"--tp: ranks exited with {failed}")
+    for line in lines:
+        print(line)
+    return res
+
+
+def _serve(args, mesh, say):
+    """The command's body on one device, or on this rank of ``mesh``."""
     from sleekit_tpu_torch.device import resolve_device
     from sleekit_tpu_torch.models.zoo import get_config
+    from sleekit_tpu_torch.parallel.mesh import prepare_params_for_tp
     from sleekit_tpu_torch.serve.checkpoint import load_packed_params
     from sleekit_tpu_torch.serve.engine import Engine, Request
 
-    dev = resolve_device(args.device)
+    dev = resolve_device(args.device) if mesh is None else mesh.device
     cfg = get_config(args.model)
     params, meta = load_packed_params(args.ckpt, cfg=cfg, device=dev)
-    print(f"loaded {args.ckpt} (meta: {meta})")
+    say(f"loaded {args.ckpt} (meta: {meta})")
+    if mesh is not None:
+        params = prepare_params_for_tp(cfg, params, args.tp)
+        say(f"tensor-parallel over {args.tp} ranks "
+            f"({mesh.group.backend})")
 
     rng = np.random.RandomState(args.seed)
     if args.prompts:
@@ -81,7 +189,7 @@ def main(argv=None):
                     max_seq_len=args.max_seq_len, seed=args.seed,
                     cache_dtype=cache_dtype, paged=args.paged,
                     page_size=args.page_size, total_pages=args.total_pages,
-                    device=dev)
+                    device=dev, mesh=mesh)
 
     def mk_reqs():
         return [Request(prompt=p, max_new_tokens=args.max_new_tokens,
@@ -97,16 +205,16 @@ def main(argv=None):
 
     cold, cold_s, cold_n = timed_run()
     for c in cold:
-        print(f"[{c.request_id}] +{len(c.new_tokens)} tokens "
-              f"({c.finish_reason}): {c.new_tokens.tolist()}")
+        say(f"[{c.request_id}] +{len(c.new_tokens)} tokens "
+            f"({c.finish_reason}): {c.new_tokens.tolist()}")
     what = ("includes the kernels' first launches and the decode graph's "
             "captures" if engine.graphs else "the first run")
-    print(f"{cold_n} tokens in {cold_s:.2f}s = {cold_n / cold_s:.1f} "
-          f"tokens/s (cold: {what})")
+    say(f"{cold_n} tokens in {cold_s:.2f}s = {cold_n / cold_s:.1f} "
+        f"tokens/s (cold: {what})")
     # Steady state: the same requests again, every decode graph captured.
     steady, steady_s, steady_n = timed_run()
-    print(f"steady state: {steady_n} tokens in {steady_s:.2f}s = "
-          f"{steady_n / steady_s:.1f} tokens/s")
+    say(f"steady state: {steady_n} tokens in {steady_s:.2f}s = "
+        f"{steady_n / steady_s:.1f} tokens/s")
     return dict(engine=engine, cold=cold, steady=steady, cold_s=cold_s,
                 steady_s=steady_s, cold_tokens_per_s=cold_n / cold_s,
                 steady_tokens_per_s=steady_n / steady_s)

@@ -30,6 +30,7 @@ from sleekit_tpu_torch.device import resolve_device
 from sleekit_tpu_torch.models.transformer import (
     TransformerConfig, decode_step, forward, init_kv_cache, prefill)
 from sleekit_tpu_torch.ops import attention
+from sleekit_tpu_torch.parallel.tp_decode import tp_decode_step
 
 
 def _categorical(logits: torch.Tensor, generator) -> torch.Tensor:
@@ -105,6 +106,12 @@ class DecodeGraph:
     sampling modes draw from ``generator`` (the device's default when
     None), which is registered with the graph, so replays draw from it as
     the eager steps do.
+
+    With a ``mesh`` (``parallel/mesh.py``), the step is this rank's
+    ``tp_decode_step`` over its shard of ``params`` and of the cache. Its
+    NCCL collectives are captured with the kernels, and its group counts
+    them at each replay; gloo's cannot be captured, so over gloo the step
+    runs eagerly (``graphs=True`` raises).
     """
 
     MODES = ("greedy", "sample", "topkp", "nll")
@@ -112,17 +119,22 @@ class DecodeGraph:
     def __init__(self, cfg: TransformerConfig, params, batch: int,
                  max_steps: int, mode: str = "greedy", generator=None,
                  device="cuda", use_kernel: Optional[bool] = None,
-                 graphs: Optional[bool] = None):
+                 graphs: Optional[bool] = None, mesh=None):
         if mode not in self.MODES:
             raise ValueError(f"mode {mode!r} not in {self.MODES}")
         dev = resolve_device(device)
         self.use_kernel = (dev.type == "cuda" if use_kernel is None
                            else use_kernel)
-        self.graphs = (dev.type == "cuda" and self.use_kernel
+        self.group = None if mesh is None else mesh.group
+        capturable = self.group is None or self.group.capturable
+        self.graphs = (dev.type == "cuda" and self.use_kernel and capturable
                        if graphs is None else graphs)
         if self.graphs and dev.type != "cuda":
             raise ValueError("graphs=True needs a CUDA device")
-        self.cfg, self.params, self.mode = cfg, params, mode
+        if self.graphs and not capturable:
+            raise ValueError(f"graphs=True: {self.group.backend} collectives "
+                             "cannot be captured in a CUDA graph")
+        self.cfg, self.params, self.mode, self.mesh = cfg, params, mode, mesh
         self.generator = generator
         self.max_steps = max_steps
         self.last = torch.zeros(batch, dtype=torch.int32, device=dev)
@@ -138,15 +150,23 @@ class DecodeGraph:
         self.graph = None
         self._key = None
         self._stream = None
-        # The kernels' calls in one captured step; the captures (each after
-        # one eager step), the host's seconds in them, and the replays.
+        # The kernels' calls and the collectives in one captured step; the
+        # captures (each after one eager step), the host's seconds in them,
+        # and the replays.
         self.captured = {}
+        self.captured_collectives = {}
         self.captures = self.replays = 0
         self.capture_s = 0.0
 
     def _step(self, cache) -> None:
-        logits, _ = decode_step(self.cfg, self.params, self.last[:, None],
-                                cache, self.pos, use_kernel=self.use_kernel)
+        if self.mesh is None:
+            logits, _ = decode_step(self.cfg, self.params, self.last[:, None],
+                                    cache, self.pos,
+                                    use_kernel=self.use_kernel)
+        else:
+            logits, _ = tp_decode_step(self.cfg, self.params,
+                                       self.last[:, None], cache, self.pos,
+                                       self.mesh, use_kernel=self.use_kernel)
         if self.mode == "nll":
             nxt = self.tokens.index_select(1, self._index)[:, 0]
             logp = torch.log_softmax(logits.float(), dim=-1)
@@ -186,10 +206,15 @@ class DecodeGraph:
             graph.register_generator_state(self.generator)
         collecting = gc.isenabled()
         gc.disable()
+        issued = {} if self.group is None else dict(self.group.counts)
         try:
             with kernels.captured_launches() as calls, \
                     torch.cuda.stream(self._stream):
-                graph.capture_begin()
+                # A group's threads (NCCL's watchdog) keep calling CUDA
+                # during the capture: only this thread's calls are held
+                # to the capture's rules.
+                graph.capture_begin(capture_error_mode=(
+                    "global" if self.group is None else "thread_local"))
                 try:
                     self._step(cache)
                 finally:
@@ -197,6 +222,11 @@ class DecodeGraph:
         finally:
             if collecting:
                 gc.enable()
+            # The capture issued no collective: its replays do.
+            if self.group is not None:
+                self.captured_collectives = {
+                    k: self.group.counts[k] - n for k, n in issued.items()}
+                self.group.counts.update(issued)
         self.graph, self._key, self.captured = graph, key, calls
         self.captures += 1
         self.capture_s += time.perf_counter() - t0
@@ -219,6 +249,8 @@ class DecodeGraph:
         for _ in range(steps - eager):
             self.graph.replay()
         kernels.add_launches(self.captured, steps - eager)
+        for k, n in self.captured_collectives.items():
+            self.group.counts[k] += n * (steps - eager)
         self.replays += steps - eager
 
 

@@ -305,6 +305,48 @@ def _causal_attention(cfg: TransformerConfig, q, kT, vT, positions,
 # ---- block + model forward --------------------------------------------------
 
 
+def _attend(cfg, q, k, v, positions, kv, slopes, use_kernel: bool):
+    """The attention of one block: q (B, T, H*hd), k and v (B, T, KV*hd)
+    projections -> (B, T, H*hd), with RoPE, over ``kv`` as :func:`_block`
+    takes it. ``cfg`` gives the heads (a tensor-parallel rank's local
+    ones) and ``slopes`` their ALiBi slopes."""
+    b, t, _ = q.shape
+    q = q.reshape(b, t, cfg.n_heads, cfg.head_dim)
+    k = k.reshape(b, t, cfg.kv_heads, cfg.head_dim)
+    v = v.reshape(b, t, cfg.kv_heads, cfg.head_dim)
+    if cfg.positional == "rope":
+        cos, sin = rope_freqs(cfg, positions)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+
+    if kv is None:
+        attn = _causal_attention(cfg, q, k.transpose(1, 2), v.transpose(1, 2),
+                                 positions, slopes, use_kernel)
+    elif kv[0] == "decode":
+        # A cache holding a "page_table" is a shared page pool
+        # (ops/paged_attention.py); otherwise the slot cache.
+        cache, pos, lidx = kv[1], kv[2], kv[3]
+        step = (q[:, 0].contiguous(), k[:, 0].contiguous(),
+                v[:, 0].contiguous(), cache["k"], cache["v"])
+        common = dict(scale=1.0 / math.sqrt(cfg.head_dim),
+                      alibi_slopes=slopes, k_scale=cache.get("k_scale"),
+                      v_scale=cache.get("v_scale"), use_kernel=use_kernel)
+        if "page_table" in cache:
+            res = paged_decode_attention(*step, cache["page_table"], pos,
+                                         lidx, **common)
+        else:
+            res = decode_attention(*step, pos, lidx, **common)
+        attn = res[0][:, None]
+    else:
+        cache, lidx = kv[1], kv[2]
+        write = kv_prefill_write if use_kernel else kv_prefill_write_plain
+        attn_k, attn_v = write(k, v, cache["k"], cache["v"], lidx,
+                               cache.get("k_scale"), cache.get("v_scale"))
+        attn = _causal_attention(cfg, q, attn_k, attn_v, positions, slopes,
+                                 use_kernel)
+    return attn.reshape(b, t, cfg.n_heads * cfg.head_dim)
+
+
 # Linear-layer names inside one block, in calibration order.
 def block_linear_names(cfg: TransformerConfig) -> List[str]:
     if cfg.activation == "silu_glu":
@@ -369,41 +411,7 @@ def _block(cfg, layer, x, positions, kv, slopes, use_kernel: bool,
         q = lin("q", layer["attn"]["q"], h)
         k = lin("k", layer["attn"]["k"], h)
         v = lin("v", layer["attn"]["v"], h)
-    q = q.reshape(b, t, cfg.n_heads, cfg.head_dim)
-    k = k.reshape(b, t, cfg.kv_heads, cfg.head_dim)
-    v = v.reshape(b, t, cfg.kv_heads, cfg.head_dim)
-    if cfg.positional == "rope":
-        cos, sin = rope_freqs(cfg, positions)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
-
-    if kv is None:
-        attn = _causal_attention(cfg, q, k.transpose(1, 2), v.transpose(1, 2),
-                                 positions, slopes, use_kernel)
-    elif kv[0] == "decode":
-        # A cache holding a "page_table" is a shared page pool
-        # (ops/paged_attention.py); otherwise the slot cache.
-        cache, pos, lidx = kv[1], kv[2], kv[3]
-        step = (q[:, 0].contiguous(), k[:, 0].contiguous(),
-                v[:, 0].contiguous(), cache["k"], cache["v"])
-        common = dict(scale=1.0 / math.sqrt(cfg.head_dim),
-                      alibi_slopes=slopes, k_scale=cache.get("k_scale"),
-                      v_scale=cache.get("v_scale"), use_kernel=use_kernel)
-        if "page_table" in cache:
-            res = paged_decode_attention(*step, cache["page_table"], pos,
-                                         lidx, **common)
-        else:
-            res = decode_attention(*step, pos, lidx, **common)
-        attn = res[0][:, None]
-    else:
-        cache, lidx = kv[1], kv[2]
-        write = kv_prefill_write if use_kernel else kv_prefill_write_plain
-        attn_k, attn_v = write(k, v, cache["k"], cache["v"], lidx,
-                               cache.get("k_scale"), cache.get("v_scale"))
-        attn = _causal_attention(cfg, q, attn_k, attn_v, positions, slopes,
-                                 use_kernel)
-
-    attn = attn.reshape(b, t, d)
+    attn = _attend(cfg, q, k, v, positions, kv, slopes, use_kernel)
     if stats is None:
         x = _fused_proj(cfg, layer["attn"]["o"], attn, residual=x,
                         use_kernel=use_kernel)
@@ -612,6 +620,16 @@ def init_paged_kv_cache(cfg: TransformerConfig, total_pages: int,
     return out
 
 
+def decode_positions(pos, tokens: torch.Tensor):
+    """(positions (B, 1) int64, pos) of a decode step: ``pos`` an int, or a
+    (B,) int32 tensor on the tokens' device, which it returns as is."""
+    if isinstance(pos, torch.Tensor) and pos.ndim == 1:
+        return pos[:, None].long(), pos
+    pos = int(pos)
+    return torch.full((tokens.shape[0], 1), pos, dtype=torch.long,
+                      device=tokens.device), pos
+
+
 def decode_step(cfg: TransformerConfig, params, tokens: torch.Tensor, cache,
                 pos, use_kernel: Optional[bool] = None):
     """One token of cached decode. tokens (B, 1); pos an int (uniform
@@ -622,13 +640,7 @@ def decode_step(cfg: TransformerConfig, params, tokens: torch.Tensor, cache,
     cache)."""
     if use_kernel is None:
         use_kernel = tokens.is_cuda
-    b = tokens.shape[0]
-    if isinstance(pos, torch.Tensor) and pos.ndim == 1:
-        positions = pos[:, None].long()
-    else:
-        pos = int(pos)
-        positions = torch.full((b, 1), pos, dtype=torch.long,
-                               device=tokens.device)
+    positions, pos = decode_positions(pos, tokens)
     slopes = _slopes(cfg, tokens.device)
     x = _embed(cfg, params, tokens, positions, use_kernel)
     for i, layer in enumerate(params["layers"]):

@@ -164,8 +164,17 @@ K9f = CudaKernel(
 _CENTRE = {"pair": 1.5, "plane": 1.5, "pair3": 3.875, "pair3x": 0.875}
 
 
+def _check_unsplit(w: PackedLinear) -> None:
+    if w.k_splits != 1:
+        raise ValueError(
+            f"k_splits > 1 ({w.k_splits}): split_packed_k matrices are a "
+            "tensor-parallel sharding format; localize the shard "
+            "(ops/pack.localize_packed_shard) before the matmul")
+
+
 def dequant_matmul_ref(x: torch.Tensor, w: PackedLinear) -> torch.Tensor:
     """Correctness oracle: dense f32 dequantized weight, f32 product."""
+    _check_unsplit(w)
     y = x.float() @ w.dequantize()
     if w.bias is not None:
         y = y + w.bias[None, :]
@@ -732,14 +741,14 @@ def quantized_matmul(x: torch.Tensor, w: PackedLinear,
     (K1, K6, K7, K2), and bf16 or f32 x over 'plane' (K8/K9, K8f/K9f), as
     the JAX package sends 'plane' to its Pallas kernel at either dtype.
     The rest run :func:`dequant_matmul_ref`: f32 x over the pair*, int8
-    and linear layouts (the JAX package's XLA route) and ``k_splits >
-    1`` (tensor parallelism)."""
+    and linear layouts (the JAX package's XLA route). A ``k_splits > 1``
+    matrix raises, as the JAX package's matmuls do."""
     if use_kernel is None:
         use_kernel = x.is_cuda
+    _check_unsplit(w)
     if can_fuse_glue(x, w):
         return _kernel_matmul(x.contiguous(), w, use_kernel)
-    if (w.layout == "plane" and x.dtype in (torch.bfloat16, torch.float32)
-            and w.k_splits == 1):
+    if w.layout == "plane" and x.dtype in (torch.bfloat16, torch.float32):
         return _plane_matmul(x.contiguous(), w, use_kernel)
     return dequant_matmul_ref(x, w)
 

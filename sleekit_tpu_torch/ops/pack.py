@@ -11,8 +11,8 @@ K8/K9), ``pair`` (the bf16-pair layout of kernel K1), ``pair3`` (3-bit
 split into 2-bit and 1-bit pair planes, K7), ``pair3x`` (3-bit mixed
 4-bit-field and pair3 groups, K6) and ``int8`` (signed bytes, K2). The
 tensor-parallel row-sharding format (``split_packed_k``,
-``localize_packed_shard``) comes with tensor parallelism (ROADMAP queue
-1, item 15).
+``localize_packed_shard``) is what ``parallel/`` serves row-parallel
+linears in.
 """
 
 from __future__ import annotations
@@ -241,8 +241,11 @@ class PackedLinear:
     nbits: int
     affine: Optional[Tuple[float, float]] = None
     layout: str = "linear"
-    # >1: the tensor-parallel row-sharding format of the JAX package
-    # (split_packed_k), which comes with tensor parallelism.
+    # >1: the K axis is split into this many contiguous chunks, each packed
+    # on its own (its own tile padding) and concatenated along word rows:
+    # the tensor-parallel row-sharding format (split_packed_k). Matmuls
+    # take k_splits == 1 matrices; localize_packed_shard makes one of a
+    # rank's chunk.
     k_splits: int = 1
 
     @property
@@ -256,14 +259,63 @@ class PackedLinear:
 
     def dequantize(self) -> torch.Tensor:
         """Dense f32 (K, N) weights (reference semantics)."""
-        if self.k_splits != 1:
-            raise NotImplementedError(
-                "k_splits > 1 (tensor-parallel row shards) is not ported yet "
-                "(ROADMAP queue 1, item 15)")
-        idx = unpack_indices(self.packed, self.nbits, self.in_features,
-                             layout=self.layout)
+        if self.k_splits > 1:
+            kw = self.packed.shape[0] // self.k_splits
+            k_local = self.in_features // self.k_splits
+            idx = torch.cat([unpack_indices(
+                self.packed[i * kw:(i + 1) * kw], self.nbits, k_local,
+                layout=self.layout) for i in range(self.k_splits)])
+        else:
+            idx = unpack_indices(self.packed, self.nbits, self.in_features,
+                                 layout=self.layout)
         idx = idx[:, :self.out_features]  # int8 layout pads N at pack time
         return self.lut[idx.long()] * self.scale[None, :]
+
+
+def split_packed_k(p: PackedLinear, n: int) -> PackedLinear:
+    """Re-pack for tensor-parallel ROW sharding: split K into ``n``
+    contiguous chunks, pack each on its own (its own tile padding, so every
+    layout splits cleanly) and concatenate them along word rows. The word
+    rows then cut into ``n`` equal parts, each a well-formed (K/n, N)
+    packing; the partial products sum exactly, since the affine fold
+    ``b*sum(x_chunk)`` and the per-channel scale are linear in the
+    chunks. A 'pair3x' matrix whose chunks are not a multiple of 512 rows
+    re-packs as 'pair3'. The words are the JAX package's, bit for bit."""
+    if n == 1:
+        return p
+    if p.k_splits != 1:
+        raise ValueError(f"already split (k_splits={p.k_splits})")
+    if p.in_features % n:
+        raise ValueError(f"K={p.in_features} not divisible by {n} shards")
+    k_local = p.in_features // n
+    idx = unpack_indices(p.packed, p.nbits, p.in_features, layout=p.layout)
+    layout = p.layout
+    if layout == "pair3x" and k_local % PAIR3X_GROUP:
+        layout = "pair3"
+    chunks = [pack_indices(idx[i * k_local:(i + 1) * k_local], p.nbits,
+                           layout=layout) for i in range(n)]
+    return dataclasses.replace(p, packed=torch.cat(chunks), k_splits=n,
+                               layout=layout)
+
+
+def localize_packed_shard(p: PackedLinear, n: int,
+                          row_parallel: bool) -> PackedLinear:
+    """The static fields of one rank's shard of ``p`` (its arrays already
+    cut): a row-parallel shard of a :func:`split_packed_k` matrix becomes
+    an ordinary (K/n, N) packed linear; a column-parallel one keeps K and
+    has N/n outputs."""
+    if n == 1:
+        return p
+    if row_parallel:
+        if p.k_splits != n:
+            raise ValueError(f"a row-parallel PackedLinear must be "
+                             f"split_packed_k({n}) first (k_splits="
+                             f"{p.k_splits})")
+        return dataclasses.replace(p, in_features=p.in_features // n,
+                                   k_splits=1)
+    if p.out_features % n:
+        raise ValueError(f"N={p.out_features} not divisible by {n} shards")
+    return dataclasses.replace(p, out_features=p.out_features // n)
 
 
 def concat_packed(pls) -> PackedLinear:

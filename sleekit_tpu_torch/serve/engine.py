@@ -13,11 +13,20 @@ decodes every slot at its (B,) position vector through a
 which on CUDA replays one captured CUDA graph a step (the counterpart of
 the JAX Engine's jitted ``decode_step`` and ``decode_scan``). Steps run
 ``fused_steps`` tokens per host round trip.
+
+With a ``mesh`` of ``model > 1`` ranks (``parallel/mesh.py``), every rank
+runs this Engine in lockstep on the same requests: its params and its
+cache are its shard (heads and ff; ``parallel/tp_decode.py``), prefill
+and decode are the tensor-parallel ones, and since the logits are equal
+on every rank after their all-gather, and every rank draws from a
+generator of the same seed, every rank takes the same host decisions and
+emits the same tokens.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -28,6 +37,8 @@ from sleekit_tpu_torch.models.eval import (
     DecodeGraph, sample_tokens, sample_tokens_topkp)
 from sleekit_tpu_torch.models.transformer import (
     TransformerConfig, init_kv_cache, init_paged_kv_cache, prefill)
+from sleekit_tpu_torch.parallel.mesh import shard_params
+from sleekit_tpu_torch.parallel.tp_decode import _local_cfg, tp_prefill
 
 # The JAX kernels' append window (rows): a page size must be a multiple of
 # it there, and the port accepts the same configurations.
@@ -106,21 +117,34 @@ class Engine:
     every inactive slot's table row points at it, so its garbage decode
     appends touch no live page. Admission is FIFO and waits while the pool
     cannot hold the head request's prompt and budget.
+
+    ``mesh`` (``parallel.mesh.make_mesh``; ``model > 1``) serves this
+    rank's shard of ``params``, which must be in the tensor-parallel
+    format (``mesh.prepare_params_for_tp``), on the mesh's device. Over
+    gloo the decode steps run eagerly: its collectives cannot be captured.
+    At ``model == 1`` the Engine is the single-device one.
     """
 
     def __init__(self, cfg: TransformerConfig, params, max_slots: int = 8,
                  max_seq_len: int = 512, cache_dtype=torch.float32,
                  seed: int = 0, fused_steps: int = 8, paged: bool = False,
                  page_size: int = 64, total_pages: Optional[int] = None,
-                 mesh=None, device="cuda",
+                 mesh=None, device=None,
                  use_kernel: Optional[bool] = None,
                  graphs: Optional[bool] = None):
-        self.device = resolve_device(device)
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh serving is not ported yet (ROADMAP, modules to port: "
-                "parallel/ and serve/router.py)")
+        if mesh is not None and device is not None and torch.device(
+                device) not in (mesh.device, torch.device(mesh.device.type)):
+            raise ValueError(f"device {device} is not the mesh's "
+                             f"{mesh.device}")
+        self.device = (mesh.device if mesh is not None
+                       else resolve_device(device or "cuda"))
         self.cfg = cfg
+        self.mesh = mesh if mesh is not None and mesh.model > 1 else None
+        # The cache holds this rank's kv heads.
+        self._kv_cfg = cfg
+        if self.mesh is not None:
+            self._kv_cfg = _local_cfg(cfg, mesh.model)
+            params = shard_params(cfg, params, mesh)
         self.params = params
         self.max_slots = max_slots
         self.max_seq_len = max_seq_len
@@ -128,10 +152,20 @@ class Engine:
         self.paged = paged
         self.use_kernel = (self.device.type == "cuda" if use_kernel is None
                            else use_kernel)
+        capturable = self.mesh is None or self.mesh.group.capturable
+        if (graphs is None and self.device.type == "cuda" and self.use_kernel
+                and not capturable):
+            warnings.warn(f"Engine: {self.mesh.group.backend} collectives "
+                          "cannot be captured in a CUDA graph; the decode "
+                          "steps run eagerly", RuntimeWarning, stacklevel=2)
         self.graphs = (self.device.type == "cuda" and self.use_kernel
-                       if graphs is None else graphs)
+                       and capturable if graphs is None else graphs)
         if self.graphs and self.device.type != "cuda":
             raise ValueError("graphs=True needs a CUDA device")
+        if self.graphs and not capturable:
+            raise ValueError(f"graphs=True: {self.mesh.group.backend} "
+                             "collectives cannot be captured in a CUDA "
+                             "graph")
         if paged:
             if page_size <= 0 or page_size % _APPEND_WIN:
                 raise ValueError(f"page_size {page_size} must be a positive "
@@ -149,12 +183,12 @@ class Engine:
                     f"max-length sequence ({self.max_pages} pages) and the "
                     f"trash page")
             self.cache = init_paged_kv_cache(
-                cfg, self.total_pages, page_size, max_slots, self.max_pages,
-                cache_dtype, device=self.device)
+                self._kv_cfg, self.total_pages, page_size, max_slots,
+                self.max_pages, cache_dtype, device=self.device)
             self._free_pages: List[int] = list(range(1, self.total_pages))
             self._slot_pages: Dict[int, List[int]] = {}
         else:
-            self.cache = init_kv_cache(cfg, max_slots, max_seq_len,
+            self.cache = init_kv_cache(self._kv_cfg, max_slots, max_seq_len,
                                        cache_dtype, device=self.device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
@@ -240,7 +274,7 @@ class Engine:
             run = self.runners[mode] = DecodeGraph(
                 self.cfg, self.params, self.max_slots,
                 max(self.fused_steps, 1), mode, self.generator, self.device,
-                self.use_kernel, self.graphs)
+                self.use_kernel, self.graphs, self.mesh)
         pos = np.where([r is not None for r in reqs],
                        np.minimum(self.slot_pos, self.max_seq_len - 1), 0)
         run.last.copy_(torch.from_numpy(self.slot_last))
@@ -303,11 +337,16 @@ class Engine:
                 prompt = np.asarray(req.prompt, np.int32)
                 padded[r, :len(prompt)] = prompt
                 lengths.append(len(prompt))
-            tmp_cache = init_kv_cache(self.cfg, rows, bucket,
+            tmp_cache = init_kv_cache(self._kv_cfg, rows, bucket,
                                       self.cache_dtype, device=self.device)
-            logits, tmp_cache = prefill(
-                self.cfg, self.params, self._t(padded, torch.int64),
-                tmp_cache, use_kernel=self.use_kernel)
+            tokens = self._t(padded, torch.int64)
+            if self.mesh is None:
+                logits, tmp_cache = prefill(self.cfg, self.params, tokens,
+                                            tmp_cache, self.use_kernel)
+            else:
+                logits, tmp_cache = tp_prefill(self.cfg, self.params, tokens,
+                                               tmp_cache, self.mesh,
+                                               self.use_kernel)
             # First generated token comes from the last REAL prompt position.
             last_logits = logits[torch.arange(len(items)),
                                  self._t(lengths, torch.int64) - 1]

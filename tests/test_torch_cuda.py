@@ -1708,3 +1708,69 @@ def test_calibrate_spill_on_the_card(dev):
             x = getattr(st, f)
             assert x.device.type == "cpu" and x.is_pinned()
             assert torch.equal(x, getattr(want[name], f).cpu()), (name, f)
+
+
+def test_tp_world1_nccl_step_in_a_graph_equals_eager(dev, tmp_path):
+    """``tp_decode_step`` over a world-1 NCCL group (tiny bf16 int4 model,
+    int8 head and KV): captured in a CUDA graph with its two all-reduces a
+    layer, its replay's logits and cache equal the eager step's, bit for
+    bit; ``DecodeGraph`` over the mesh captures the same step (the
+    all-reduces counted at each replay) and emits its eager route's
+    tokens."""
+    import torch.distributed as dist
+
+    from sleekit_tpu_torch import kernels
+    from sleekit_tpu_torch.models.eval import DecodeGraph
+    from sleekit_tpu_torch.models.fake_quant import random_packed_params
+    from sleekit_tpu_torch.models.quantize import pack_lm_head
+    from sleekit_tpu_torch.models.transformer import init_kv_cache, prefill
+    from sleekit_tpu_torch.models.zoo import tiny_test
+    from sleekit_tpu_torch.parallel.distributed import init_process_group
+    from sleekit_tpu_torch.parallel.mesh import make_mesh, shard_params
+    from sleekit_tpu_torch.parallel.tp_decode import tp_decode_step
+
+    init_process_group(init_method=f"file://{tmp_path}/rendezvous", rank=0,
+                       world_size=1, device=dev)
+    try:
+        mesh = make_mesh(model=1)
+        assert mesh.group.backend == "nccl" and mesh.group.capturable
+        cfg = tiny_test(d_model=512, d_ff=1024, n_heads=8, max_seq_len=512,
+                        dtype=torch.bfloat16)
+        params, _ = random_packed_params(cfg, 0, device=dev)
+        params = shard_params(cfg, pack_lm_head(cfg, params), mesh)
+        cache = init_kv_cache(cfg, 4, 64, torch.int8, device=dev)
+        toks = torch.randint(0, cfg.vocab_size, (4, 16), device=dev,
+                             generator=torch.Generator(dev).manual_seed(0))
+        logits, _ = prefill(cfg, params, toks, cache)
+        nxt = logits[:, -1].argmax(-1)[:, None]
+        pos = torch.full((4,), 16, dtype=torch.int32, device=dev)
+        eager_cache = {k: v.clone() for k, v in cache.items()}
+        graph_cache = {k: v.clone() for k, v in cache.items()}
+        eager, _ = tp_decode_step(cfg, params, nxt, eager_cache, pos, mesh)
+        g = torch.cuda.CUDAGraph()
+        mesh.group.reset_counts()
+        with torch.cuda.graph(g, capture_error_mode="thread_local"):
+            out, _ = tp_decode_step(cfg, params, nxt, graph_cache, pos, mesh)
+        assert mesh.group.counts == {"all_reduce": 2 * cfg.n_layers,
+                                     "all_gather": 0}
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+        for k in cache:
+            assert torch.equal(graph_cache[k], eager_cache[k]), k
+
+        tokens = {}
+        for graphs in (False, True):
+            run = DecodeGraph(cfg, params, 4, 6, device=dev, graphs=graphs,
+                              mesh=mesh)
+            run.last.copy_(nxt[:, 0])
+            run.pos.copy_(pos)
+            mesh.group.reset_counts()
+            kernels.reset_launch_counts()
+            run.run({k: v.clone() for k, v in cache.items()}, 6)
+            tokens[graphs] = run.tokens.clone()
+            assert mesh.group.counts["all_reduce"] == 6 * 2 * cfg.n_layers
+        assert run.replays == 5
+        assert torch.equal(tokens[True], tokens[False])
+    finally:
+        dist.destroy_process_group()

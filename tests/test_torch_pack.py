@@ -3,6 +3,7 @@ bit-identical to the JAX package's (mirrors tests/test_ops.py:26,152,234,
 273,285,445)."""
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -77,17 +78,26 @@ def test_plane_pair3_pair3x_words_bit_identical(layout, nbits, ks):
 
 @pytest.mark.parametrize("layout", ["plane", "pair3", "pair3x"])
 def test_unported_layouts_name_their_roadmap_item(layout):
-    """The three layouts pack now; what stays unported around them, the
-    tensor-parallel row-shard format (k_splits > 1), names its ROADMAP
-    item. pair3x refuses K % 512 != 0 and names pair3; the 3-bit layouts
-    refuse other widths."""
+    """The three layouts pack, and so does the tensor-parallel row-shard
+    format around them (k_splits > 1): its ``dequantize`` is the JAX
+    package's. pair3x refuses K % 512 != 0 and names pair3; the 3-bit
+    layouts refuse other widths."""
+    idx = np.random.RandomState(3).randint(0, 8, (512, 8))
+
+    @jax.jit
+    def j_split(idx):   # compiled once: JAX's ops one by one take seconds
+        s = jpack.split_packed_k(jpack.PackedLinear(
+            packed=jpack.pack_indices(idx, 3, layout=layout),
+            scale=jnp.ones(8), lut=jnp.linspace(-1, 1, 8), bias=None,
+            in_features=512, out_features=8, nbits=3, layout=layout), 2)
+        return s, s.dequantize()
+
+    split, want = j_split(jnp.asarray(idx))
     w = tpack.PackedLinear(
-        packed=tpack.pack_indices(torch.zeros((512, 8), dtype=torch.int64),
-                                  3, layout=layout),
-        scale=torch.ones(8), lut=torch.linspace(-1, 1, 8), bias=None,
-        in_features=512, out_features=8, nbits=3, layout=layout, k_splits=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        w.dequantize()
+        packed=t(split.packed), scale=torch.ones(8), lut=t(split.lut),
+        bias=None, in_features=512,
+        out_features=8, nbits=3, layout=split.layout, k_splits=2)
+    np.testing.assert_array_equal(w.dequantize().numpy(), np.asarray(want))
     if layout == "pair3x":
         with pytest.raises(ValueError, match="pair3'"):
             tpack.pack_indices(torch.zeros((768, 8), dtype=torch.int64), 3,

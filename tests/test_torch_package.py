@@ -31,6 +31,8 @@ def test_port_imports_no_jax_and_no_sleekit_tpu():
             "sleekit_tpu_torch.codebooks"} <= set(names)
     assert {f"sleekit_tpu_torch.experiments.{m}" for m in ABLATION_CLIS} <= (
         set(names))
+    assert {f"sleekit_tpu_torch.parallel.{m}" for m in (
+        "mesh", "distributed", "tp_decode", "comm_model")} <= set(names)
     code = (
         "import importlib, json, sys\n"
         f"for n in {names!r}: importlib.import_module(n)\n"
@@ -86,6 +88,16 @@ def test_entry_points_raise_without_cuda(tmp_path):
             bench.main(argv)
     Engine(cfg, params, device="cpu")
     Engine(cfg, params, device="cpu", paged=True)
+
+    # Tensor parallelism: the group and the mesh.
+    from sleekit_tpu_torch.parallel.distributed import init_process_group
+    from sleekit_tpu_torch.parallel.mesh import make_mesh
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_process_group(rank=0, world_size=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_mesh()
+    assert make_mesh(device="cpu").device == torch.device("cpu")
 
     # The quantizer's constructors.
     import numpy as np
@@ -147,19 +159,25 @@ def test_sleekit_follows_its_layer():
 @pytest.mark.parametrize("kwargs,error,match", [
     (dict(paged=True, page_size=4), ValueError, "page_size 4"),
     (dict(paged=True, page_size=48), ValueError, "multiple of page_size 48"),
-    (dict(mesh=object()), NotImplementedError,
+    (dict(mesh=(2, 1)), NotImplementedError,
      "ROADMAP.*parallel/ and serve/router.py")])
 def test_unported_engine_modes_name_their_roadmap_item(kwargs, error, match):
-    """Mesh serving is not ported and names its ROADMAP item; a page size
-    the JAX kernels refuse (not a multiple of their 8-row append window,
-    or not dividing max_seq_len 512) is refused at construction."""
+    """A mesh with a data axis (replica serving) is not ported and names
+    its ROADMAP item, ``serve/router.py``; a page size the JAX kernels refuse (not a
+    multiple of their 8-row append window, or not dividing max_seq_len
+    512) is refused at construction."""
     from sleekit_tpu_torch.models.fake_quant import random_packed_params
     from sleekit_tpu_torch.models.zoo import tiny_test
+    from sleekit_tpu_torch.parallel.mesh import make_mesh
     from sleekit_tpu_torch.serve.engine import Engine
 
     cfg = tiny_test()
     params, _ = random_packed_params(cfg, 0, device="cpu")
     with pytest.raises(error, match=match):
+        if "mesh" in kwargs:
+            data, model = kwargs["mesh"]
+            kwargs = dict(mesh=make_mesh(data=data, model=model,
+                                         device="cpu"))
         Engine(cfg, params, device="cpu", **kwargs)
 
 

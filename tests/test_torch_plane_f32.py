@@ -111,10 +111,11 @@ def test_plane_bf16_plain_unchanged(name):
 
 def test_plane_dispatch_by_dtype_and_split(monkeypatch):
     """On the CPU, quantized_matmul sends 'plane' at bf16 and f32 x to
-    K8/K8f's and K9/K9f's plain versions (the kernels on the card); only
-    'plane' with k_splits > 1 (tensor parallelism, which raises there
-    until it is ported) and the f32 'pair' layout (the JAX package's XLA
-    route) reach dequant_matmul_ref."""
+    K8/K8f's and K9/K9f's plain versions (the kernels on the card);
+    'plane' with k_splits > 1 (a tensor-parallel row-shard format) raises,
+    naming localize_packed_shard, as the JAX package's matmuls do; the f32
+    'pair' layout (the JAX package's XLA route) reaches
+    dequant_matmul_ref."""
     import dataclasses
 
     rng = np.random.RandomState(0)
@@ -129,10 +130,10 @@ def test_plane_dispatch_by_dtype_and_split(monkeypatch):
     assert taken == ["plane_lut_matmul_plain"] * 2 + [
         "plane_affine_matmul_plain"] * 2
     taken.clear()
-    with pytest.raises(NotImplementedError, match="k_splits > 1"):
+    with pytest.raises(ValueError, match="localize_packed_shard"):
         tdm.quantized_matmul(x, dataclasses.replace(nf4, k_splits=2))
     tdm.quantized_matmul(x, pair)
-    assert taken == ["dequant_matmul_ref"] * 2
+    assert taken == ["dequant_matmul_ref"]
 
 
 # ---- the commands on the 'plane' layout -----------------------------------

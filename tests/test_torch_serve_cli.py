@@ -1,12 +1,14 @@
 """The serve command in the port against the JAX package's: the port's
 ``quantize_model_cli`` writes a checkpoint of a tiny HF-layout OPT, and
 ``serve_cli`` of both packages serves it (the JAX Engine loads the
-port's checkpoint) with equal greedy tokens, slot and paged; ``--tp`` and
-``--replicas`` raise, naming their ROADMAP item."""
+port's checkpoint) with equal greedy tokens, slot and paged; ``--tp 2``
+serves the tokens of one device; ``--replicas`` raises, naming its
+ROADMAP item."""
 
 import re
 
 import pytest
+import torch
 
 from sleekit_tpu.experiments import serve_cli as js_cli
 from sleekit_tpu_torch.experiments import (
@@ -54,7 +56,31 @@ def test_serve_cli_matches_jax(ckpt, mode):
 
 
 @pytest.mark.parametrize("flag", ["--tp", "--replicas"])
-def test_unported_serve_modes_raise(flag):
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.*parallel/ and serve/router.py"):
-        ts_cli.main(["unused", flag, "2", "--device", "cpu"])
+def test_unported_serve_modes_raise(ckpt, flag):
+    """The serve modes that raised before tensor parallelism was ported:
+    ``--tp 2 --device cpu`` now starts two gloo ranks and prints, from rank
+    0, the greedy tokens of ``--tp 1``, request by request, cold and
+    steady; ``--replicas`` still raises, naming serve/router.py."""
+    if flag == "--replicas":
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.*serve/router.py"):
+            ts_cli.main(["unused", flag, "2", "--device", "cpu"])
+        return
+    # "tiny" is TINY_OPT's config: the spawned ranks' zoo has it.
+    args = [ckpt, "--model", "tiny"] + SERVE_ARGS[2:] + ["--device", "cpu"]
+    one, res = run_main(ts_cli.main, args)
+    two, tp_res = run_main(ts_cli.main, args + [flag, "2"])
+    line = re.compile(r"^\[(\d+)\] \+(\d+) tokens \((\w+)\): (\[.*\])$", re.M)
+    assert len(line.findall(one)) == 4
+    assert line.findall(two) == line.findall(one)
+    assert "tensor-parallel over 2 ranks (gloo)" in two
+    for run in ("cold", "steady"):
+        assert [c.new_tokens.tolist() for c in tp_res[run]] == [
+            c.new_tokens.tolist() for c in res[run]]
+
+
+def test_serve_cli_tp_needs_its_devices():
+    """``--tp 2`` on the card with fewer than two CUDA devices raises,
+    saying how many it found; it never falls back to the CPU."""
+    with pytest.raises(RuntimeError, match=f"found {torch.cuda.device_count()}"):
+        ts_cli.main(["unused", "--tp", "2"])
