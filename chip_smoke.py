@@ -191,9 +191,24 @@
    rank's 6 K1, 1 K3 (at prefill K4 and K10) and 2 all-reduces a layer
    and 1 K2 and 1 all-gather a step counted exactly (its times measure
    two ranks sharing a card through the host's gloo, not TP's speed);
-13. prints the kernels line (K1-K15, K8f and K9f, with ``quantize``,
-   ``cli``, ``ablation`` and ``tp`` entries beside ``engine``), the
-   card's name and power limit, and, last, the result line.
+13. runs the data axis (``serve/router.py``, ``calibrate(mesh=)``,
+   ``quantize_model(mesh=)``): a ``ReplicaRouter`` over two replicas on
+   this card in one process serves step 3's model and prompts, slot and
+   paged (request i on replica i % 2, each replica's tokens those of a
+   standalone Engine fed its requests, bit for bit, its launches
+   replay-counted: 96 K1, 1 K2 and 24 K3 or K5 a step); then two spawned
+   gloo ranks on this card, ``make_mesh(data=2, model=1)``, each serve
+   their replica (the same tokens, no collective on the data axis while
+   serving), run ``calibrate(mesh=)`` at the quantize step's 4 layers of
+   bf16 OPT-1.3B (counts equal to the single process's, statistics
+   within DP_STATS_RTOL) and ``quantize_model(layer_parallel=True,
+   pack=True, mesh=)`` (both ranks' words equal; held by the batched
+   route's gates to the single process's batched route on the same
+   statistics, and by DP_PIPELINE_*_RTOL on error to it on its own);
+14. prints the kernels line (K1-K15, K8f and K9f, with ``quantize``,
+   ``cli``, ``ablation``, ``tp`` and ``data_axis`` entries beside
+   ``engine``), the card's name and power limit, and, last, the result
+   line.
 
 Any failure raises; there is no CPU branch and no fallback. It needs a
 CUDA device and exits non-zero without one.
@@ -203,6 +218,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import io
 import json
 import math
@@ -267,6 +283,8 @@ from sleekit_tpu_torch.solver import channelwise_error  # noqa: E402
 from sleekit_tpu_torch.serve import engine as engine_mod  # noqa: E402
 from sleekit_tpu_torch.serve.checkpoint import load_packed_params  # noqa: E402
 from sleekit_tpu_torch.serve.engine import Engine, Request  # noqa: E402
+from sleekit_tpu_torch.serve.router import (  # noqa: E402
+    ReplicaRouter, local_replica_mesh, replica_meshes)
 from sleekit_tpu_torch.parallel.distributed import (  # noqa: E402
     init_process_group)
 from sleekit_tpu_torch.parallel.mesh import (  # noqa: E402
@@ -2300,6 +2318,40 @@ def run_quantize(dev, cfg, card):
 BATCHED_LAYER_RTOL, BATCHED_MIN_SHARE, BATCHED_TOTAL_RTOL = 2e-3, 0.95, 1e-4
 
 
+def route_distance(ref, ref_reports, packed, reports):
+    """``packed``'s linears against ``ref``'s: (each layer's error
+    distance, its share of equal packed codewords, the summed error's
+    distance, whether every packed word is equal)."""
+    rels, shares, equal = {}, {}, True
+    for rs, rp in zip(ref_reports, reports):
+        rels[rs.name] = abs(rp.error - rs.error) / rs.error
+        a, b = (tr.get_linear_param(p, rs.name) for p in (ref, packed))
+        ia, ib = (unpack_indices(p.packed, p.nbits, p.in_features, p.layout)
+                  for p in (a, b))
+        shares[rs.name] = (ia == ib).float().mean().item()
+        equal = equal and torch.equal(a.packed, b.packed)
+    total_s = sum(r.error for r in ref_reports)
+    total_rel = abs(sum(r.error for r in reports) - total_s) / total_s
+    return rels, shares, total_rel, equal
+
+
+def route_gate(what, whose, rels, shares, total_rel,
+               layer_rtol=BATCHED_LAYER_RTOL, min_share=BATCHED_MIN_SHARE,
+               total_rtol=BATCHED_TOTAL_RTOL):
+    """Fails unless every layer's error is within ``layer_rtol`` of
+    ``whose`` with at least ``min_share`` of its codewords equal, and the
+    summed error within ``total_rtol`` (by default the batched route's
+    gates)."""
+    for name, rel in rels.items():
+        if not (rel <= layer_rtol and shares[name] >= min_share):
+            raise AssertionError(f"{what}: {name}'s error {rel:.3g} from "
+                                 f"{whose}, {shares[name]:.4f} of its "
+                                 f"codewords equal")
+    if not total_rel <= total_rtol:
+        raise AssertionError(f"{what}: the summed error {total_rel:.3g} "
+                             f"from {whose}")
+
+
 def run_layer_parallel(cfg, params, stats, serial, serial_reports, card):
     """The same linears through ``quantize_model(layer_parallel=True,
     pack=True, free_stats=True)``: each shape group solved as stacks in
@@ -2339,25 +2391,10 @@ def run_layer_parallel(cfg, params, stats, serial, serial_reports, card):
             or len(mults) != len(reports)
             or sum(map(sum, chunks.values())) != len(reports)):
         raise AssertionError("quantize batched: not every linear solved once")
-    rels, shares, equal = {}, {}, True
-    for rs, rp in zip(serial_reports, reports):
-        rels[rs.name] = abs(rp.error - rs.error) / rs.error
-        a, b = (tr.get_linear_param(p, rs.name) for p in (serial, packed))
-        ia, ib = (unpack_indices(p.packed, p.nbits, p.in_features, p.layout)
-                  for p in (a, b))
-        shares[rs.name] = (ia == ib).float().mean().item()
-        if not (rels[rs.name] <= BATCHED_LAYER_RTOL
-                and shares[rs.name] >= BATCHED_MIN_SHARE):
-            raise AssertionError(f"quantize batched: {rs.name}'s error "
-                                 f"{rels[rs.name]:.3g} from the serial "
-                                 f"route's, {shares[rs.name]:.4f} of its "
-                                 f"codewords equal")
-        equal = equal and torch.equal(a.packed, b.packed)
-    total_s = sum(r.error for r in serial_reports)
-    total_rel = abs(sum(r.error for r in reports) - total_s) / total_s
-    if not total_rel <= BATCHED_TOTAL_RTOL:
-        raise AssertionError(f"quantize batched: the summed error "
-                             f"{total_rel:.3g} from the serial route's")
+    rels, shares, total_rel, equal = route_distance(
+        serial, serial_reports, packed, reports)
+    route_gate("quantize batched", "the serial route's", rels, shares,
+               total_rel)
     m.update(batched_error_rel=rels, batched_codeword_share=shares,
              batched_total_error_rel=total_rel, batched_words_equal=equal,
              batched_damp_multipliers=sorted(set(mults)))
@@ -3639,6 +3676,417 @@ def run_tp(dev, cfg, card):
     return m, cases
 
 
+# ---- the data axis (serve/router.py, data-parallel quantizer) -------------
+
+
+# Phase 13's ranks: two gloo ranks on this one card (NCCL refuses two
+# ranks on one device), a (data 2, model 1) mesh.
+DP_TIMEOUT_S = 600
+# calibrate(mesh=) against the single-process statistics of the same
+# batches, as max |diff| over max |ref| of each Hessian and mean: each
+# rank's forward takes 1 row of a batch where the single process takes
+# 2, and cuBLAS may round a bf16 product of another M otherwise, so
+# activations (and the statistics) differ by bf16 steps here and there;
+# the merge itself is f32 (1e-7 on the CPU).
+DP_STATS_RTOL = 2 ** -7
+# The whole data-parallel pipeline (calibrate(mesh=), then the mesh solve)
+# against the single process's batched route on its own statistics, by
+# error only: the statistics' bf16 differences move a rounding here and
+# there, which the sweep carries on, so codewords are not held (0.783
+# equal at worst), but each layer's error and the summed error stay close
+# (0.00272, layers.1.o, and 0.00022, the same in three runs on an H100);
+# the gates leave 3.7x and 4.5x room above those readings, and a merge
+# off by a rank's weight moves the errors by far more.
+DP_PIPELINE_LAYER_RTOL, DP_PIPELINE_TOTAL_RTOL = 1e-2, 1e-3
+
+
+def router_run(router, reqs):
+    """Serve ``reqs`` through ``router`` from zeroed launch counts. Each
+    replica's launches and prefills are counted around its own steps;
+    the prefills of all replicas and every decode call are timed between
+    synchronizations, as ``engine_run`` times one Engine's. Returns
+    (completions, {replica: launches}, {replica: prefills}, metrics)."""
+    kernels.reset_launch_counts()
+    prefill_s, decode_s = [0.0, 0], [0.0, 0]
+    launches = {rid: {} for rid in router.engines}
+    prefills = dict.fromkeys(router.engines, 0)
+
+    def attributed(rid):
+        def wrap(inner):
+            def step_auto():
+                before, n = counts(), prefill_s[1]
+                inner()
+                for k, c in counts().items():
+                    if c > before[k]:
+                        launches[rid][k] = (launches[rid].get(k, 0) + c
+                                            - before[k])
+                prefills[rid] += prefill_s[1] - n
+            return step_auto
+        return wrap
+
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(timed(engine_mod, "prefill", prefill_s))
+        for rid, e in router.engines.items():
+            stack.enter_context(timed(e, "_decode", decode_s))
+            stack.enter_context(patched(e, "step_auto", attributed(rid)))
+        t0 = time.perf_counter()
+        comps = router.run(reqs)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    new = sum(len(c.new_tokens) for c in comps)
+    rest_s = run_s - prefill_s[0]
+    m = dict(run_s=run_s, prefill_s=prefill_s[0], prefills=prefill_s[1],
+             decode_s=rest_s, decode_calls_s=decode_s[0],
+             decode_calls=decode_s[1], tokens_per_s=new / run_s,
+             decode_tokens_per_s=(new - len(comps)) / rest_s)
+    return comps, launches, prefills, m
+
+
+def run_replicas(dev, cfg, card, single):
+    """Two replicas on this one card in this process: a ``ReplicaRouter``
+    over ``replica_meshes(2, devices=["cuda:0", "cuda:0"])`` serves phase
+    3's model (full width and depth, int4 'pair', fused q|k|v, int8 head,
+    int8 KV with bf16 scales) and its 8 prompts, 32 new tokens each, slot
+    and paged, on the graph route: request i on replica i % 2; each
+    replica's tokens those of a standalone Engine of the same geometry
+    and seed fed its requests, bit for bit; each replica's launches
+    replay-counted (96 K1, 1 K2 and 24 K3, paged K5, a step; K10 24 a
+    prefill). ``single``: phase 3's metrics, printed beside. Returns
+    (metrics, the slot run's tokens by request)."""
+    params, _ = random_packed_params(cfg, seed=0, fuse_qkv=True,
+                                     layout="pair", device=dev)
+    params = pack_lm_head(cfg, params, nbits=8)
+    prompts = make_prompts(cfg)
+    L = cfg.n_layers
+    m, tokens = {}, None
+    for paged in (False, True):
+        what = "replicas paged" if paged else "replicas"
+        attn = "K5" if paged else "K3"
+        kw = dict(max_slots=8, max_seq_len=512, cache_dtype=torch.int8,
+                  use_kernel=True, paged=paged, page_size=PS)
+        router = ReplicaRouter(cfg, params, replica_meshes(
+            2, devices=["cuda:0", "cuda:0"]), **kw)
+        comps, launches, prefills, rm = router_run(router, [
+            Request(prompt=p, max_new_tokens=NEW_TOKENS) for p in prompts])
+        owners = [router.owner(i) for i in range(len(prompts))]
+        if owners != [i % 2 for i in range(len(prompts))]:
+            raise AssertionError(f"{what}: requests went to {owners}")
+        steps = {}
+        for rid, e in router.engines.items():
+            if not e.graphs or set(launches[rid]) != {"K1", "K2", attn,
+                                                      "K4", "K10"}:
+                raise AssertionError(f"{what}: replica {rid} launched "
+                                     f"{launches[rid]} (graphs {e.graphs})")
+            steps[rid] = check_replays(
+                e, launches[rid], {"K1": 4 * L, "K2": 1, attn: L},
+                {"K1": 4 * L, "K2": 1, "K10": L}, prefills[rid],
+                f"{what} replica {rid}")
+        check_completions(comps, prompts, cfg, what)
+        for rep in (0, 1):
+            alone = Engine(cfg, params, device=dev, **kw).run(
+                [Request(prompt=p, max_new_tokens=NEW_TOKENS)
+                 for p in prompts[rep::2]])
+            same_tokens(comps[rep::2], [c.tokens for c in alone],
+                        f"{what}: replica {rep} vs a standalone Engine fed "
+                        f"requests {rep}::2")
+        if not paged:
+            tokens = [c.tokens for c in comps]
+        key = what.replace(" ", "_")
+        m.update({f"{key}_{k}": v for k, v in rm.items()})
+        m[f"{key}_steps"] = steps
+        log(f"{what}: 2 replicas on one card, {len(comps)} requests x "
+            f"{NEW_TOKENS} tokens in {rm['run_s']:.3f} s "
+            f"({rm['tokens_per_s']:.1f} tokens/s), prefills "
+            f"{rm['prefill_s']:.3f} s ({rm['prefills']}), the rest "
+            f"{rm['decode_s']:.3f} s ({rm['decode_tokens_per_s']:.1f} decode "
+            f"tokens/s), decode steps by replica {steps}; phase 3's single "
+            f"Engine {single['int4_engine_run_s']:.3f} s "
+            f"({single['int4_engine_tokens_per_s']:.1f} tokens/s), prefills "
+            f"{single['int4_engine_prefill_s']:.3f} s, the rest "
+            f"{single['int4_engine_decode_s']:.3f} s ({card})")
+        del router
+    return m, tokens
+
+
+def word_hashes(cfg, packed):
+    return {n: hashlib.sha256(tr.get_linear_param(packed, n).packed.cpu()
+                              .numpy().tobytes()).hexdigest()
+            for n in tr.layer_names(cfg)}
+
+
+def stats_distance(got, want):
+    """calibrate(mesh=)'s statistics against the single process's: equal
+    counts, and the largest max |diff| / max |ref| of the Hessians and of
+    the means."""
+    h = m = 0.0
+    counts_equal = True
+    for name, ref in want.items():
+        st = got[name]
+        counts_equal = counts_equal and float(st.count) == float(ref.count)
+        h = max(h, ((st.hessian - ref.hessian).abs().max()
+                    / ref.hessian.abs().max()).item())
+        m = max(m, ((st.mean - ref.mean).abs().max()
+                    / ref.mean.abs().max()).item())
+    return counts_equal, h, m
+
+
+def dp_rank(rank, init, cfg, device, tokens, out):
+    """One of phase 13's two ranks (a spawned process on ``device``,
+    gloo, a (data 2, model 1) mesh). Serves its replica of phase 3's
+    model (``local_replica_mesh``, a router that holds only it) on the
+    8 prompts; then, at the quantize phase's bf16 OPT-1.3B (QUANT_DEPTH
+    layers), ``calibrate(mesh=)`` on its row of each batch and
+    ``quantize_model(layer_parallel=True, pack=True, mesh=)``; rank 0 then
+    measures the statistics against the single process's, and the packed
+    model against the single process's batched route on the same
+    statistics and on the single process's. Sends (rank, ok, result or
+    traceback)."""
+    try:
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        init_process_group(backend="gloo", init_method=init, rank=rank,
+                           world_size=2, device=dev)
+        mesh = make_mesh(data=2, model=1, device=dev)
+        sub = local_replica_mesh(1, device=dev)
+        res = {"replica": sub.data_rank}
+        params, _ = random_packed_params(cfg, seed=0, fuse_qkv=True,
+                                         layout="pair", device=dev)
+        params = pack_lm_head(cfg, params, nbits=8)
+        router = ReplicaRouter(cfg, params, [sub],
+                               replica_ids=[sub.data_rank], n_replicas=2,
+                               max_slots=8, max_seq_len=512,
+                               cache_dtype=torch.int8, use_kernel=True)
+        groups = {"data": mesh.data_group, "world": mesh.world,
+                  "model": sub.group}
+        for g in groups.values():
+            g.reset_counts()
+        sync(dev)
+        t0 = time.perf_counter()
+        comps = router.run([Request(prompt=p, max_new_tokens=NEW_TOKENS)
+                            for p in make_prompts(cfg)])
+        sync(dev)
+        res["serve_s"] = time.perf_counter() - t0
+        res["graphs"] = router.engines[sub.data_rank].graphs
+        res["ids"] = [c.request_id for c in comps]
+        res["tokens_equal"] = all(np.array_equal(c.tokens,
+                                                 tokens[c.request_id])
+                                  for c in comps)
+        res["serve_collectives"] = {k: dict(g.counts)
+                                    for k, g in groups.items()}
+        del router, params, comps
+        torch.cuda.empty_cache()
+
+        qcfg = dataclasses.replace(cfg, n_layers=QUANT_DEPTH)
+        qparams = tr.init_params(qcfg, seed=0, device=dev)
+        batches = calibration_batches(
+            synthetic_stream(qcfg.vocab_size, CALIB_SAMPLES * CALIB_LEN,
+                             seed=0), CALIB_SAMPLES, CALIB_LEN, CALIB_BATCH)
+        kernels.reset_launch_counts()
+        mesh.data_group.reset_counts()
+        sync(dev)
+        t0 = time.perf_counter()
+        stats = calibrate(qcfg, qparams, batches, mesh=mesh)
+        sync(dev)
+        res["calibrate_s"] = time.perf_counter() - t0
+        res["calibrate_launches"] = {k: n for k, n in counts().items() if n}
+        res["calibrate_collectives"] = dict(mesh.data_group.counts)
+        chunks = {}
+
+        def record(inner):
+            def batch(params, stats, group, *a):
+                chunks.setdefault(shape_of(group[0]), []).append(len(group))
+                return inner(params, stats, group, *a)
+            return batch
+
+        qc = preset_config("light", nbits=4)
+        kernels.reset_launch_counts()
+        mesh.world.reset_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        sync(dev)
+        t0 = time.perf_counter()
+        with patched(quant_mod, "_solve_layer_batch", record):
+            packed, reports = quantize_model(qcfg, qparams, stats, qc,
+                                             pack=True, layer_parallel=True,
+                                             mesh=mesh)
+        sync(dev)
+        res["quantize_s"] = time.perf_counter() - t0
+        res["quantize_peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+        res["chunks"] = chunks
+        res["quantize_launches"] = {k: n for k, n in counts().items() if n}
+        res["quantize_collectives"] = dict(mesh.world.counts)
+        res["words"] = word_hashes(qcfg, packed)
+        res["errors"] = {r.name: r.error for r in reports}
+        if rank == 0:
+            single = calibrate(qcfg, qparams, batches)
+            (res["stats_counts_equal"], res["stats_hessian_rel"],
+             res["stats_mean_rel"]) = stats_distance(stats, single)
+            for key, st in (("same", stats), ("single", single)):
+                ref, ref_reports = quantize_model(
+                    qcfg, qparams, st, qc, pack=True, layer_parallel=True)
+                rels, shares, total_rel, equal = route_distance(
+                    ref, ref_reports, packed, reports)
+                res[key] = dict(error_rel=rels, codeword_share=shares,
+                                total_error_rel=total_rel, words_equal=equal)
+                del ref
+        out.put((rank, True, res))
+    except Exception:  # sent to the parent, which fails on it
+        out.put((rank, False, traceback.format_exc()))
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def run_data_ranks(cfg, card, tmp, tokens, device="cuda:0"):
+    """Two spawned gloo ranks sharing this card, ``make_mesh(data=2,
+    model=1)``: each serves its replica (tokens equal to the one-process
+    router's for its requests, no collective on the data axis or the
+    world while serving); ``calibrate(mesh=)`` on the quantize phase's
+    defaults (each rank 1 row of each batch of 2; 32 K4 launches a rank,
+    three all-reduces an entry), its counts equal to the single
+    process's and its Hessians and means within DP_STATS_RTOL; then the
+    mesh solve (one all-reduce and four all-gathers a chunk, no kernel):
+    both ranks' packed words equal, bit for bit, and held to the single
+    process's batched route on the same statistics by the quantize
+    phase's gates; against that route on the single process's statistics
+    by error only, within DP_PIPELINE_LAYER_RTOL and DP_PIPELINE_TOTAL_RTOL
+    (the statistics' bf16 differences move codewords). Returns
+    metrics."""
+    ctx = multiprocessing.get_context("spawn")
+    out = ctx.Queue()
+    init = f"file://{tmp}/data2"
+    procs = [ctx.Process(target=dp_rank, args=(r, init, cfg, device,
+                                                tokens, out))
+             for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        while len(got) < len(procs):
+            try:
+                rank, ok, res = out.get(timeout=1.0)
+            except queue.Empty:
+                dead = [p.exitcode for p in procs if p.exitcode]
+                if dead or time.perf_counter() - t0 > DP_TIMEOUT_S:
+                    raise AssertionError(f"data axis: ranks exited ({dead}) "
+                                         f"or timed out without a result")
+                continue
+            if not ok:
+                raise AssertionError(f"data axis rank {rank} failed:\n{res}")
+            got[rank] = res
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    wall = time.perf_counter() - t0
+    n_entries = 6 * QUANT_DEPTH
+    for rank, res in got.items():
+        what = f"data axis rank {rank}"
+        if res["ids"] != list(range(rank, len(tokens), 2)) or not (
+                res["tokens_equal"] and res["graphs"]):
+            raise AssertionError(f"{what}: served {res['ids']}, tokens "
+                                 f"equal {res['tokens_equal']}, graphs "
+                                 f"{res['graphs']}")
+        if any(n for c in res["serve_collectives"].values()
+               for n in c.values()):
+            raise AssertionError(f"{what}: collectives while serving "
+                                 f"{res['serve_collectives']}")
+        want = {"K4": QUANT_DEPTH * CALIB_SAMPLES // CALIB_BATCH}
+        if (res["calibrate_launches"] != want
+                or res["calibrate_collectives"] != {
+                    "all_reduce": 3 * n_entries, "all_gather": 0}):
+            raise AssertionError(f"{what}: calibration launched "
+                                 f"{res['calibrate_launches']}, collectives "
+                                 f"{res['calibrate_collectives']}")
+        n_chunks = sum(len(c) for c in res["chunks"].values())
+        if res["quantize_launches"] or res["quantize_collectives"] != {
+                "all_reduce": n_chunks, "all_gather": 4 * n_chunks} or sum(
+                    map(sum, res["chunks"].values())) != n_entries:
+            raise AssertionError(f"{what}: the mesh solve launched "
+                                 f"{res['quantize_launches']}, collectives "
+                                 f"{res['quantize_collectives']}, chunks "
+                                 f"{res['chunks']}")
+    if got[0]["words"] != got[1]["words"] or got[0]["errors"] != got[1][
+            "errors"]:
+        raise AssertionError("data axis: the ranks' packed words or errors "
+                             "differ")
+    r0 = got[0]
+    m = {f"dp_rank{r}_{k}": v for r, res in got.items()
+         for k, v in res.items() if k not in ("words", "errors", "ids")}
+    m["dp_phase_s"] = wall
+    for r, res in sorted(got.items()):
+        log(f"data axis rank {r} (gloo, two ranks on one card): "
+            f"served replica {res['replica']} (requests {res['ids']}) in "
+            f"{res['serve_s']:.3f} s on the graph route, tokens equal to the "
+            f"one-process router's, collectives while serving "
+            f"{res['serve_collectives']}; calibrate(mesh=) "
+            f"{res['calibrate_s']:.3f} s, launches "
+            f"{res['calibrate_launches']}, collectives "
+            f"{res['calibrate_collectives']}; the mesh solve "
+            f"{res['quantize_s']:.3f} s, chunks " + json.dumps(res["chunks"])
+            + f", collectives {res['quantize_collectives']}, peak "
+            f"{res['quantize_peak_bytes'] / 1e9:.3f} GB allocated ({card})")
+    same, single = r0["same"], r0["single"]
+    log(f"data axis: calibrate(mesh=) vs the single process's statistics: "
+        f"counts equal {r0['stats_counts_equal']}, Hessians within "
+        f"{r0['stats_hessian_rel']:.3g} and means within "
+        f"{r0['stats_mean_rel']:.3g} of their largest entry (<= "
+        f"{DP_STATS_RTOL:g}); the mesh solve: both ranks' packed words "
+        f"equal, bit for bit; against the single process's batched route "
+        f"on the same statistics: summed error {same['total_error_rel']:.3g}"
+        f" apart (<= {BATCHED_TOTAL_RTOL:g}), each layer's within "
+        f"{max(same['error_rel'].values()):.3g} (<= {BATCHED_LAYER_RTOL:g}),"
+        f" codewords equal {min(same['codeword_share'].values()):.5f} at "
+        f"worst (>= {BATCHED_MIN_SHARE:g}), words all equal: "
+        f"{same['words_equal']}; calibrate(mesh=) then the mesh solve "
+        f"against the single process's batched route on its own statistics: "
+        f"summed error {single['total_error_rel']:.3g} apart (<= "
+        f"{DP_PIPELINE_TOTAL_RTOL:g}), each layer's within "
+        f"{max(single['error_rel'].values()):.3g} (<= "
+        f"{DP_PIPELINE_LAYER_RTOL:g}), codewords equal "
+        f"{min(single['codeword_share'].values()):.5f} at worst (measured, "
+        f"not held); the ranks' phase {wall:.1f} s ({card})")
+    log("data axis: calibrate(mesh=) then the mesh solve vs the batched "
+        "route on the single process's statistics by layer [error rel, "
+        "codeword share] "
+        + json.dumps({n: [round(single["error_rel"][n], 7),
+                          round(single["codeword_share"][n], 5)]
+                      for n in single["error_rel"]}))
+    if not (r0["stats_counts_equal"]
+            and r0["stats_hessian_rel"] <= DP_STATS_RTOL
+            and r0["stats_mean_rel"] <= DP_STATS_RTOL):
+        raise AssertionError("data axis: calibrate(mesh=)'s statistics "
+                             "miss the single process's (above)")
+    route_gate("data axis: the mesh solve",
+               "the batched route on the same statistics",
+               same["error_rel"], same["codeword_share"],
+               same["total_error_rel"])
+    route_gate("data axis: calibrate(mesh=) then the mesh solve",
+               "the batched route on the single process's statistics",
+               single["error_rel"], single["codeword_share"],
+               single["total_error_rel"], layer_rtol=DP_PIPELINE_LAYER_RTOL,
+               min_share=0.0, total_rtol=DP_PIPELINE_TOTAL_RTOL)
+    return m
+
+
+def run_data_axis(dev, cfg, card, single):
+    """Phase 13, the data axis: two replicas in this process, then two
+    ranks (replica serving, data-parallel calibration, the mesh solve).
+    Returns its metrics."""
+    start = time.perf_counter()
+    m, tokens = run_replicas(dev, cfg, card, single)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        m.update(run_data_ranks(cfg, card, tmp, tokens))
+    m["phase_s"] = time.perf_counter() - start
+    log(f"data axis: the phase took {m['phase_s']:.1f} s ({card})")
+    return m
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
@@ -3756,6 +4204,8 @@ def main():
     tp, tp_cases = run_tp(dev, cfg, smi)
     for name, cs in tp_cases.items():
         cases[name] = cases[name] + cs   # after the main path's cases
+    torch.cuda.empty_cache()
+    data_axis = run_data_axis(dev, cfg, smi, engine)
 
     rows = []
     for k in (K1, K2, K3, K4, K5, K6, K7, K8, K9, K10, K11, K12, K13, K14,
@@ -3787,7 +4237,7 @@ def main():
     log(f"chip_smoke: {time.perf_counter() - start:.1f} s ({smi})")
     print(json.dumps({"kernels": rows, "engine": engine, "quantize": quant,
                       "cli": cli, "ablation": ablation, "tp": tp,
-                      "benches": benches}))
+                      "data_axis": data_axis, "benches": benches}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

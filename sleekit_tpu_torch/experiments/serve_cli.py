@@ -15,8 +15,17 @@ given.
 the command starts its N ranks itself, one a CUDA device (NCCL; it raises
 with fewer devices than N) or, with ``--device cpu``, N CPU processes
 (gloo); under ``torchrun --nproc-per-node N`` it joins the group torchrun
-made. Rank 0 prints. Replica serving (``--replicas``) comes with
-``serve/router.py``, not ported yet.
+made. Rank 0 prints.
+
+``--replicas R`` serves R independent replicas behind a
+``serve.router.ReplicaRouter`` (request i on replica i % R, no collective
+between replicas): with ``--tp 1`` in this process, one CUDA device a
+replica (it raises with fewer devices than R) or, with ``--device cpu``,
+R replicas on the CPU; with ``--tp T > 1`` over R x T ranks (started as
+for ``--tp``, or torchrun's), each rank serving its replica's shard. The
+completions are gathered to rank 0, which prints them in submission
+order; tokens/s counts every replica's tokens against the slowest
+replica's wall time.
 """
 
 from __future__ import annotations
@@ -59,14 +68,13 @@ def main(argv=None):
                              "must NOT be pre-split (prepare_params_for_tp "
                              "runs here)")
     parser.add_argument("--replicas", type=int, default=1,
-                        help="independent replica engines (not ported yet)")
+                        help="independent replica engines behind a "
+                             "round-robin router (serve.router): "
+                             "replicas x tp devices, no collective "
+                             "between replicas")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu")
     args = parser.parse_args(argv)
-    if args.replicas > 1:
-        raise NotImplementedError(
-            "--replicas is not ported yet (ROADMAP, modules to port: "
-            "serve/router.py)")
     if args.tp == 1:
         return _serve(args, None, print)
     if dist.is_initialized() or "WORLD_SIZE" in os.environ:
@@ -75,31 +83,34 @@ def main(argv=None):
 
 
 def _serve_rank(args, rank=None, init_method=None, out=None):
-    """This process's rank of ``--tp``: joins the group (torchrun's, or
-    the one :func:`_spawn_ranks` starts) and serves. Rank 0 prints, or
-    with ``out`` (a queue) sends its lines and result there."""
-    from sleekit_tpu_torch.parallel.distributed import (
-        global_mesh, init_process_group)
+    """This process's rank of ``--tp`` (times ``--replicas``): joins the
+    group (torchrun's, or the one :func:`_spawn_ranks` starts) and serves
+    its replica's shard. Rank 0 prints, or with ``out`` (a queue) sends
+    its lines and result there."""
+    from sleekit_tpu_torch.parallel.distributed import init_process_group
+    from sleekit_tpu_torch.serve.router import local_replica_mesh
 
+    n = args.tp * args.replicas
     if not dist.is_initialized():
         init_process_group(init_method=init_method, rank=rank,
-                           world_size=None if rank is None else args.tp,
+                           world_size=None if rank is None else n,
                            device=args.device)
-    if dist.get_world_size() != args.tp:
-        raise ValueError(f"--tp {args.tp} over a group of "
-                         f"{dist.get_world_size()} ranks")
-    cpu = torch.device(args.device).type == "cpu"
-    mesh = global_mesh(args.tp, device="cpu" if cpu else None)
+    if dist.get_world_size() != n:
+        raise ValueError(f"--tp {args.tp} --replicas {args.replicas} over "
+                         f"a group of {dist.get_world_size()} ranks")
+    mesh = local_replica_mesh(args.tp, device=(
+        "cpu" if torch.device(args.device).type == "cpu" else None))
+    first = dist.get_rank() == 0
     lines = []
 
     def say(*parts):
-        if mesh.rank == 0 and out is None:
+        if first and out is None:
             print(*parts)
-        elif mesh.rank == 0:
+        elif first:
             lines.append(" ".join(str(p) for p in parts))
 
     res = _serve(args, mesh, say)
-    if out is not None and mesh.rank == 0:
+    if out is not None and first:
         del res["engine"]   # stays with its rank
         out.put((lines, res))
     dist.barrier()
@@ -107,7 +118,8 @@ def _serve_rank(args, rank=None, init_method=None, out=None):
 
 
 def _rank_main(rank, args, init_method, out):
-    torch.set_num_threads(max(1, torch.get_num_threads() // args.tp))
+    torch.set_num_threads(max(1, torch.get_num_threads()
+                              // (args.tp * args.replicas)))
     try:
         _serve_rank(args, rank, init_method, out)
     finally:
@@ -116,20 +128,21 @@ def _rank_main(rank, args, init_method, out):
 
 
 def _spawn_ranks(args):
-    """Start ``--tp`` ranks, one a CUDA device (or CPU processes), and
-    print rank 0's lines; returns its result. Raises once a rank has
-    exited without rank 0's result."""
+    """Start ``--tp`` x ``--replicas`` ranks, one a CUDA device (or CPU
+    processes), and print rank 0's lines; returns its result. Raises once
+    a rank has exited without rank 0's result."""
+    n = args.tp * args.replicas
     if torch.device(args.device).type == "cuda":
         found = torch.cuda.device_count()
-        if found < args.tp:
-            raise RuntimeError(f"--tp {args.tp} needs {args.tp} CUDA "
-                               f"devices; found {found}")
+        if found < n:
+            raise RuntimeError(f"--tp {args.tp} --replicas {args.replicas} "
+                               f"needs {n} CUDA devices; found {found}")
     ctx = multiprocessing.get_context("spawn")
     out = ctx.Queue()
     with tempfile.TemporaryDirectory() as tmp:
         init = f"file://{os.path.join(tmp, 'rendezvous')}"
         procs = [ctx.Process(target=_rank_main, args=(r, args, init, out))
-                 for r in range(args.tp)]
+                 for r in range(n)]
         for p in procs:
             p.start()
         try:
@@ -140,7 +153,7 @@ def _spawn_ranks(args):
                 except queue.Empty:
                     dead = [p.exitcode for p in procs if p.exitcode]
                     if dead:
-                        raise RuntimeError(f"--tp: a rank exited with "
+                        raise RuntimeError(f"a rank exited with "
                                            f"{dead[0]}") from None
         finally:
             for p in procs:
@@ -150,7 +163,7 @@ def _spawn_ranks(args):
                     p.join()
     failed = [p.exitcode for p in procs if p.exitcode]
     if failed:
-        raise RuntimeError(f"--tp: ranks exited with {failed}")
+        raise RuntimeError(f"ranks exited with {failed}")
     for line in lines:
         print(line)
     return res
@@ -185,11 +198,26 @@ def _serve(args, mesh, say):
 
     cache_dtype = {"f32": torch.float32, "bf16": torch.bfloat16,
                    "int8": torch.int8}[args.kv]
-    engine = Engine(cfg, params, max_slots=args.slots,
-                    max_seq_len=args.max_seq_len, seed=args.seed,
-                    cache_dtype=cache_dtype, paged=args.paged,
-                    page_size=args.page_size, total_pages=args.total_pages,
-                    device=dev, mesh=mesh)
+    engine_kw = dict(max_slots=args.slots, max_seq_len=args.max_seq_len,
+                     seed=args.seed, cache_dtype=cache_dtype,
+                     paged=args.paged, page_size=args.page_size,
+                     total_pages=args.total_pages)
+    ranks = mesh is not None and args.replicas > 1
+    if args.replicas > 1:
+        from sleekit_tpu_torch.serve.router import (
+            ReplicaRouter, replica_meshes)
+        if mesh is None:
+            meshes = replica_meshes(args.replicas, 1, devices=(
+                [dev] * args.replicas if dev.type == "cpu" else None))
+            engine = ReplicaRouter(cfg, params, meshes, **engine_kw)
+        else:
+            engine = ReplicaRouter(cfg, params, [mesh],
+                                   replica_ids=[mesh.data_rank],
+                                   n_replicas=args.replicas, **engine_kw)
+        say(f"data axis: {args.replicas} replica engines, request i on "
+            f"replica i % {args.replicas}")
+    else:
+        engine = Engine(cfg, params, device=dev, mesh=mesh, **engine_kw)
 
     def mk_reqs():
         return [Request(prompt=p, max_new_tokens=args.max_new_tokens,
@@ -201,14 +229,18 @@ def _serve(args, mesh, say):
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         dt = time.perf_counter() - t0
+        if ranks:
+            comps, dt = _gather_completions(comps, dt, mesh)
         return comps, dt, sum(len(c.new_tokens) for c in comps)
 
     cold, cold_s, cold_n = timed_run()
     for c in cold:
         say(f"[{c.request_id}] +{len(c.new_tokens)} tokens "
             f"({c.finish_reason}): {c.new_tokens.tolist()}")
+    graphs = all(e.graphs for e in (engine.engines.values()
+                                    if args.replicas > 1 else [engine]))
     what = ("includes the kernels' first launches and the decode graph's "
-            "captures" if engine.graphs else "the first run")
+            "captures" if graphs else "the first run")
     say(f"{cold_n} tokens in {cold_s:.2f}s = {cold_n / cold_s:.1f} "
         f"tokens/s (cold: {what})")
     # Steady state: the same requests again, every decode graph captured.
@@ -218,6 +250,20 @@ def _serve(args, mesh, say):
     return dict(engine=engine, cold=cold, steady=steady, cold_s=cold_s,
                 steady_s=steady_s, cold_tokens_per_s=cold_n / cold_s,
                 steady_tokens_per_s=steady_n / steady_s)
+
+
+def _gather_completions(comps, seconds, mesh):
+    """Every replica's completions, in submission order, and the slowest
+    replica's wall time, on world rank 0 (one ``gather_object`` over the
+    world; each replica's completions from its model rank 0); the other
+    ranks keep their own."""
+    every = [None] * dist.get_world_size() if dist.get_rank() == 0 else None
+    dist.gather_object((mesh.rank, comps, seconds), every, dst=0)
+    if every is None:
+        return comps, seconds
+    merged = [c for rank, cs, _ in every if rank == 0 for c in cs]
+    return (sorted(merged, key=lambda c: c.request_id),
+            max(s for _, _, s in every))
 
 
 if __name__ == "__main__":

@@ -71,6 +71,24 @@ def update_stats(stats: LayerStats, x: torch.Tensor) -> LayerStats:
     return LayerStats(mean=mean, hessian=hessian, count=new_count)
 
 
+def finalize_psum(stats: LayerStats, group) -> LayerStats:
+    """Merge the ranks' partial statistics over a data axis: each rank
+    accumulated over its own rows, and the global statistics are their
+    count-weighted mean. ``group``: the axis's
+    :class:`~sleekit_tpu_torch.parallel.distributed.TPGroup` (three
+    all-reduces: the count, then ``mean * w`` and ``hessian * w`` with
+    ``w = count / total``, 0 where the total is 0); None returns ``stats``
+    as they are."""
+    if group is None:
+        return stats
+    total = group.all_reduce(stats.count.clone())
+    w = torch.where(total > 0, stats.count / torch.clamp(total, min=1.0),
+                    torch.zeros_like(total))
+    mean = group.all_reduce(stats.mean * w)
+    hessian = group.all_reduce(stats.hessian * w)
+    return LayerStats(mean=mean, hessian=hessian, count=total)
+
+
 # ---- input canonicalization ------------------------------------------------
 
 

@@ -3,13 +3,15 @@
 
 :func:`calibrate` streams token batches through
 :func:`~sleekit_tpu_torch.models.transformer.calibrate_step` (the
-statistics accumulate on the model's device), :func:`calibrate_spill`
-sweeps layer by layer and keeps the statistics on the host;
-:func:`quantize_model` runs
+statistics accumulate on the model's device; over a mesh's data axis each
+rank takes its rows of every batch and the ranks' statistics are merged),
+:func:`calibrate_spill` sweeps layer by layer and keeps the statistics on
+the host; :func:`quantize_model` runs
 :func:`~sleekit_tpu_torch.pipeline.quantize_layer` for every linear and
 stores either the dequantized f32 weights (reference semantics) or the
 packed serving format; with ``layer_parallel`` the linears of one shape
-are solved as stacks, in chunks that fit the device's memory.
+are solved as stacks, in chunks that fit the device's memory, and over a
+mesh each rank solves its block of every chunk.
 :func:`pack_lm_head` packs the unembed head.
 """
 
@@ -17,6 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import socket
 import time
 from typing import Any, Dict, Iterable, List, Optional, Tuple
 
@@ -24,7 +27,7 @@ import numpy as np
 import torch
 
 from sleekit_tpu_torch.codebooks import UniformCodebook
-from sleekit_tpu_torch.hessian import LayerStats, init_stats
+from sleekit_tpu_torch.hessian import LayerStats, finalize_psum, init_stats
 from sleekit_tpu_torch.models.transformer import (
     TransformerConfig, _block, _embed, _slopes, block_linear_names,
     calibrate_step, get_linear_param, init_calibration_stats, layer_names,
@@ -55,17 +58,19 @@ def hbm_limit(device) -> float:
     return float(torch.cuda.mem_get_info(device)[1])
 
 
-def chunk_size(dev, left: int, k: int, lane_bytes: float = 0.0) -> int:
+def chunk_size(dev, left: int, k: int, lane_bytes: float = 0.0,
+               share: int = 1) -> int:
     """How many of the ``left`` same-shape solves at input dimension ``k``
     fit the device's memory at once (at least one): its budget
-    (:func:`hbm_limit`) less what PyTorch holds there now, over a lane's
+    (:func:`hbm_limit`) over the ``share`` processes that use the device,
+    less what PyTorch holds there now in this one, over a lane's
     workspace estimate plus ``lane_bytes`` (its statistics, if they come
     from another device). Without a budget (the CPU, no
     ``QUANT_HBM_LIMIT``) all of them."""
     if dev.type != "cuda" and not os.environ.get("QUANT_HBM_LIMIT"):
         return left
     used = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
-    free = hbm_limit(dev) - used
+    free = hbm_limit(dev) / share - used
     return max(1, min(left, int(free // (solve_workspace(k) + lane_bytes))))
 
 
@@ -77,18 +82,41 @@ class LayerReport:
 
 
 def calibrate(cfg: TransformerConfig, params, batches: Iterable,
-              stats: Optional[Dict[str, LayerStats]] = None
+              stats: Optional[Dict[str, LayerStats]] = None, mesh=None
               ) -> Dict[str, LayerStats]:
     """Accumulate every linear's statistics over calibration batches of
     (B, T) tokens, on the model's device (through the kernels there if it
-    is CUDA)."""
+    is CUDA).
+
+    With a ``mesh`` (``parallel.mesh.make_mesh``) of ``data > 1`` ranks,
+    each holding the whole model, rank d takes the d-th contiguous block
+    of every batch's rows (B must divide by ``data``), and the ranks'
+    statistics are merged over the data axis at the end
+    (:func:`~sleekit_tpu_torch.hessian.finalize_psum`): every rank returns
+    the statistics of all the rows. Given ``stats`` are this rank's
+    partial ones."""
     dev = params["embed"]["tokens"].device
+    data = 1 if mesh is None else mesh.data
+    if mesh is not None and mesh.model > 1:
+        raise NotImplementedError(
+            "calibrate over a mesh's model axis (statistics from a "
+            "tensor-parallel forward) is not ported (ROADMAP, modules to "
+            "port: tensor-parallel calibration)")
     if stats is None:
         stats = init_calibration_stats(cfg, dev)
     for tokens in batches:
+        tokens = np.asarray(tokens)
+        if tokens.shape[0] % data:
+            raise ValueError(f"a batch of {tokens.shape[0]} rows does not "
+                             f"split over data={data} ranks")
+        rows = tokens.shape[0] // data
+        if data > 1:
+            tokens = tokens[mesh.data_rank * rows:(mesh.data_rank + 1) * rows]
         stats = calibrate_step(cfg, params,
-                               torch.as_tensor(np.asarray(tokens), device=dev),
-                               stats)
+                               torch.as_tensor(tokens, device=dev), stats)
+    if data > 1:
+        stats = {name: finalize_psum(st, mesh.data_group)
+                 for name, st in stats.items()}
     return stats
 
 
@@ -223,11 +251,18 @@ def quantize_model(cfg: TransformerConfig, params,
     chunks that fit the device's memory (:func:`chunk_size`), the
     statistics copied to the device a chunk at a time; each report's
     ``wall_s`` is its chunk's wall over the chunk's size. A per-layer
-    (lloyd) codebook stays serial, as in the JAX package."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh solves are not ported yet (ROADMAP, modules to port: "
-            "parallel/)")
+    (lloyd) codebook stays serial, as in the JAX package.
+
+    ``mesh`` (``parallel.mesh.make_mesh``, every rank holding the whole
+    model and the same statistics) is read on the ``layer_parallel``
+    route only, as in the JAX package; the serial route ignores it. Each
+    chunk is padded to a multiple of the world's ranks by repeating its
+    layers, rank r solves its r-th block and the solutions are
+    all-gathered over ``mesh.world``: every rank returns the whole params
+    and reports. The ranks agree on each chunk (one all-reduce: the
+    smallest over the world of what fits each rank's share of its
+    device), and only world rank 0 writes ``resume_dir``'s artifacts,
+    which every rank reads."""
     if resume_dir is not None:
         os.makedirs(resume_dir, exist_ok=True)
     params = _copy_tree(params)
@@ -251,8 +286,8 @@ def quantize_model(cfg: TransformerConfig, params,
             print(f"  {name:24s} err={reports[name].error:12.5g} "
                   f"{wall:6.2f}s", flush=True)
 
-    def solved(name, out, wall):
-        if resume_dir is not None:
+    def solved(name, out, wall, write=True):
+        if resume_dir is not None and write:
             _save_layer_artifact(resume_dir, name, *out)
         finish(name, out, wall)
 
@@ -270,6 +305,9 @@ def quantize_model(cfg: TransformerConfig, params,
     pending.sort(key=lambda n: (stats[n].hessian.numel(), n))
 
     if layer_parallel and not per_layer_cb:
+        world = None if mesh is None else mesh.world
+        n_ranks = 1 if world is None else world.size
+        share = 1 if n_ranks == 1 else _device_share(mesh.device, world)
         groups: Dict[Tuple[int, int], List[str]] = {}
         for name in pending:
             kernel = get_linear_param(params, name)["kernel"]    # (in, out)
@@ -284,18 +322,28 @@ def quantize_model(cfg: TransformerConfig, params,
                 st = stats[group[0]]
                 lane_bytes = (0.0 if st.hessian.device == dev else
                               (st.hessian.numel() + st.mean.numel()) * 4.0)
-                chunk = group[:chunk_size(dev, len(group), k, lane_bytes)]
+                per_rank = chunk_size(dev, -(-len(group) // n_ranks), k,
+                                      lane_bytes, share)
+                if n_ranks > 1:
+                    per_rank = int(world.all_reduce(
+                        torch.tensor([per_rank], device=mesh.device),
+                        op=torch.distributed.ReduceOp.MIN).item())
+                chunk = group[:per_rank * n_ranks]
                 group = group[len(chunk):]
                 outs = _solve_with_hbm_retry(
                     lambda chunk=chunk: _solve_layer_batch(
                         params, stats, chunk, qconfig,
-                        cb if explicit_cb else None))
+                        cb if explicit_cb else None, mesh))
                 wall = (time.perf_counter() - t0) / len(chunk)
                 for name, out in zip(chunk, outs):
-                    solved(name, out, wall)
+                    solved(name, out, wall, write=world is None
+                           or world.rank == 0)
                 # The chunk's stacks, before the next chunk's free memory
                 # is read.
                 del outs, out
+        if n_ranks > 1 and resume_dir is not None:
+            # Rank 0's artifacts are written before any rank reads them.
+            world.barrier()
         pending = []
 
     prefetched: Dict[str, LayerStats] = {}
@@ -328,27 +376,59 @@ def sync_device(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
-def _solve_layer_batch(params, stats, group: List[str], qconfig: QuantConfig,
-                       codebook):
+def _device_share(dev: torch.device, world) -> int:
+    """How many ranks of ``world`` use ``dev`` on this host (one
+    all-gather of (host, device) names): their memory budgets divide
+    it."""
+    mine = (socket.gethostname(), str(dev))
+    every = [None] * world.size
+    torch.distributed.all_gather_object(every, mine, group=world.pg)
+    return sum(e == mine for e in every)
+
+
+def _solve_stack(params, stats, names: List[str], qconfig: QuantConfig,
+                 codebook):
     """One ``quantize_layer`` over the stacked weights, Hessians and means
-    of ``group`` (same-shape linears), on the weights' device: each
-    layer's statistics are copied into the stack from wherever they live.
-    Returns one (Q, bias_delta, scale, err) a layer, in ``group``'s
-    order."""
-    kernels = [get_linear_param(params, n)["kernel"] for n in group]
+    of ``names`` (same-shape linears), on the weights' device: each
+    layer's statistics are copied into the stack from wherever they live
+    (over a mesh, the counterpart of ``stats_specs``: every rank holds all
+    the statistics and copies its block's). Returns the stacked (Q,
+    bias_delta, scale, err)."""
+    kernels = [get_linear_param(params, n)["kernel"] for n in names]
     dev = kernels[0].device
     n_in, n_out = kernels[0].shape
-    L = len(group)
+    L = len(names)
     Ws = torch.empty((L, n_out, n_in), device=dev)
     Hs = torch.empty((L, n_in, n_in), device=dev)
     mus = torch.empty((L, n_in), device=dev)
-    for i, (name, kernel) in enumerate(zip(group, kernels)):
+    for i, (name, kernel) in enumerate(zip(names, kernels)):
         Ws[i].copy_(kernel.T)
         Hs[i].copy_(stats[name].hessian, non_blocking=True)
         mus[i].copy_(stats[name].mean, non_blocking=True)
-    Q, bd, sc, err = quantize_layer(Ws, Hs, mus, qconfig, codebook)
+    out = quantize_layer(Ws, Hs, mus, qconfig, codebook)
     del Ws, Hs, mus
     sync_device(dev)
+    return out
+
+
+def _solve_layer_batch(params, stats, group: List[str], qconfig: QuantConfig,
+                       codebook, mesh=None):
+    """The solutions of ``group`` (same-shape linears), one (Q,
+    bias_delta, scale, err) a layer in ``group``'s order: one stacked
+    solve on this device, or over a mesh of several ranks, this rank's
+    block of the group padded to a multiple of the ranks (layer i % L),
+    and the blocks' solutions all-gathered over ``mesh.world``."""
+    world = None if mesh is None else mesh.world
+    L = len(group)
+    if world is None or world.size == 1:
+        out = _solve_stack(params, stats, group, qconfig, codebook)
+    else:
+        padded = [group[i % L] for i in range(L + (-L) % world.size)]
+        per = len(padded) // world.size
+        block = padded[world.rank * per:(world.rank + 1) * per]
+        out = [world.all_gather(x, dim=0)[:L] for x in _solve_stack(
+            params, stats, block, qconfig, codebook)]
+    Q, bd, sc, err = out
     return [(Q[i], bd[i], sc[i], err[i]) for i in range(L)]
 
 

@@ -5,9 +5,11 @@ The JAX package starts one ``jax.distributed`` runtime a host and lets
 GSPMD and ``shard_map`` insert its collectives. Here each rank is a
 process of one ``torch.distributed`` group: :func:`init_process_group`
 starts it (from ``torchrun``'s environment, or from an explicit rank,
-world size and init method), :func:`global_mesh` gives the model-axis
-mesh over it, and :class:`TPGroup` issues the serving step's collectives
-and counts them, the counterpart of ``count_collectives_in_jaxpr``.
+world size and init method), :func:`global_mesh` gives the ('data',
+'model') mesh over it, and :class:`TPGroup` issues the collectives of one
+axis of that mesh (the serving step's, the merge of calibration
+statistics, the gather of the mesh solves) over its sub-group of the
+world and counts them, the counterpart of ``count_collectives_in_jaxpr``.
 NCCL on the card; gloo on the CPU, and for ranks that share one card.
 """
 
@@ -15,7 +17,7 @@ from __future__ import annotations
 
 import datetime
 import os
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -58,8 +60,8 @@ def init_process_group(backend: Optional[str] = None,
 
 
 def global_mesh(model_parallel: int = 1, device=None):
-    """The ('data', 'model') mesh over every rank of the group, all on the
-    model axis (the data axis comes with ``serve/router.py``)."""
+    """The ('data', 'model') mesh over every rank of the group: model axis
+    ``model_parallel``, data axis the ranks over it."""
     from sleekit_tpu_torch.parallel.mesh import make_mesh
 
     n = dist.get_world_size() if dist.is_initialized() else 1
@@ -76,14 +78,27 @@ _all_gather_single = getattr(dist, "all_gather_single", None) or (
 
 
 class TPGroup:
-    """The serving step's collectives over the ``torch.distributed``
-    world, each counted in :attr:`counts` when it is
-    issued: a call made while a CUDA graph captures is counted by the
-    graph's owner at each replay (``models/eval.py`` ``DecodeGraph``)."""
+    """The collectives of one mesh axis over ``ranks`` of the
+    ``torch.distributed`` world (all of them by default), each counted in
+    :attr:`counts` when it is issued: a call made while a CUDA graph
+    captures is counted by the graph's owner at each replay
+    (``models/eval.py`` ``DecodeGraph``). ``rank`` and ``size`` are this
+    process's place in the group and the group's size.
 
-    def __init__(self):
-        self.rank = dist.get_rank()
-        self.size = dist.get_world_size()
+    A group over part of the world is made with ``dist.new_group``, which
+    every rank of the world must call for every group, in the same order,
+    members or not: :func:`~sleekit_tpu_torch.parallel.mesh.make_mesh`
+    does."""
+
+    def __init__(self, ranks: Optional[Sequence[int]] = None):
+        world = dist.get_world_size()
+        self.ranks = list(range(world) if ranks is None else ranks)
+        # The world's own group where the ranks are all of it.
+        self.pg = (None if self.ranks == list(range(world))
+                   else dist.new_group(self.ranks))
+        me = dist.get_rank()
+        self.rank = self.ranks.index(me) if me in self.ranks else -1
+        self.size = len(self.ranks)
         self.backend = dist.get_backend()
         self.counts: Dict[str, int] = {"all_reduce": 0, "all_gather": 0}
 
@@ -98,15 +113,17 @@ class TPGroup:
         # here, explicitly, so that no gloo build's CUDA support is assumed.
         return self.backend == "gloo" and t.is_cuda
 
-    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
-        """The sum over the ranks of ``t``, in place; returns ``t``."""
+    def all_reduce(self, t: torch.Tensor,
+                   op=dist.ReduceOp.SUM) -> torch.Tensor:
+        """The reduction (by default the sum) over the ranks of ``t``, in
+        place; returns ``t``."""
         self.counts["all_reduce"] += 1
         if self._staged(t):
             host = t.cpu()
-            dist.all_reduce(host)
+            dist.all_reduce(host, op=op, group=self.pg)
             t.copy_(host)
         else:
-            dist.all_reduce(t)
+            dist.all_reduce(t, op=op, group=self.pg)
         return t
 
     def all_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
@@ -115,9 +132,13 @@ class TPGroup:
         src = t.cpu() if self._staged(t) else t.contiguous()
         out = torch.empty((self.size * src.shape[0], *src.shape[1:]),
                           dtype=src.dtype, device=src.device)
-        _all_gather_single(out, src)
+        _all_gather_single(out, src, group=self.pg)
         out = torch.cat(out.chunk(self.size), dim=dim)
         return out.to(t.device)
+
+    def barrier(self) -> None:
+        """Wait for every rank of the group (moves no data; not counted)."""
+        dist.barrier(group=self.pg)
 
     def reset_counts(self) -> None:
         for k in self.counts:

@@ -4,9 +4,16 @@ of ``sleekit_tpu/parallel/mesh.py``).
 The JAX package lays one ``Mesh`` over its devices, annotates each leaf of
 the param and cache trees with a ``PartitionSpec`` and lets ``shard_map``
 hand every device its block. Here a process is one rank of a
-``torch.distributed`` group: :class:`Mesh` is that rank's view (its rank,
-the group, its device), and :func:`shard_params` / :func:`shard_kv_cache`
-cut the rank's block out of a full tree, by the same rules:
+``torch.distributed`` world of ``data * model`` ranks, laid out row-major
+as ``mesh_utils.create_device_mesh((data, model))`` lays out devices
+(rank = d * model + m): :class:`Mesh` is that rank's view (its place on
+both axes, a group for each axis and one over the world, its device).
+The data axis holds replicas (``serve.router``), the rows of a
+calibration batch (``models/quantize.py`` ``calibrate``) and, with the
+model axis, the layers of a mesh solve (statistics replicated: every rank
+holds them all, the counterpart of ``stats_specs``).
+:func:`shard_params` / :func:`shard_kv_cache` cut the rank's block of the
+model axis out of a full tree, by the same rules:
 
 * column-parallel linears (q, k, v, fc1, gate, up): output columns;
 * row-parallel linears (o, fc2, down): input rows, the packed ones as
@@ -16,9 +23,6 @@ cut the rank's block out of a full tree, by the same rules:
 * embeddings and norms replicated;
 * the KV cache and the page pool over the kv-head axis; the page table
   replicated.
-
-Only the model axis is ported: the data axis (replicas behind a router)
-comes with ``serve/router.py``.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import dataclasses
 from typing import Any, Optional
 
 import torch
+import torch.distributed as dist
 
 from sleekit_tpu_torch.device import resolve_device
 from sleekit_tpu_torch.ops.pack import (
@@ -42,41 +47,73 @@ _ROW_PARALLEL = ("o", "fc2", "down")
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """One rank's view of a ('data', 'model') mesh of one replica:
-    ``model`` ranks of ``group`` (a
-    :class:`~sleekit_tpu_torch.parallel.distributed.TPGroup`, or None for
-    a mesh of one rank without a process group), this process's ``rank``
-    among them, and the device its shard lives on."""
+    """One rank's view of a ('data', 'model') mesh: ``model`` ranks of
+    ``group`` (a
+    :class:`~sleekit_tpu_torch.parallel.distributed.TPGroup` over the
+    model axis, or None for a mesh of one rank without a process group),
+    this process's ``rank`` among them, and the device its shard lives on;
+    ``data`` replicas, this rank's replica ``data_rank``, ``data_group``
+    (the ranks of its model index on every replica; None at ``data ==
+    1``) and ``world`` (a group over all ``data * model`` ranks; None
+    without a process group). A replica's sub-mesh
+    (``serve.router.local_replica_mesh``) has ``data`` 1, keeps
+    ``data_rank`` as its replica id, and its ``world`` is its ``group``."""
 
     rank: int
     model: int
     device: torch.device
     group: Any = None
+    data: int = 1
+    data_rank: int = 0
+    data_group: Any = None
+    world: Any = None
 
 
 def make_mesh(data: int = 1, model: int = 1, device=None) -> Mesh:
     """This process's rank of a ('data', 'model') mesh over the initialized
-    ``torch.distributed`` group (``distributed.init_process_group``), or
-    of a one-rank mesh when there is none and ``model == 1``. ``device``:
+    ``torch.distributed`` world (``distributed.init_process_group``) of
+    ``data * model`` ranks, row-major (rank = d * model + m), or of a
+    one-rank mesh when there is none and ``data == model == 1``. Every
+    rank of the world makes every group, in the same order. ``device``:
     the rank's device; by default the CUDA device of its local rank
     (``LOCAL_RANK`` modulo the devices present), raising where there is
     none; pass ``"cpu"`` for the CPU (gloo)."""
-    if data != 1:
-        raise NotImplementedError(
-            "the data axis (replicas, each an Engine on its own devices) is "
-            "not ported yet (ROADMAP, modules to port: parallel/ and "
-            "serve/router.py, its second PR: the router)")
-    group = TPGroup() if torch.distributed.is_initialized() else None
-    size = group.size if group is not None else 1
-    if model != size:
-        raise ValueError(f"model={model} needs a group of {model} ranks "
-                         f"(found {size}); start the ranks with "
-                         "distributed.init_process_group")
-    rank = group.rank if group is not None else 0
+    size = dist.get_world_size() if dist.is_initialized() else 1
+    if data * model != size:
+        raise ValueError(f"data={data} x model={model} needs a group of "
+                         f"{data * model} ranks (found {size}); start the "
+                         "ranks with distributed.init_process_group")
     dev = resolve_device("cuda" if device is None else device)
     if device is None:
         dev = torch.device("cuda", local_rank() % torch.cuda.device_count())
-    return Mesh(rank=rank, model=model, device=dev, group=group)
+    if not dist.is_initialized():
+        return Mesh(rank=0, model=1, device=dev)
+    me = dist.get_rank()
+    d, m = divmod(me, model)
+    model_groups = [TPGroup(range(r * model, (r + 1) * model))
+                    for r in range(data)]
+    data_groups = ([TPGroup(range(c, size, model)) for c in range(model)]
+                   if data > 1 else None)
+    group = model_groups[d]
+    world = group if data == 1 else TPGroup()
+    return Mesh(rank=m, model=model, device=dev, group=group, data=data,
+                data_rank=d,
+                data_group=None if data_groups is None else data_groups[m],
+                world=world)
+
+
+def params_to_device(tree, device):
+    """A param tree (dicts, lists, PackedLinears, tensors) with every
+    tensor on ``device``; a tensor already there is shared, not copied."""
+    if isinstance(tree, PackedLinear):
+        return dataclasses.replace(
+            tree, **{k: params_to_device(getattr(tree, k), device)
+                     for k in ("packed", "scale", "lut", "bias")})
+    if isinstance(tree, dict):
+        return {k: params_to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [params_to_device(v, device) for v in tree]
+    return None if tree is None else tree.to(device)
 
 
 def prepare_params_for_tp(cfg, params, n: int):
@@ -134,29 +171,23 @@ def _shard_linear(name: str, p, mesh: Mesh, device):
     return out
 
 
-def _replicate(tree, device):
-    if isinstance(tree, dict):
-        return {k: _replicate(v, device) for k, v in tree.items()}
-    return tree.to(device)
-
-
 def shard_params(cfg, params, mesh: Mesh):
     """This rank's block of a full (``prepare_params_for_tp``) param tree,
     on the mesh's device, with each PackedLinear's static fields made local
     (the counterpart of ``shard_pytree`` over ``param_specs`` and of
     ``tp_decode._localize_packed``, which are one step here)."""
     dev = mesh.device
-    out = {"embed": _replicate(params["embed"], dev)}
+    out = {"embed": params_to_device(params["embed"], dev)}
     out["layers"] = [{
-        "ln1": _replicate(layer["ln1"], dev),
-        "ln2": _replicate(layer["ln2"], dev),
+        "ln1": params_to_device(layer["ln1"], dev),
+        "ln2": params_to_device(layer["ln2"], dev),
         "attn": {k: _shard_linear(k, v, mesh, dev)
                  for k, v in layer["attn"].items()},
         "mlp": {k: _shard_linear(k, v, mesh, dev)
                 for k, v in layer["mlp"].items()},
     } for layer in params["layers"]]
     if "final_ln" in params:
-        out["final_ln"] = _replicate(params["final_ln"], dev)
+        out["final_ln"] = params_to_device(params["final_ln"], dev)
     if "lm_head" in params:
         # Column-parallel over the vocab; the step all-gathers the logits.
         out["lm_head"] = _shard_linear("q", params["lm_head"], mesh, dev)

@@ -1,5 +1,6 @@
 """Continuous-batching serving engine (port of
-``sleekit_tpu/serve/engine.py``), single replica.
+``sleekit_tpu/serve/engine.py``): one replica, on one device or over the
+model axis of a mesh; replicas behind a router are ``serve.router``'s.
 
 A fixed pool of ``max_slots`` sequences shares one stacked KV cache that
 prefill and decode update IN PLACE: in slot mode a (L, max_slots, KV,
@@ -122,7 +123,10 @@ class Engine:
     rank's shard of ``params``, which must be in the tensor-parallel
     format (``mesh.prepare_params_for_tp``), on the mesh's device. Over
     gloo the decode steps run eagerly: its collectives cannot be captured.
-    At ``model == 1`` the Engine is the single-device one.
+    At ``model == 1`` the Engine is the single-device one. A mesh with a
+    data axis (``data > 1``) is refused: each replica is an Engine of its
+    own behind a ``serve.router.ReplicaRouter`` (a port mesh always spans
+    processes, where the JAX Engine refuses ``data > 1`` too).
     """
 
     def __init__(self, cfg: TransformerConfig, params, max_slots: int = 8,
@@ -132,6 +136,11 @@ class Engine:
                  mesh=None, device=None,
                  use_kernel: Optional[bool] = None,
                  graphs: Optional[bool] = None):
+        if mesh is not None and mesh.data > 1:
+            raise ValueError(
+                f"Engine serves one replica; a mesh of data={mesh.data} "
+                "replicas is served by serve.router.ReplicaRouter, one "
+                "Engine a replica (router.local_replica_mesh)")
         if mesh is not None and device is not None and torch.device(
                 device) not in (mesh.device, torch.device(mesh.device.type)):
             raise ValueError(f"device {device} is not the mesh's "

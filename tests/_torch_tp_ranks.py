@@ -1,17 +1,20 @@
-"""Ranks of a gloo process group for the port's tensor-parallel tests.
+"""Ranks of a gloo process group for the port's tensor-parallel and
+data-parallel tests.
 
 :class:`Ranks` starts ``n`` spawned processes that join one gloo group
 (rendezvous through a file, so concurrent test processes never share a
-port) and serve jobs: each job is a function of this module that every
-rank runs on its own shard, returning numpy values. One group serves a
-whole test module, since a process takes seconds to start. This module
-imports torch and the port only: a spawned rank imports it, and never
-JAX or the tests' conftest.
+port), lay a ('data', 'model') mesh over it (``data`` replicas of ``n //
+data`` ranks) and serve jobs: each job is a function of this module that
+every rank runs on its own shard, returning numpy values. One group
+serves a whole test module, since a process takes seconds to start. This
+module imports torch and the port only: a spawned rank imports it, and
+never JAX or the tests' conftest.
 """
 
 from __future__ import annotations
 
 import multiprocessing
+import os
 import queue
 import traceback
 
@@ -103,17 +106,165 @@ def engine_tokens(mesh, cfg, params, specs, engine_kw, split=False):
     return [c.new_tokens for c in comps]
 
 
+def _collectives(record):
+    """Patches ``torch.distributed``'s all-reduce and the port's all-gather
+    to append each call's (name, group's ranks) to ``record``; returns
+    the undo function."""
+    import torch.distributed as dist
+    from sleekit_tpu_torch.parallel import distributed as pd
+
+    real = {"all_reduce": dist.all_reduce, "all_gather": pd._all_gather_single}
+
+    def recording(name):
+        def call(*a, group=None, **kw):
+            ranks = (list(range(dist.get_world_size())) if group is None
+                     else dist.get_process_group_ranks(group))
+            record.append((name, ranks))
+            return real[name](*a, group=group, **kw)
+        return call
+
+    dist.all_reduce = recording("all_reduce")
+    pd._all_gather_single = recording("all_gather")
+
+    def undo():
+        dist.all_reduce = real["all_reduce"]
+        pd._all_gather_single = real["all_gather"]
+    return undo
+
+
+def router_tokens(mesh, cfg, params, specs, engine_kw, engine_on_mesh=False):
+    """This rank's replica, from ``local_replica_mesh``, behind a
+    ``ReplicaRouter`` that holds only it (``n_replicas``: the mesh's
+    data axis), serving every request of ``specs``: its completions'
+    ids and new tokens, the owner of each request, its replica id, every
+    collective issued while serving (name, group's ranks) and the replica
+    model group's counts. With ``engine_on_mesh``, the message of
+    ``Engine(mesh=mesh)`` over the whole (data > 1) mesh, which must
+    raise."""
+    from sleekit_tpu_torch.convert import params_from_numpy
+    from sleekit_tpu_torch.parallel.mesh import prepare_params_for_tp
+    from sleekit_tpu_torch.serve.engine import Engine, Request
+    from sleekit_tpu_torch.serve.router import (
+        ReplicaRouter, local_replica_mesh)
+
+    full = prepare_params_for_tp(
+        cfg, params_from_numpy(cfg, params, device="cpu"), mesh.model)
+    if engine_on_mesh:
+        try:
+            Engine(cfg, full, mesh=mesh, **engine_kw)
+        except ValueError as e:
+            return str(e)
+        raise AssertionError("Engine(mesh=) with data > 1 served")
+    sub = local_replica_mesh(mesh.model, device="cpu")
+    router = ReplicaRouter(cfg, full, [sub], replica_ids=[sub.data_rank],
+                           n_replicas=mesh.data, **engine_kw)
+    record = []
+    undo = _collectives(record)
+    try:
+        comps = router.run([Request(**spec) for spec in specs])
+    finally:
+        undo()
+    return _numpy(dict(
+        ids=[c.request_id for c in comps],
+        tokens=[c.new_tokens for c in comps],
+        owners=[router.owner(i) for i in range(len(specs))],
+        replica=sub.data_rank, model_ranks=sub.group.ranks,
+        data_ranks=mesh.data_group.ranks, collectives=record,
+        counts=dict(sub.group.counts)))
+
+
+def calibrate_job(mesh, cfg, params, batches):
+    """``calibrate(mesh=mesh)`` on every rank's rows of ``batches``: the
+    merged statistics and the data group's collectives."""
+    from sleekit_tpu_torch.convert import params_from_numpy
+    from sleekit_tpu_torch.models.quantize import calibrate
+
+    tparams = params_from_numpy(cfg, params, device="cpu")
+    mesh.data_group.reset_counts()
+    stats = calibrate(cfg, tparams, batches, mesh=mesh)
+    return _numpy(dict(stats={k: dict(mean=v.mean, hessian=v.hessian,
+                                      count=v.count)
+                              for k, v in stats.items()},
+                       counts=dict(mesh.data_group.counts)))
+
+
+def finalize_job(mesh, shards, n):
+    """This rank's partial statistics over its shards of ``shards``
+    (``shards[data_rank::data]``, ``update_stats`` shard by shard),
+    merged by ``finalize_psum`` over the data group."""
+    from sleekit_tpu_torch.hessian import (
+        finalize_psum, init_stats, update_stats)
+
+    st = init_stats(n, device="cpu")
+    mesh.data_group.reset_counts()
+    for x in shards[mesh.data_rank::mesh.data]:
+        st = update_stats(st, torch.from_numpy(x))
+    got = finalize_psum(st, mesh.data_group)
+    return _numpy(dict(mean=got.mean, hessian=got.hessian, count=got.count,
+                       counts=dict(mesh.data_group.counts)))
+
+
+def quantize_job(mesh, cfg, params, stats, qconfig, resume_dir=None,
+                 budgets=None, workspace=None, pack=False):
+    """``quantize_model(layer_parallel=True, mesh=mesh)`` on the whole
+    model and statistics (numpy), on every rank: each linear's kernel
+    (packed words with ``pack``), the reports' errors, the chunks each
+    shape group was cut into, and the world's collectives. ``budgets``
+    (bytes, one a rank) and ``workspace`` (bytes a lane) force the chunk
+    plan as ``QUANT_HBM_LIMIT`` and a patched ``solve_workspace`` would,
+    with another budget on each rank."""
+    from sleekit_tpu_torch.convert import params_from_numpy
+    from sleekit_tpu_torch.hessian import stats_from_numpy
+    from sleekit_tpu_torch.models import quantize as tq
+    from sleekit_tpu_torch.models.transformer import (
+        get_linear_param, layer_names)
+    from sleekit_tpu_torch.pipeline import QuantConfig
+
+    tparams = params_from_numpy(cfg, params, device="cpu")
+    tstats = {k: stats_from_numpy(v["mean"], v["hessian"], v["count"],
+                                  device="cpu") for k, v in stats.items()}
+    chunks = []
+    real_batch, real = tq._solve_layer_batch, (tq.hbm_limit,
+                                                tq.solve_workspace)
+
+    def batch(params, stats, group, *a):
+        chunks.append(len(group))
+        return real_batch(params, stats, group, *a)
+
+    tq._solve_layer_batch = batch
+    if budgets is not None:
+        os.environ["QUANT_HBM_LIMIT"] = str(budgets[mesh.world.rank])
+        tq.hbm_limit = lambda dev: float(budgets[mesh.world.rank])
+        tq.solve_workspace = lambda k: float(workspace)
+    mesh.world.reset_counts()
+    try:
+        out, reports = tq.quantize_model(
+            cfg, tparams, tstats, QuantConfig(**qconfig), pack=pack,
+            layer_parallel=True, mesh=mesh, resume_dir=resume_dir)
+    finally:
+        tq._solve_layer_batch = real_batch
+        tq.hbm_limit, tq.solve_workspace = real
+        os.environ.pop("QUANT_HBM_LIMIT", None)
+    return _numpy(dict(
+        kernels={n: (get_linear_param(out, n).packed if pack
+                     else get_linear_param(out, n)["kernel"])
+                 for n in layer_names(cfg)},
+        errors={r.name: r.error for r in reports},
+        walls={r.name: r.wall_s for r in reports},
+        chunks=chunks, counts=dict(mesh.world.counts)))
+
+
 # ---- the ranks ------------------------------------------------------------
 
 
-def _serve(rank, size, init_file, jobs, results):
+def _serve(rank, size, data, init_file, jobs, results):
     from sleekit_tpu_torch.parallel.distributed import init_process_group
     from sleekit_tpu_torch.parallel.mesh import make_mesh
 
     torch.set_num_threads(1)
     init_process_group(init_method=f"file://{init_file}", rank=rank,
                        world_size=size, device="cpu")
-    mesh = make_mesh(model=size, device="cpu")
+    mesh = make_mesh(data=data, model=size // data, device="cpu")
     while True:
         job = jobs.get()
         if job is None:
@@ -127,15 +278,16 @@ def _serve(rank, size, init_file, jobs, results):
 
 
 class Ranks:
-    """``n`` spawned ranks of one gloo group, serving jobs of this module
-    until :meth:`close`."""
+    """``n`` spawned ranks of one gloo group, a mesh of ``data`` replicas
+    of ``n // data`` ranks over it, serving jobs of this module until
+    :meth:`close`."""
 
-    def __init__(self, n: int, root):
+    def __init__(self, n: int, root, data: int = 1):
         ctx = multiprocessing.get_context("spawn")
         self.jobs = [ctx.Queue() for _ in range(n)]
         self.results = ctx.Queue()
         self.procs = [ctx.Process(
-            target=_serve, args=(r, n, str(root / "rendezvous"),
+            target=_serve, args=(r, n, data, str(root / "rendezvous"),
                                  self.jobs[r], self.results), daemon=True)
             for r in range(n)]
         for p in self.procs:

@@ -1774,3 +1774,64 @@ def test_tp_world1_nccl_step_in_a_graph_equals_eager(dev, tmp_path):
         assert torch.equal(tokens[True], tokens[False])
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_two_replicas_on_one_card_match_standalone(dev, paged):
+    """A ``ReplicaRouter`` over ``replica_meshes(2, devices=["cuda:0",
+    "cuda:0"])``: two single-device Engines on the graph route, request i
+    on replica i % 2, each replica's tokens (greedy and sampled) those of
+    a standalone Engine of the same geometry and seed fed its requests,
+    slot and paged."""
+    from sleekit_tpu_torch.serve.engine import Request
+    from sleekit_tpu_torch.serve.router import ReplicaRouter, replica_meshes
+
+    cfg, params = _tiny_int4(dev)
+    specs = _graph_specs(sampled=True)
+    kw = dict(paged=True, page_size=16) if paged else {}
+    meshes = replica_meshes(2, devices=["cuda:0", "cuda:0"])
+    router = ReplicaRouter(cfg, params, meshes, max_slots=4, max_seq_len=128,
+                           cache_dtype=torch.int8, seed=5, **kw)
+    assert all(e.graphs and e.device == torch.device("cuda", 0)
+               for e in router.engines.values())
+    comps = router.run([Request(prompt=p.copy(), max_new_tokens=m, **s)
+                        for p, m, s in specs])
+    assert [router.owner(c.request_id) for c in comps] == [0, 1] * 3
+    for rep in (0, 1):
+        _, want = _serve_tokens(cfg, params, dev, specs[rep::2], **kw)
+        for c, w in zip(comps[rep::2], want):
+            assert (c.tokens == w).all(), c.request_id
+
+
+def test_finalize_psum_stages_cuda_stats_through_gloo(dev, tmp_path):
+    """``finalize_psum`` over a world-1 gloo group on CUDA statistics: the
+    all-reduces go through the host (gloo's staging) and the merged
+    statistics come back on the card, equal to the rank's own (a world of
+    one: weight 1); a zero count gives zero weights, not NaN."""
+    import torch.distributed as dist
+
+    from sleekit_tpu_torch.hessian import (
+        LayerStats, finalize_psum, init_stats, update_stats)
+    from sleekit_tpu_torch.parallel.distributed import (
+        TPGroup, init_process_group)
+
+    init_process_group(backend="gloo",
+                       init_method=f"file://{tmp_path}/rendezvous", rank=0,
+                       world_size=1, device=dev)
+    try:
+        group = TPGroup()
+        x = torch.randn(40, 32, device=dev,
+                        generator=torch.Generator(dev).manual_seed(0))
+        st = update_stats(init_stats(32, device=dev), x)
+        got = finalize_psum(st, group)
+        assert group.counts == {"all_reduce": 3, "all_gather": 0}
+        assert got.hessian.is_cuda and got.mean.is_cuda
+        assert torch.equal(got.count, st.count)
+        assert torch.equal(got.hessian, st.hessian)
+        assert torch.equal(got.mean, st.mean)
+        empty = finalize_psum(init_stats(32, device=dev), group)
+        assert float(empty.count) == 0.0
+        assert torch.isfinite(empty.hessian).all()
+        assert isinstance(empty, LayerStats)
+    finally:
+        dist.destroy_process_group()

@@ -159,13 +159,13 @@ def test_sleekit_follows_its_layer():
 @pytest.mark.parametrize("kwargs,error,match", [
     (dict(paged=True, page_size=4), ValueError, "page_size 4"),
     (dict(paged=True, page_size=48), ValueError, "multiple of page_size 48"),
-    (dict(mesh=(2, 1)), NotImplementedError,
-     "ROADMAP.*parallel/ and serve/router.py")])
+    (dict(mesh=(2, 1)), ValueError, "data=2 x model=1 needs a group of 2")])
 def test_unported_engine_modes_name_their_roadmap_item(kwargs, error, match):
-    """A mesh with a data axis (replica serving) is not ported and names
-    its ROADMAP item, ``serve/router.py``; a page size the JAX kernels refuse (not a
-    multiple of their 8-row append window, or not dividing max_seq_len
-    512) is refused at construction."""
+    """A mesh with a data axis needs a process group of its ranks:
+    ``make_mesh(data=2)`` without one is refused (replicas are served by
+    ``serve/router.py``, one Engine a replica); a page size the JAX
+    kernels refuse (not a multiple of their 8-row append window, or not
+    dividing max_seq_len 512) is refused at construction."""
     from sleekit_tpu_torch.models.fake_quant import random_packed_params
     from sleekit_tpu_torch.models.zoo import tiny_test
     from sleekit_tpu_torch.parallel.mesh import make_mesh

@@ -141,9 +141,10 @@ def test_quantize_model_matches_jax(tmp_path):
 def test_free_stats_host_stats_and_pack_host():
     """free_stats pops each solved entry from the caller's dict; host
     statistics (here a model on the CPU, so the same device) solve as
-    device ones; pack_host packs on the CPU; the unported mesh solve
-    raises NotImplementedError naming its ROADMAP item (layer_parallel:
-    tests/test_torch_quantize_parallel.py)."""
+    device ones; pack_host packs on the CPU; the serial route ignores a
+    ``mesh``, as the JAX package's does (layer_parallel:
+    tests/test_torch_quantize_parallel.py; the mesh solve:
+    tests/test_torch_data_parallel.py)."""
     _, _, tcfg, tp = _models(n_layers=1)
     stats = tq.calibrate(tcfg, tp, _batches(2, 16))
     kept = dict(stats)
@@ -155,9 +156,10 @@ def test_free_stats_host_stats_and_pack_host():
         pa, pb = ttr.get_linear_param(a, name), ttr.get_linear_param(b, name)
         assert pb.packed.device.type == "cpu"
         assert torch.equal(pa.packed, pb.packed)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*parallel"):
-        tq.quantize_model(tcfg, tp, kept, cfg, layer_parallel=True,
-                          mesh=object())
+    c, _ = tq.quantize_model(tcfg, tp, kept, cfg, pack=True, mesh=object())
+    for name in ttr.layer_names(tcfg):
+        assert torch.equal(ttr.get_linear_param(c, name).packed,
+                           ttr.get_linear_param(a, name).packed)
 
 
 @pytest.mark.parametrize("family", list(FAMILIES))

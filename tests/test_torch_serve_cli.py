@@ -1,9 +1,9 @@
 """The serve command in the port against the JAX package's: the port's
 ``quantize_model_cli`` writes a checkpoint of a tiny HF-layout OPT, and
 ``serve_cli`` of both packages serves it (the JAX Engine loads the
-port's checkpoint) with equal greedy tokens, slot and paged; ``--tp 2``
-serves the tokens of one device; ``--replicas`` raises, naming its
-ROADMAP item."""
+port's checkpoint) with equal greedy tokens, slot and paged; ``--tp 2``,
+``--replicas 2`` and ``--replicas 2 --tp 2`` serve the tokens of one
+device."""
 
 import re
 
@@ -55,28 +55,54 @@ def test_serve_cli_matches_jax(ckpt, mode):
     assert res["engine"].paged == bool(mode)
 
 
-@pytest.mark.parametrize("flag", ["--tp", "--replicas"])
-def test_unported_serve_modes_raise(ckpt, flag):
-    """The serve modes that raised before tensor parallelism was ported:
-    ``--tp 2 --device cpu`` now starts two gloo ranks and prints, from rank
-    0, the greedy tokens of ``--tp 1``, request by request, cold and
-    steady; ``--replicas`` still raises, naming serve/router.py."""
-    if flag == "--replicas":
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.*serve/router.py"):
-            ts_cli.main(["unused", flag, "2", "--device", "cpu"])
-        return
+LINE = re.compile(r"^\[(\d+)\] \+(\d+) tokens \((\w+)\): (\[.*\])$", re.M)
+
+
+def _same_as_one_device(ckpt, flags):
+    """``serve_cli`` with ``flags`` prints, request by request, the greedy
+    tokens of the one-device command, cold and steady. Returns its
+    output and result."""
     # "tiny" is TINY_OPT's config: the spawned ranks' zoo has it.
     args = [ckpt, "--model", "tiny"] + SERVE_ARGS[2:] + ["--device", "cpu"]
     one, res = run_main(ts_cli.main, args)
-    two, tp_res = run_main(ts_cli.main, args + [flag, "2"])
-    line = re.compile(r"^\[(\d+)\] \+(\d+) tokens \((\w+)\): (\[.*\])$", re.M)
-    assert len(line.findall(one)) == 4
-    assert line.findall(two) == line.findall(one)
-    assert "tensor-parallel over 2 ranks (gloo)" in two
+    out, got = run_main(ts_cli.main, args + flags)
+    assert len(LINE.findall(one)) == 4
+    assert LINE.findall(out) == LINE.findall(one)
     for run in ("cold", "steady"):
-        assert [c.new_tokens.tolist() for c in tp_res[run]] == [
+        assert [c.new_tokens.tolist() for c in got[run]] == [
             c.new_tokens.tolist() for c in res[run]]
+    return out, got
+
+
+@pytest.mark.parametrize("flag", ["--tp", "--replicas"])
+def test_unported_serve_modes_raise(ckpt, flag):
+    """The serve modes that raised before the model and data axes were
+    ported: ``--tp 2 --device cpu`` starts two gloo ranks and prints, from
+    rank 0, the greedy tokens of ``--tp 1``; ``--replicas 2 --device cpu``
+    serves two replicas on the CPU in this process, request i on replica
+    i % 2, with the tokens of one Engine; request by request, cold and
+    steady."""
+    out, res = _same_as_one_device(ckpt, [flag, "2"])
+    if flag == "--tp":
+        assert "tensor-parallel over 2 ranks (gloo)" in out
+    else:
+        assert "data axis: 2 replica engines" in out
+        router = res["engine"]
+        assert sorted(router.engines) == [0, 1]
+        assert [router.owner(i) for i in range(8)] == [0, 1] * 4
+        assert "steady state: 24 tokens" in out
+
+
+def test_serve_cli_replicas_over_ranks(ckpt):
+    """``--replicas 2 --tp 2 --device cpu`` starts four gloo ranks, two
+    replicas of two, each rank serving its replica's shard; rank 0
+    gathers the replicas' completions and prints the one-device greedy
+    tokens in submission order, cold and steady, counting every
+    replica's tokens."""
+    out, _ = _same_as_one_device(ckpt, ["--replicas", "2", "--tp", "2"])
+    assert "tensor-parallel over 2 ranks (gloo)" in out
+    assert "data axis: 2 replica engines" in out
+    assert "steady state: 24 tokens" in out
 
 
 def test_serve_cli_tp_needs_its_devices():
