@@ -73,11 +73,16 @@
 6. holds K6 ('pair3x'), K7 ('pair3'), K8 (NF4 'plane') and K9 (uniform
    int4 'plane') against their plain versions on the four projections of
    an OPT-1.3B layer at M = 8, 64 and 1024, timed as in 2 (K1 too, in 2);
-   and K8f (NF4; the 8-bit affine grid at M = 8) and K9f (uniform int4)
-   with f32 x at M = 2, 8, 512 and 2048 within 1e-5 of the largest
-   |output| of their plain versions (TF32 off), timed as in 2 beside the
+   and K8f (NF4; the 8-bit affine grid at M = 8 and 512) and K9f
+   (uniform int4) with f32 x at M = 2, 8, 512 and 2048, and at fc2 with
+   x >= 0 (as after the relu) at M = 512 and 2048, within 1e-5 of the
+   largest |output| of their plain versions (at x >= 0, where their f32
+   product is itself off by more than that, of the same function with
+   the product exact, rounded once to f32), timed as in 2 beside the
    plain version, a ``torch.matmul`` of x by the dequantized f32 weight
-   and the bound at the f32 rate outside the tensor cores;
+   and the bound: the operations at the faster of the two
+   f32-accurate rates (the CUDA cores' f32, or the tensor cores' TF32
+   over the split's three products, two for K9f), or the bytes;
 7. serves the same 8 prompts through the slot Engine with the int3
    'pair3x' model, the same indices repacked as 'pair3', and an NF4
    'plane' model, all at full width and depth (16 new tokens each), on
@@ -298,8 +303,10 @@ from sleekit_tpu_torch.utils.profiling import (  # noqa: E402
 # and the bf16 tensor-core rate.
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
-# The f32 rate outside the tensor cores (same data sheet).
+# The f32 rate outside the tensor cores and the dense TF32 tensor-core
+# rate (same data sheet).
 F32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
 L2_BYTES = 50 * 2 ** 20
 
 
@@ -557,17 +564,35 @@ def check_linears(dev, cfg, names, tp=1):
 F32_MS = (2, 8, 512, 2048)
 
 
+def f32_bound(nbytes: float, flops: float, products: int):
+    """(bound ms, bound_by, ops ms on the CUDA cores at f32, ops ms on the
+    tensor cores over the split's ``products`` TF32 products): the least
+    time of the two f32-accurate routes' operations, or of the bytes."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_f32 = flops / F32_FLOP_PER_S * 1e3
+    t_tf32 = products * flops / TF32_FLOP_PER_S * 1e3
+    t_ops = min(t_f32, t_tf32)
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", t_f32, t_tf32)
+
+
 def check_linears_f32(dev, cfg):
-    """K8f (the NF4 table; the 8-bit affine grid once, at M = 8) and K9f
+    """K8f (the NF4 table; the 8-bit affine grid at M = 8 and 512) and K9f
     (the uniform int4 grid) on random 'plane' words of the four
-    projections of an OPT-1.3B layer, with f32 x, at F32_MS: within 1e-5
-    of the largest |output| of the plain version (f32, the table
-    unrounded; the plain product with TF32 off), timed as
+    projections of an OPT-1.3B layer, with f32 x, at F32_MS, and on fc2
+    with x >= 0 (as after the relu, the worst case for a sum's bias) at
+    M = 512 and 2048: within 1e-5 of the largest |output| of the plain
+    version (f32, the table unrounded; the plain product with TF32 off)
+    or, at x >= 0, where that f32 product is itself more than 1e-5 off, of
+    the same function with the product taken exactly (f64, rounded once
+    to f32; the plain version's distance from it reported), timed as
     check_linears times (CUDA-graph replays over rotating copies), beside
     the plain version and one ``torch.matmul`` of x by the dequantized
-    f32 weight (TF32 off). The bound is the larger of the bytes over
-    3.35 TB/s and the operations over the f32 rate outside the tensor
-    cores (TF32 misses 1e-5)."""
+    f32 weight (TF32 off). The bound is the larger of the
+    bytes over 3.35 TB/s and the operations at the faster f32-accurate
+    route: the f32 rate outside the tensor cores, or the TF32 rate over
+    the tiled route's split products (3 for K8f, 2 for K9f; one TF32
+    product misses 1e-5)."""
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("K8f/K9f: the plain product must run without "
                              "TF32")
@@ -577,12 +602,16 @@ def check_linears_f32(dev, cfg):
               ("fc2", ff, d)]
     nf4 = Codebook.nf4().values.to(dev)
     grid8 = (2.0 / 255, -1.0)
-    runs = [("K8f", "", m) for m in F32_MS] + [("K8f", " (8-bit grid)", 8)]
-    runs += [("K9f", "", m) for m in F32_MS]
+    grid, pos = " (8-bit grid)", " (x >= 0)"
+    runs = [("K8f", "", m, shapes) for m in F32_MS]
+    runs += [("K8f", grid, m, shapes) for m in (8, 512)]
+    runs += [("K9f", "", m, shapes) for m in F32_MS]
+    runs += [(kern, pos, m, shapes[3:]) for kern in ("K8f", "K9f")
+             for m in (512, 2048)]
     cases = {"K8f": [], "K9f": []}
-    for kern, label, m in runs:
-        for name, K, N in shapes:
-            nbits = 8 if label else 4
+    for kern, label, m, run_shapes in runs:
+        for name, K, N in run_shapes:
+            nbits = 8 if label == grid else 4
             kw_rows = -(-K // (32 * (32 // nbits))) * 32
             n_copy = copies_for(kw_rows * N * 4 + m * K * 4)
             words = [torch.randint(-2 ** 31, 2 ** 31, (kw_rows, N),
@@ -592,9 +621,12 @@ def check_linears_f32(dev, cfg):
             scale = 0.02 + 0.002 * torch.rand(N, device=dev, generator=gd)
             bias = 0.01 * torch.randn(N, device=dev, generator=gd)
             x = torch.randn(m, K, device=dev, generator=gd)
+            if label == pos:
+                x = x.abs()
             if kern == "K8f":
                 fn, plain = dm.plane_lut_matmul, dm.plane_lut_matmul_plain
-                kw = dict(nbits=nbits, k=K, affine=grid8 if label else None)
+                kw = dict(nbits=nbits, k=K,
+                          affine=grid8 if label == grid else None)
                 extra = (nf4,)
                 table = dm._k8_table(nf4, nbits, kw["affine"],
                                      rounded=False).to(dev)
@@ -616,6 +648,26 @@ def check_linears_f32(dev, cfg):
             torch.cuda.synchronize()
             if kernel.launches != before + 1:
                 raise AssertionError(f"{kern}: a call did not launch it")
+            # x >= 0 over fc2's K: the plain version's f32 product is itself
+            # more than 1e-5 off, so the kernel is held to the plain
+            # version's function with the product (and K9f's row sums)
+            # taken exactly, rounded once to f32; how far the plain version
+            # is from that is reported.
+            f32_err = None
+            if label == pos:
+                idx = unpack_indices(words[0], nbits, K, "plane").long()
+                xd = x.double()
+                if kern == "K8f":
+                    exact = (xd @ table.double()[idx]).float() * scale + bias
+                else:
+                    c = idx.double() / 16 - 0.5
+                    exact = (kw["a_aff"] * (xd @ c).float() + dm._centred(
+                        kw["a_aff"], kw["b_aff"], "plane")
+                        * xd.sum(dim=1, keepdim=True).float()) * scale + bias
+                f32_err = ((want - exact).abs().max().item()
+                           / exact.abs().max().item())
+                want = exact
+                del idx, xd, exact
             err = (got - want).abs().max().item()
             top = want.abs().max().item()
             what = f"{kern} {name} M={m}{label}"
@@ -636,31 +688,43 @@ def check_linears_f32(dev, cfg):
             lib_ms = cuda_ms(lambda i: torch.matmul(x, wdeq[i]), lib_copy)
             del wdeq, words
             nbytes = (m * K * 4 + kw_rows * N * 4 + 2 * N * 4 + m * N * 4
-                      + (16 * 4 if kern == "K8f" and not label else 0))
+                      + (16 * 4 if kern == "K8f" and label != grid else 0))
             flops = 2.0 * m * K * N
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = flops / F32_FLOP_PER_S * 1e3
-            b_ms, b_by = max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                               else "operations")
+            b_ms, b_by, f32_ms, tf32_ms = f32_bound(
+                nbytes, flops, 3 if kern == "K8f" else 2)
+            plan = (dm.f32_tile_plan(m, N, K, dm._sms(0))
+                    if m > dm.DECODE_M else None)
             cases[kern].append(dict(
                 case=f"{name} M={m}{label}", max_abs_err=err,
                 rel_err=err / top, ms=ms, plain_ms=plain_ms,
                 library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-                bytes=nbytes, flops=flops))
+                f32_ops_ms=f32_ms, tf32_ops_ms=tf32_ms, tile_splits=plan,
+                f32_product_rel_err=f32_err, bytes=nbytes, flops=flops))
             log(f"{kern} {name:4s} M={m:5d} K={K} N={N}{label}: err "
                 f"{err:.3g} ({err / top:.3g} of max) | kernel {ms:.4f} ms "
                 f"plain {plain_ms:.3f} ms matmul f32 {lib_ms:.4f} ms bound "
-                f"{b_ms:.4f} ms ({b_by}, f32 {F32_FLOP_PER_S / 1e12:.0f} "
-                "TFLOP/s)")
+                f"{b_ms:.4f} ms ({b_by}; ops at f32 "
+                f"{F32_FLOP_PER_S / 1e12:.0f} TFLOP/s {f32_ms:.4f} ms, split "
+                f"TF32 {TF32_FLOP_PER_S / 1e12:.0f} TFLOP/s {tf32_ms:.4f} ms:"
+                f" {'split TF32' if tf32_ms < f32_ms else 'f32'} bounds)"
+                + (f" K splits {plan}" if plan else "")
+                + (f"; held to the exact product, which the plain version "
+                   f"misses by {f32_err:.3g} of max" if f32_err is not None
+                   else ""))
     for kern, cs in cases.items():
-        for m in F32_MS:
-            mc = [c for c in cs if c["case"].endswith(f" M={m}")]
-            log(f"{kern} one layer's four projections at M={m}: kernel "
-                f"{sum(c['ms'] for c in mc):.4f} ms, plain "
-                f"{sum(c['plain_ms'] for c in mc):.3f} ms, matmul f32 "
-                f"{sum(c['library_ms'] for c in mc):.4f} ms, bound "
-                f"{sum(c['bound_ms'] for c in mc):.4f} ms "
-                f"({sum(c['bytes'] for c in mc)} bytes)")
+        for m, label in [(m, "") for m in F32_MS] + [(8, grid), (512, grid)]:
+            mc = [c for c in cs if c["case"].endswith(f" M={m}{label}")]
+            if not mc:
+                continue
+
+            def total(key, mc=mc):
+                return sum(c[key] for c in mc)
+            log(f"{kern} one layer's four projections at M={m}{label}: "
+                f"kernel {total('ms'):.4f} ms, plain {total('plain_ms'):.3f}"
+                f" ms, matmul f32 {total('library_ms'):.4f} ms, bound "
+                f"{total('bound_ms'):.4f} ms (ops at f32 "
+                f"{total('f32_ops_ms'):.4f} ms, split TF32 "
+                f"{total('tf32_ops_ms'):.4f} ms; {total('bytes')} bytes)")
     return cases
 
 
@@ -4161,8 +4225,11 @@ def main():
             raise AssertionError(f"ptxas: the 4-bit K8f/K9f instantiations "
                                  f"not found: {f32_ptxas}")
         log("ptxas, 4-bit 'plane' f32 routes (K8f NF4, K9f int4; stream at "
-            "MT tokens, tile 64 x 64): [registers, spill store bytes, spill "
-            "load bytes] " + json.dumps(f32_ptxas))
+            "MT tokens, tile 128 x 128 split-TF32): [registers, spill store "
+            "bytes, spill load bytes] " + json.dumps(f32_ptxas))
+        spilled = {k: v for k, v in f32_ptxas.items() if v[1] or v[2]}
+        if spilled:
+            raise AssertionError(f"ptxas: K8f/K9f spill: {spilled}")
     else:
         f32_ptxas = None
         log("ptxas: plane_f32.cu was built before this run, no report")

@@ -19,9 +19,11 @@ packed words streamed from device memory and decoded on chip.
   ``_kernel`` over a table, ``_mantissa_kernel`` over an affine grid),
   K1's two routes (``csrc/dequant_routes.cuh``) under the 'plane' tile
   rules in ``csrc/plane_matmul.cu``, for bf16 x; kernels K8f and K9f,
-  the same wrappers at f32 x (the JAX kernels' f32 ``compute_dtype``):
-  f32 operands and accumulation on the CUDA cores, a streaming route at
-  M <= ``DECODE_M`` and a tiled one above, in ``csrc/plane_f32.cu``.
+  the same wrappers at f32 x (the JAX kernels' f32 ``compute_dtype``),
+  held to f32 accuracy, in ``csrc/plane_f32.cu``: a streaming route on
+  the CUDA cores at M <= ``DECODE_M`` and, above, a tiled one on the
+  tensor cores (split-TF32: each operand as two TF32 halves, three
+  products; :func:`f32_tile_plan`).
 
 K1, K2, K6 and K7 fuse the prologue (layernorm/rmsnorm masked to the
 valid K, relu, gelu, silu_glu) and the epilogue ``(a*acc + b*rowsum)*scale
@@ -66,6 +68,7 @@ from sleekit_tpu_torch.kernels import CudaKernel, zeroed_tickets
 from sleekit_tpu_torch.ops.pack import (
     PAIR3_TILE, PAIR3_WORDS, PAIR3X_GROUP, PAIR3X_WORDS, PLANE_GROUP,
     PackedLinear, unpack_indices, vals_per_word)
+from sleekit_tpu_torch.parallel.comm_model import HBM_BPS
 
 # TPU schedules (``sleekit_tpu/ops/dequant_matmul.py:479, 498``): read by
 # nothing here, every setting gives the same answer.
@@ -100,6 +103,17 @@ H100_SMS = 132
 # of one tile (32 K rows, 40 at 3 bits; ``Rule::UR``).
 F32_STREAM_COLS = 128
 PLANE_F32_UNIT = {1: 1, 2: 2, 3: 4, 4: 4, 8: 8}
+
+# K8f/K9f's tiled route (``f32_tile_kernel``): a block computes F32_TILE_M
+# rows by F32_TILE_N columns, 32 K rows a step, a step taking
+# about F32_TILE_STEP_S seconds on an H100 (K8f's four projections of an
+# OPT-1.3B layer at M = 2048 over their 1,536 waves of steps, PERF.md
+# section 6); a K split over blocks gives each slice at least
+# F32_TILE_MIN_STEPS steps and writes and reads back (splits, M, N) f32
+# partials at the device memory's rate (``HBM_BPS``).
+F32_TILE_M = F32_TILE_N = 128
+F32_TILE_STEP_S = 1.5e-6
+F32_TILE_MIN_STEPS = 16
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # (x, words, scale, bias, ln_scale, ln_bias, ln_bf16, residual, out, xp, rs,
@@ -389,6 +403,27 @@ def f32_stream_plan(n: int, kw: int, nbits: int, sms: int = H100_SMS):
     return strips, _splits(strips, kw // PLANE_F32_UNIT[nbits], sms)
 
 
+def f32_tile_plan(m: int, n: int, k: int, sms: int = H100_SMS) -> int:
+    """The K splits over blocks of K8f/K9f's tiled route for x (m, k) by a
+    (k, n) weight: of 1 to ceil(2 sms / tiles) slices of at least
+    F32_TILE_MIN_STEPS steps of 32 rows, the count that finishes first,
+    counted as waves of blocks over the SMs times a block's steps times
+    F32_TILE_STEP_S, plus the partials' traffic above one split; ties take
+    fewer splits. Above one split the scratch holds the (splits, m, n) f32
+    partials (and, for K9f, the (splits, strips, m) row sums), with one
+    ticket a tile."""
+    tiles = -(-m // F32_TILE_M) * -(-n // F32_TILE_N)
+    steps = -(-k // 32)
+    top = max(1, min(steps // F32_TILE_MIN_STEPS, -(-2 * sms // tiles)))
+
+    def cost(splits):
+        run = (-(-tiles * splits // sms) * -(-steps // splits)
+               * F32_TILE_STEP_S)
+        io = 0.0 if splits == 1 else (splits + 1) * m * n * 4
+        return run + io / HBM_BPS
+    return min(range(1, top + 1), key=cost)
+
+
 @functools.lru_cache(maxsize=None)
 def _sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -435,23 +470,28 @@ def _scratch(x: torch.Tensor, k: int, n: int = 0, kw: int = 0,
             p + tickets if tickets else 0)
 
 
-def _f32_scratch(x: torch.Tensor, n: int, kw: int, nbits: int,
+def _f32_scratch(x: torch.Tensor, n: int, k: int, kw: int, nbits: int,
                  rows: bool):
-    """K8f/K9f's scratch: at M <= DECODE_M over more than one split
-    (:func:`f32_stream_plan`, with the device's SM count), one f32 buffer
-    of the partials (with the row sums for K9f, ``rows``) and the device's
-    zeroed tickets. Returns (the buffer, splits, the addresses of the
+    """K8f/K9f's scratch and plan, with the device's SM count: at M <=
+    DECODE_M :func:`f32_stream_plan`, above :func:`f32_tile_plan`; over
+    more than one split, one f32 buffer of the partials (with the row
+    sums for K9f, ``rows``) and the device's zeroed tickets (one a strip,
+    or a tile). Returns (the buffer, splits, the addresses of the
     partials and the tickets, 0 where absent)."""
     m = x.shape[0]
-    if m > DECODE_M:
-        return None, 1, 0, 0
-    strips, splits = f32_stream_plan(n, kw, nbits, _sms(x.device.index or 0))
+    sms = _sms(x.device.index or 0)
+    if m <= DECODE_M:
+        strips, splits = f32_stream_plan(n, kw, nbits, sms)
+        tickets = strips
+    else:
+        strips, splits = -(-n // F32_TILE_N), f32_tile_plan(m, n, k, sms)
+        tickets = -(-m // F32_TILE_M) * strips
     if splits == 1:
         return None, 1, 0, 0
     buf = torch.empty(splits * m * (n + (strips if rows else 0)),
                       dtype=torch.float32, device=x.device)
     return (buf, splits, buf.data_ptr(),
-            zeroed_tickets(strips, x.device).data_ptr())
+            zeroed_tickets(tickets, x.device).data_ptr())
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -607,7 +647,7 @@ def plane_lut_matmul(x, packed, scale, bias, lut, *, nbits, k,
     ksize = 0 if affine is not None else lut.shape[0]
     if x.dtype == torch.float32:
         out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-        _buf, splits, part, tickets = _f32_scratch(x, n, kw, nbits, False)
+        _buf, splits, part, tickets = _f32_scratch(x, n, k, kw, nbits, False)
         K8f(x.data_ptr(), packed.data_ptr(), scale.data_ptr(), _ptr(bias),
             lut_ptr, out.data_ptr(), part, tickets, m, n, k, kw, splits,
             nbits, ksize, float(step), float(zero))
@@ -635,7 +675,7 @@ def plane_affine_matmul(x, packed, scale, bias, *, nbits, k, a_aff, b_aff):
     m = x.shape[0]
     if x.dtype == torch.float32:
         out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-        _buf, splits, part, tickets = _f32_scratch(x, n, kw, nbits, True)
+        _buf, splits, part, tickets = _f32_scratch(x, n, k, kw, nbits, True)
         K9f(x.data_ptr(), packed.data_ptr(), scale.data_ptr(), _ptr(bias),
             out.data_ptr(), part, tickets, m, n, k, kw, splits, nbits,
             float(a_aff), _centred(a_aff, b_aff, "plane"))

@@ -891,11 +891,11 @@ _PLANE_CODEBOOKS = ["nf4", "table3", "table8", "affine8", "uniform3",
                     "uniform4", "table1", "uniform1", "uniform2"]
 
 
-def _plane_f32_call(dev, g, codebook, m, K, N, bias=True):
+def _plane_f32_call(dev, g, codebook, m, K, N, bias=True, positive=False):
     """(kernel, fn, plain, args, kw, x): K8f (tables: NF4, a k = 3 table at
     2 bits, an unsorted 8-entry table at 3 bits, a 2-entry table at 1 bit;
     the 8-bit affine grid) or K9f (uniform 1-4 bits) on random 'plane'
-    words of a (K, N) matrix, with f32 x (m, K)."""
+    words of a (K, N) matrix, with f32 x (m, K), |x| where ``positive``."""
     from sleekit_tpu_torch.codebooks import Codebook
     from sleekit_tpu_torch.ops import dequant_matmul as dm
     from sleekit_tpu_torch.ops.pack import bits_for_codebook, pack_indices
@@ -914,6 +914,8 @@ def _plane_f32_call(dev, g, codebook, m, K, N, bias=True):
     packed = pack_indices(torch.randint(0, lut.numel(), (K, N), generator=g),
                           nbits, layout="plane").to(dev)
     x = torch.randn(m, K, generator=g).to(dev)
+    if positive:
+        x = x.abs()
     scale = torch.rand(N, generator=g).to(dev) + 0.5
     b = torch.randn(N, generator=g).to(dev) if bias else None
     if codebook.startswith("uniform"):
@@ -933,27 +935,55 @@ def _plane_f32_call(dev, g, codebook, m, K, N, bias=True):
 
 
 def _f32_close(got, ref):
-    """Within 1e-5 of the largest |ref|: two f32 sums of the same products
-    in another order (K up to 2048 terms)."""
+    """Within 1e-5 of the largest |ref|: two f32-accurate sums of the same
+    products in another order (K up to 8192 terms; the tiled route's
+    products split-TF32, each within about 2^-21 of the f32 product)."""
     assert got.dtype == ref.dtype == torch.float32
     err = (got - ref).abs().max().item()
     assert torch.isfinite(got).all()
     assert err <= 1e-5 * ref.abs().max().item(), err
 
 
+def _exact_f32(x, args, kw):
+    """What the plain versions of K8f/K9f compute (``args``, ``kw`` from
+    _plane_f32_call), with the product (and K9f's row sums) taken exactly
+    in f64 and rounded once to f32, the rest in f32 as they do it: the
+    yardstick where an f32 product is itself off by more than 1e-5 (fc2's
+    K = 8192 with x >= 0)."""
+    from sleekit_tpu_torch.ops import dequant_matmul as dm
+    from sleekit_tpu_torch.ops.pack import unpack_indices
+
+    packed, scale, bias = args[:3]
+    nbits = kw["nbits"]
+    idx = unpack_indices(packed, nbits, kw["k"], layout="plane").long()
+    xd = x.double()
+    if len(args) == 4:
+        table = dm._k8_table(args[3], nbits, kw["affine"], rounded=False)
+        out = (xd @ table.to(x.device).double()[idx]).float() * scale
+    else:
+        c = idx.double() / 2 ** nbits - 0.5
+        b_c = dm._centred(kw["a_aff"], kw["b_aff"], "plane")
+        out = (kw["a_aff"] * (xd @ c).float()
+               + b_c * xd.sum(dim=1, keepdim=True).float()) * scale
+    return out if bias is None else out + bias
+
+
 @pytest.mark.parametrize("codebook", _PLANE_CODEBOOKS)
-@pytest.mark.parametrize("m", [1, 2, 8, 9, 64, 520])
-@pytest.mark.parametrize("K,N", [(700, 198), (2048, 2052)])
+@pytest.mark.parametrize("m,K,N", [
+    (m, K, N) for K, N in [(700, 198), (2048, 2052)]
+    for m in [1, 2, 8, 9, 64, 520]] + [(520, 8192, 2048)])
 @pytest.mark.parametrize("bias", [True, False])
 def test_k8f_k9f_match_plain(dev, codebook, m, K, N, bias):
     """K8f and K9f (f32 x) on 'plane' words against their plain versions
     (f32, the table unrounded, TF32 off), within 1e-5 of the largest
     output: on the streaming route (m <= 8; 1, 2 and 8 tokens a lane's
     accumulators, K split over blocks at K = 2048) and the tiled route (m
-    = 9, 64, 520 in 64 x 64 tiles), with K (700) not a multiple of any
-    plane tile and, at 3 bits, K = 2048 ending inside the last 320-row
-    tile; N not a multiple of the 128-column strip nor of 4 at 198 (4-byte
-    word loads); with and without a bias. One counted launch a call."""
+    = 9, 64, 520: split-TF32 in 128 x 128 tiles, K split over blocks
+    where the tiles are fewer than the SMs), with K (700) not a multiple
+    of any plane tile and, at 3 bits, K = 2048 ending inside the last
+    320-row tile; N not a multiple of the 128-column strip nor of 4 at 198
+    (4-byte word loads); fc2's shape (K 8192, N 2048) at m = 520; with and
+    without a bias. One counted launch a call."""
     assert not torch.backends.cuda.matmul.allow_tf32
     g = torch.Generator().manual_seed(N + K + m)
     kernel, fn, plain, args, kw, x = _plane_f32_call(dev, g, codebook, m, K,
@@ -965,15 +995,37 @@ def test_k8f_k9f_match_plain(dev, codebook, m, K, N, bias):
     _f32_close(got, plain(x, *args, **kw))
 
 
+@pytest.mark.parametrize("codebook", ["nf4", "affine8", "uniform4"])
+@pytest.mark.parametrize("m", [8, 520, 2048])
+def test_k8f_k9f_nonnegative_x_long_k(dev, codebook, m):
+    """K8f (NF4, the 8-bit affine grid) and K9f (uniform 4-bit) at fc2's
+    shape (K 8192, N 2048) with x >= 0, as fc2's input is after the relu:
+    sums that grow one way, where a bias in the accumulation would show,
+    within 1e-5 of the largest output of the plain version's function
+    with its product taken exactly (_exact_f32: the plain version's f32
+    product is itself up to 1.4e-5 off there), on the streaming route (m
+    = 8) and the tiled one (m = 520 with its K split, m = 2048)."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    g = torch.Generator().manual_seed(m + len(codebook))
+    kernel, fn, plain, args, kw, x = _plane_f32_call(
+        dev, g, codebook, m, 8192, 2048, positive=True)
+    before = kernel.launches
+    got = fn(x, *args, **kw)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    _f32_close(got, _exact_f32(x, args, kw))
+
+
 @pytest.mark.parametrize("codebook", ["nf4", "uniform4", "affine8"])
-@pytest.mark.parametrize("m", [2, 8, 64])
+@pytest.mark.parametrize("m", [2, 8, 64, 2048])
 def test_k8f_k9f_replay_in_cuda_graph(dev, codebook, m):
     """K8f and K9f captured in a CUDA graph at OPT-1.3B's fc2 shape (K
-    8192, N 2048: at m <= 8 K split over blocks, the partials in a
-    scratch allocated under capture, the tickets the device's): two
-    replays after x changes in place each equal the eager call for the new
-    x, bit for bit, and an eager call equals a second one; the capture
-    counts one launch."""
+    8192, N 2048: at m <= 8 and at m = 64 K split over blocks, the
+    partials in a scratch allocated under capture, the tickets the
+    device's; at m = 2048 the tiled route unsplit): two replays after x
+    changes in place each equal the eager call for the new x, bit for
+    bit, and an eager call equals a second one; the capture counts one
+    launch."""
     from sleekit_tpu_torch.ops import dequant_matmul as dm
 
     g = torch.Generator().manual_seed(m)
@@ -982,6 +1034,8 @@ def test_k8f_k9f_replay_in_cuda_graph(dev, codebook, m):
     if m <= dm.DECODE_M:
         assert dm.f32_stream_plan(N, args[0].shape[0], kw["nbits"],
                                   dm._sms(0))[1] > 1
+    else:
+        assert (dm.f32_tile_plan(m, N, K, dm._sms(0)) > 1) == (m == 64)
     first = fn(x, *args, **kw)
     assert torch.equal(first, fn(x, *args, **kw))
     torch.cuda.synchronize()
@@ -997,22 +1051,86 @@ def test_k8f_k9f_replay_in_cuda_graph(dev, codebook, m):
         assert torch.equal(out, fn(x, *args, **kw))
 
 
+_MMA_PROBE = r"""
+#include <cstdint>
+// out[i] = C + sum_k A[k] * 1 over one m16n8k8 TF32 mma.sync, row 0 of
+// the tile: c[i] the accumulator, p[8 i ..] the products (as A, B = 1).
+__global__ void probe(const float* c, const float* p, float* out) {
+  const int lane = threadIdx.x, gid = lane / 4, tig = lane % 4, i = blockIdx.x;
+  const float* a = p + 8 * i;
+  uint32_t r[4] = {__float_as_uint(gid ? 0.0f : a[tig]), 0u,
+                   __float_as_uint(gid ? 0.0f : a[tig + 4]), 0u};
+  const uint32_t b0 = __float_as_uint(gid ? 0.0f : 1.0f), b1 = b0;
+  float d[4] = {lane ? 0.0f : c[i], 0.0f, 0.0f, 0.0f};
+  asm volatile("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+               "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+               : "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3]), "r"(b0), "r"(b1));
+  if (lane == 0) out[i] = d[0];
+}
+extern "C" int mma_probe(const void* c, const void* p, void* out, int n) {
+  probe<<<n, 32>>>(static_cast<const float*>(c), static_cast<const float*>(p),
+                   static_cast<float*>(out));
+  return (int)cudaDeviceSynchronize();
+}
+"""
+
+
+def test_tf32_mma_truncates(dev, tmp_path):
+    """The tensor cores' f32 sums, which the tiled route of K8f/K9f works
+    around (a fresh fragment every TILE_CHAIN steps): an m16n8k8 TF32
+    mma.sync aligns the accumulator and the products to the largest,
+    truncates each 25 bits below it, and truncates the sum to f32 - no
+    rounding to nearest (the model of tests/test_torch_plane_f32.py
+    _mma)."""
+    import ctypes
+    import subprocess
+
+    from sleekit_tpu_torch import kernels
+
+    src = tmp_path / "mma_probe.cu"
+    src.write_text(_MMA_PROBE)
+    lib = tmp_path / "mma_probe.so"
+    subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(lib),
+                    str(src)], check=True, capture_output=True)
+    fn = ctypes.CDLL(str(lib)).mma_probe
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int]
+    u = 2.0 ** -23
+    cases = [  # (c, products, the sum the tensor cores give)
+        (1.0, [0.75 * u], 1.0),            # rounding to nearest: 1 + u
+        (1.0, [u / 4] * 8, 1.0 + 2 * u),   # 2^-25 kept: exact
+        (1.0, [u / 8] * 8, 1.0),           # 2^-26 dropped, each
+        (1.0, [-0.625 * u], 1.0 - u / 2),  # truncated towards 0: -2^-24
+        (0.0, [1.0, u / 4, u / 4], 1.0),   # the sum 1 + 2^-24 truncated
+    ]
+    c = torch.tensor([cs[0] for cs in cases], dtype=torch.float32, device=dev)
+    p = torch.zeros(len(cases), 8, dtype=torch.float32)
+    for i, (_, prods, _) in enumerate(cases):
+        p[i, :len(prods)] = torch.tensor(prods, dtype=torch.float32)
+    p = p.to(dev)
+    out = torch.empty(len(cases), dtype=torch.float32, device=dev)
+    assert fn(c.data_ptr(), p.data_ptr(), out.data_ptr(), len(cases)) == 0
+    want = torch.tensor([cs[2] for cs in cases], dtype=torch.float32)
+    assert torch.equal(out.cpu(), want), (out.cpu().tolist(), want.tolist())
+
+
 def test_k8f_k9f_raise_without_scratch(dev):
-    """A streaming launch of K8f or K9f over more than one split without
-    the partials and tickets, or at a width the kernels do not take (5
-    bits), returns a CUDA error that the binding raises."""
+    """A launch of K8f or K9f over more than one split without the
+    partials and tickets (the streaming route at m = 4, the tiled one at
+    m = 64), or at a width the kernels do not take (5 bits), returns a
+    CUDA error that the binding raises."""
     from sleekit_tpu_torch.ops import dequant_matmul as dm
     from sleekit_tpu_torch.ops.pack import pack_indices
 
-    m, K, N = 4, 512, 64
-    x = torch.zeros(m, K, device=dev)
+    K, N = 512, 64
     scale = torch.ones(N, device=dev)
     lut = torch.linspace(-1, 1, 16, device=dev)
-    out = torch.empty(m, N, device=dev)
     packed = pack_indices(torch.zeros(K, N, dtype=torch.int64), 4,
                           layout="plane").to(dev)
     kw = packed.shape[0]
-    for splits, nbits in ((2, 4), (1, 5)):
+    for m, splits, nbits in ((4, 2, 4), (4, 1, 5), (64, 2, 4), (64, 1, 5)):
+        x = torch.zeros(m, K, device=dev)
+        out = torch.empty(m, N, device=dev)
         with pytest.raises(RuntimeError, match="CUDA error"):
             dm.K8f(x.data_ptr(), packed.data_ptr(), scale.data_ptr(), 0,
                    lut.data_ptr(), out.data_ptr(), 0, 0, m, N, K, kw, splits,

@@ -2,7 +2,9 @@
 JAX package: their plain versions, reached through ``quantized_matmul``'s
 dispatch, against the Pallas kernel in interpret mode (f32
 ``compute_dtype``); the bf16 plain versions as they were, bit for bit;
-and the path that runs them, ``quantize_model_cli --codebook nf4`` and
+K8f/K9f's tile plan and their tiled route's split-TF32 product,
+emulated in numpy; and the path that runs them, ``quantize_model_cli
+--codebook nf4`` and
 ``--codebook lloyd`` (every linear packed 'plane') with ``--eval-ppl``,
 then ``serve_cli`` on the NF4 checkpoint, port against JAX on a tiny OPT
 from an HF-layout checkpoint."""
@@ -134,6 +136,137 @@ def test_plane_dispatch_by_dtype_and_split(monkeypatch):
         tdm.quantized_matmul(x, dataclasses.replace(nf4, k_splits=2))
     tdm.quantized_matmul(x, pair)
     assert taken == ["dequant_matmul_ref"]
+
+
+# ---- K8f/K9f's tiled route: its plan and its split-TF32 product ----------
+
+# f32_tile_plan at OPT-1.3B's projections (q, k, v, o: N 2048; the fused
+# qkv 6144; fc1 8192; fc2 K 8192) on 132 SMs, at the f32 commands' M.
+_TILE_PLANS = {(512, 2048, 2048): 2, (512, 6144, 2048): 2,
+               (512, 8192, 2048): 1, (512, 2048, 8192): 2,
+               (2048, 2048, 2048): 1, (2048, 6144, 2048): 1,
+               (2048, 8192, 2048): 1, (2048, 2048, 8192): 1}
+
+
+@pytest.mark.parametrize("m,n,k", list(_TILE_PLANS))
+def test_f32_tile_plan_fills_the_sms(m, n, k):
+    """K8f/K9f's tile plan at eval_ppl's M (2 x 256) and serve_cli's
+    prefill M (8 x 256): F32_TILE_M x F32_TILE_N tiles whose grid reaches
+    the H100's 132 SMs or, where the tiles alone do not (512 rows at N
+    2048: 64 tiles), a K split named by the plan (2: 128 blocks, one wave
+    of half the steps); at 512 rows of the fused qkv (192 tiles, a wave
+    and a half) a split into 384 blocks, three waves of half the steps;
+    each slice at least F32_TILE_MIN_STEPS steps of 32 rows, the splits at
+    most 2 x 132 over the tiles; no split at 2048 rows."""
+    splits = tdm.f32_tile_plan(m, n, k, 132)
+    assert splits == _TILE_PLANS[m, n, k]
+    tiles = -(-m // tdm.F32_TILE_M) * -(-n // tdm.F32_TILE_N)
+    assert tiles >= 132 or splits > 1
+    assert splits <= -(-2 * 132 // tiles)
+    assert -(-k // 32) // splits >= tdm.F32_TILE_MIN_STEPS
+
+
+def _tf32(v):
+    """``v`` rounded to TF32 (10 mantissa bits) to nearest, ties away from
+    zero, as f32: what ``cvt.rna.tf32.f32`` gives."""
+    bits = np.ascontiguousarray(v, dtype=np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def _tile_product(x, w, products):
+    """x @ w as the tiled route forms it: each operand as hi = tf32(v) and
+    lo = tf32(v - hi); the ``products`` a_lo*b_hi, a_hi*b_lo, a_hi*b_hi
+    (3), a_lo*b_hi, a_hi*b_hi (2: b_lo = 0), or a_hi*b_hi alone (1);
+    each 32-row step's sum taken exactly, rounded to f32 and added into
+    f32 sums in step order (the fresh fragment a step, then
+    ``__fadd_rn``)."""
+    steps = x.shape[1] // 32
+    xs = x.reshape(x.shape[0], steps, 32).transpose(1, 0, 2)
+    ws = w.reshape(steps, 32, w.shape[1])
+    xh, wh = _tf32(xs), _tf32(ws)
+    xl, wl = _tf32(xs - xh), _tf32(ws - wh)
+    terms = {3: [(xl, wh), (xh, wl), (xh, wh)], 2: [(xl, wh), (xh, wh)],
+             1: [(xh, wh)]}[products]
+    part = sum(np.matmul(a.astype(np.float64), b.astype(np.float64))
+               for a, b in terms).astype(np.float32)
+    acc = np.zeros(part.shape[1:], np.float32)
+    for p in part:
+        acc = acc + p
+    return acc
+
+
+@pytest.mark.parametrize("name", ["nf4", "affine8", "uniform4"])
+def test_split_tf32_holds_1e5_at_fc2(name):
+    """The tiled route's split-TF32 product, emulated in numpy, at fc2's
+    shape (K 8192, N 2048) with x >= 0 (after the relu: sums that grow one
+    way): three products over K8f's NF4 table and 8-bit grid, two over
+    K9f's C - 1.5 (exact in TF32, so its lo is 0), land within 1e-5 of
+    the largest |output| of the plain versions' f32 product (PyTorch's),
+    while one TF32 product misses that gate."""
+    rng = np.random.RandomState(21)
+    m, k, n = 8, 8192, 2048
+    values = {"nf4": np.asarray(PLANE_LUTS["nf4"], np.float32),
+              "affine8": np.arange(256, dtype=np.float32)
+              * np.float32(2.0 / 255) + np.float32(-1.0),
+              "uniform4": np.arange(16, dtype=np.float32) / 16 - 0.5}[name]
+    x = np.abs(rng.randn(m, k)).astype(np.float32)
+    w = values[rng.randint(0, len(values), (k, n))]
+    plain = (torch.from_numpy(x) @ torch.from_numpy(w)).numpy()
+    top = np.abs(plain).max()
+    products = 3
+    if name == "uniform4":
+        assert np.array_equal(_tf32(values), values)
+        products = 2
+    assert np.abs(_tile_product(x, w, products) - plain).max() <= 1e-5 * top
+    assert np.abs(_tile_product(x, w, 1) - plain).max() > 1e-5 * top
+
+
+def _mma(c, prods):
+    """One tensor-core sum as an H100 forms it (tests/test_torch_cuda.py
+    test_tf32_mma_truncates): the accumulator c (f32) and the exact
+    products, aligned to the largest, each truncated 25 bits below it,
+    summed, and the sum truncated to f32."""
+    terms = np.concatenate([c[:, None].astype(np.float64), prods], axis=1)
+    top = np.abs(terms).max(axis=1)
+    e = np.floor(np.log2(np.where(top > 0, top, 1.0)))
+    q = np.exp2(e - 25)[:, None]
+    total = (np.trunc(terms / q) * q).sum(axis=1)
+    f = total.astype(np.float32)
+    over = np.abs(f.astype(np.float64)) > np.abs(total)
+    f[over] = np.nextafter(f[over], np.float32(0))
+    return f
+
+
+@pytest.mark.parametrize("chain,holds", [(1024, False), (16, True)])
+def test_tile_chain_holds_1e5(chain, holds):
+    """The tiled route's accumulation rule at fc2's K = 8192 with x >= 0
+    and NF4 weights, emulated with the tensor cores' truncating sums: one
+    fragment over all of K (1,024 chunks of 8 K, 3 products each) drifts
+    past 1e-5 of the largest output, fresh fragments of 16 chunks
+    (TILE_CHAIN = 4 steps of 32 K) added into f32 sums stay within it."""
+    rng = np.random.RandomState(4)
+    m, k, n = 2, 8192, 128
+    x = np.abs(rng.randn(m, k)).astype(np.float32)
+    nf4 = np.asarray(PLANE_LUTS["nf4"], np.float32)
+    w = nf4[rng.randint(0, 16, (k, n))]
+    exact = x.astype(np.float64) @ w.astype(np.float64)
+    xh = (x.view(np.uint32) & np.uint32(0xFFFFE000)).view(np.float32)
+    xl, wh = _tf32(x - xh), _tf32(w)
+    wl = _tf32(w - wh)
+    acc = np.zeros(m * n, np.float32)
+    frag = acc.copy()
+    for c in range(k // 8):
+        if c % chain == 0:
+            frag = np.zeros(m * n, np.float32)
+        for a, b in ((xl, wh), (xh, wl), (xh, wh)):
+            prods = (a[:, None, 8 * c:8 * c + 8].astype(np.float64)
+                     * b[8 * c:8 * c + 8].T[None].astype(np.float64))
+            frag = _mma(frag, prods.reshape(m * n, 8))
+        if c % chain == chain - 1:
+            acc = (acc + frag).astype(np.float32)
+    err = np.abs(acc.reshape(m, n) - exact).max() / np.abs(exact).max()
+    assert (err <= 1e-5) == holds, err
 
 
 # ---- the commands on the 'plane' layout -----------------------------------
