@@ -11,8 +11,9 @@
    instantiations of both routes that the NF4 (K8) and int4 'plane' (K9)
    paths run, of the 4-bit f32 'plane' instantiations of both routes
    (K8f's table and K9f's grid, streaming at 1, 2, 4 and 8 tokens and
-   tiled) and of the main path's ``append_kernel`` instantiations (K10 at
-   prefill and T = 1);
+   tiled), of the main path's ``append_kernel`` instantiations (K10 at
+   prefill and T = 1) and of K4's f32 ``prefill_tf32_kernel`` at each
+   padded head dim (no spill allowed);
 2. holds each kernel against its plain PyTorch version on the card at the
    shapes OPT-1.3B serving gives it, and times the kernel, the plain
    version and, where one exists, one PyTorch library call computing the
@@ -20,9 +21,13 @@
    (the int8 head) at M = 8 (its streaming route), 64 and 1024 (its
    tensor-core route); K4 (causal flash prefill, bf16 on the tensor
    cores) at OPT-1.3B's 256-bucket group, at BLOOM-560m's with ALiBi and
-   at llama3-8b's GQA over a 1024-token prompt, and its f32 route at
-   OPT-1.3B's shape (within 1e-5, bound at the f32 rate outside the
-   tensor cores); K10 over a prompt's rows
+   at llama3-8b's GQA over a 1024-token prompt, and its f32 route
+   (split-TF32 on the tensor cores) in the same three cases with f32
+   inputs (within 1e-5 of the largest output, timed beside SDPA in f32 and
+   both bounds, f32 and split TF32), and at large logits (q and k of mean
+   1 and 3, ALiBi at T 1024) its distance from the plain version and from
+   the exact answer, no further from the latter than 1.5x the plain
+   version's own; K10 over a prompt's rows
    (the prefill's KV write: int8 rows, bf16 scales and the dequantized
    K/V) at the 256-bucket group's and llama3-8b's shapes, bit for bit
    with its plain version (the PyTorch path it replaced, timed beside
@@ -358,6 +363,13 @@ def f32_rule(name: str):
     kern = "K8f" if m.group(2) == "1" else "K9f"
     return f"{kern} {m.group(1)}" + (f" MT={m.group(3)}" if m.group(3)
                                      else "")
+
+
+def k4_f32_rule(name: str):
+    """K4's f32 instantiations (``prefill_tf32_kernel<DP>``), read from the
+    mangled name: "K4 f32 DP=64", ...; None for the others."""
+    m = re.search(r"prefill_tf32_kernelILi(\d+)E", name)
+    return None if m is None else f"K4 f32 DP={m.group(1)}"
 
 
 def append_rule(name: str):
@@ -842,6 +854,25 @@ def check_k3(dev, g, cfg, tp=1):
     return cases
 
 
+def k4_sdpa(q, k, v, scale, slopes):
+    """One SDPA call that computes K4's function on the same inputs, as
+    ``fn(i)`` for ``cuda_ms``: causal, ``enable_gqa`` for GQA, or for ALiBi
+    the bias with the causal mask as an ``attn_mask`` in q's dtype. A
+    yardstick; the port never calls it."""
+    T, H, KV = q.shape[1], q.shape[2], k.shape[1]
+    qh = q.transpose(1, 2)
+    kw = dict(scale=scale)
+    if slopes is None:
+        kw.update(is_causal=True, enable_gqa=KV != H)
+    else:
+        pos = torch.arange(T, device=q.device)
+        dist = (pos[None, :] - pos[:, None]).float()
+        kw["attn_mask"] = torch.where(
+            dist <= 0, slopes[:, None, None] * dist, -math.inf
+        ).to(q.dtype)[None]
+    return lambda i: F.scaled_dot_product_attention(qh, k, v, **kw)
+
+
 def check_k4(dev):
     """K4 in its three cases (``prefill_bench.K4_CASES``): the main path's
     256-bucket group (OPT-1.3B: B 4, T 256, H = KV 32, D 64), BLOOM-560m
@@ -861,18 +892,7 @@ def check_k4(dev):
         ms = cuda_ms(lambda i: attn.flash_prefill(q, k, v, scale, slopes), 1)
         plain_ms = cuda_ms(lambda i: attn.flash_prefill_plain(
             q, k, v, scale, slopes), 1, iters=5, warmup=1, graph=False)
-        qh = q.transpose(1, 2)
-        sdpa = dict(scale=scale)
-        if slopes is None:
-            sdpa.update(is_causal=True, enable_gqa=KV != H)
-        else:
-            pos = torch.arange(T, device=dev)
-            dist = (pos[None, :] - pos[:, None]).float()
-            sdpa["attn_mask"] = torch.where(
-                dist <= 0, slopes[:, None, None] * dist, -math.inf
-            ).to(torch.bfloat16)[None]
-        lib_ms = cuda_ms(lambda i: F.scaled_dot_product_attention(
-            qh, k, v, **sdpa), 1)
+        lib_ms = cuda_ms(k4_sdpa(q, k, v, scale, slopes), 1)
         nbytes = (2 * B * T * H * D * 2 + 2 * B * T * KV * D * 2
                   + (H * 4 if slopes is not None else 0))
         b_ms, b_by = bound(nbytes, 4.0 * B * H * D * T * (T + 1) / 2)
@@ -882,46 +902,82 @@ def check_k4(dev):
         cases.append(dict(case=label, max_abs_err=err, ms=ms,
                           plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
                           bound_by=b_by, bytes=nbytes))
-    cases.append(check_k4_f32(dev))
-    return cases
+    return cases + check_k4_f32(dev)
+
+
+# K4's f32 route (``prefill_tf32_kernel``): TF32 products a k8 step, 3 for
+# q·Kᵀ (q_lo k_hi, q_hi k_lo, q_hi k_hi) and 4 for P·V (p_lo v_hi, p_hi
+# v_lo, p_hi v_mid, p_hi v_hi), over the two halves of the operations.
+K4_F32_PRODUCTS = (3 + 4) / 2
 
 
 def check_k4_f32(dev):
-    """K4's f32 route (``prefill_f32_kernel``, CUDA cores) at OPT-1.3B's
-    256-bucket shape (B 4, T 256, H = KV 32, D 64, f32): within 1e-5 of
-    the largest |output| of its plain version, timed against it and
-    against SDPA in f32; its bound counts the operations at the card's
-    f32 rate outside the tensor cores (TF32 would miss the tolerance)."""
-    B, T = 4, 256
-    q, k, v, scale, _ = prefill_bench.k4_inputs("opt-1.3b", B, T, dev)
-    q, k, v = q.float(), k.float(), v.float()
-    H, KV, D = q.shape[2], k.shape[1], q.shape[3]
-    got = attn.flash_prefill(q, k, v, scale)
-    want = attn.flash_prefill_plain(q, k, v, scale)
-    torch.cuda.synchronize()
-    err = (got - want).abs().max().item()
-    if not torch.isfinite(got).all() or not err <= 1e-5 * want.abs().max():
-        raise AssertionError(f"K4 f32: max |err| {err:.3g} over 1e-5 of the "
-                             f"largest output")
-    ms = cuda_ms(lambda i: attn.flash_prefill(q, k, v, scale), 1)
-    plain_ms = cuda_ms(lambda i: attn.flash_prefill_plain(q, k, v, scale), 1,
-                       iters=5, warmup=1, graph=False)
-    qh = q.transpose(1, 2)
-    lib_ms = cuda_ms(lambda i: F.scaled_dot_product_attention(
-        qh, k, v, is_causal=True, scale=scale), 1)
-    nbytes = 2 * B * T * H * D * 4 + 2 * B * T * KV * D * 4
-    flops = 4.0 * B * H * D * T * (T + 1) / 2
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
-    b_ms, b_by = max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
-    label = f"opt-1.3b f32 B={B} T={T}"
-    log(f"K4 {label} H={H} KV={KV} D={D}: err {err:.3g} | kernel {ms:.4f} "
-        f"ms plain {plain_ms:.3f} ms sdpa {lib_ms:.4f} ms bound {b_ms:.4f} "
-        f"ms ({b_by}, {F32_FLOP_PER_S / 1e12:.0f} TFLOP/s f32)")
-    return dict(case=label, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-                bytes=nbytes)
+    """K4's f32 route (``prefill_tf32_kernel``: split-TF32 ``mma.sync`` on
+    the tensor cores) in the three cases of ``prefill_bench.K4_CASES`` with
+    f32 inputs drawn in f32: OPT-1.3B's 256-bucket shape, BLOOM-560m with
+    ALiBi and llama3-8b's GQA at T 1024, each within 1e-5 of the largest
+    |output| of its plain version, timed against it and against SDPA in
+    f32 (causal; ``enable_gqa`` for GQA; the ALiBi bias with the causal
+    mask as an f32 ``attn_mask``), beside both bounds (``f32_bound``: the
+    CUDA cores' f32 rate, or the split's K4_F32_PRODUCTS TF32 products)."""
+    cases = []
+    for model, B, T in prefill_bench.K4_CASES:
+        q, k, v, scale, slopes = prefill_bench.k4_inputs(
+            model, B, T, dev, dtype=torch.float32)
+        H, KV, D = q.shape[2], k.shape[1], q.shape[3]
+        label = f"{model} f32 B={B} T={T}"
+        got = attn.flash_prefill(q, k, v, scale, slopes)
+        want = attn.flash_prefill_plain(q, k, v, scale, slopes)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        top = want.abs().max().item()
+        if not torch.isfinite(got).all() or not err <= 1e-5 * top:
+            raise AssertionError(f"K4 {label}: max |err| {err:.3g} over 1e-5 "
+                                 f"of the largest output {top:.3g}")
+        ms = cuda_ms(lambda i: attn.flash_prefill(q, k, v, scale, slopes), 1)
+        plain_ms = cuda_ms(lambda i: attn.flash_prefill_plain(
+            q, k, v, scale, slopes), 1, iters=5, warmup=1, graph=False)
+        lib_ms = cuda_ms(k4_sdpa(q, k, v, scale, slopes), 1)
+        nbytes = (2 * B * T * H * D * 4 + 2 * B * T * KV * D * 4
+                  + (H * 4 if slopes is not None else 0))
+        flops = 4.0 * B * H * D * T * (T + 1) / 2
+        b_ms, b_by, t_f32, t_tf32 = f32_bound(nbytes, flops, K4_F32_PRODUCTS)
+        log(f"K4 {label} H={H} KV={KV} D={D}: err {err:.3g} ({err / top:.3g} "
+            f"of max) | kernel {ms:.4f} ms plain {plain_ms:.3f} ms sdpa f32 "
+            f"{lib_ms:.4f} ms bound {b_ms:.4f} ms ({b_by}; bytes "
+            f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f}, ops f32 {t_f32:.4f}, "
+            f"split TF32 {t_tf32:.4f})")
+        cases.append(dict(case=label, max_abs_err=err, ms=ms,
+                          plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                          bound_by=b_by, bound_f32_ms=t_f32,
+                          bound_tf32_ms=t_tf32, bytes=nbytes))
+    return cases
+
+
+def check_k4_f32_large_logits(dev):
+    """K4's f32 route at large logits (``prefill_bench.K4_LARGE_CASES``: q
+    and k of mean 1 and 3, ALiBi at T 1024, G 4, D 64, 80 and 128): its
+    distances over the elementwise 1e-5 gate's allowance from its plain
+    version and from the exact answer (f64). Where the plain version is
+    within the gate of the exact answer (mean 1), the kernel must be
+    within it too; where it is not (mean 3), the kernel must lie at most
+    1.5x the plain version's own distance from the exact answer, as
+    tests/test_torch_cuda.py test_k4_f32_large_logits_vs_exact holds it.
+    (test_k4_matches_plain holds the kernel to the plain version at mean 1
+    on its own inputs; here that distance is mostly the plain version's
+    own, and is printed.)"""
+    out = {}
+    for r in prefill_bench.k4_large_logits(dev):
+        label = f"D={r['D']} mean={r['mean']:g}"
+        if r["plain_exact"] <= 1.0:
+            ok = r["kernel_exact"] <= 1.0
+        else:
+            ok = r["kernel_exact"] <= 1.5 * r["plain_exact"]
+        if not ok:
+            raise AssertionError(f"K4 f32 large logits {label}: {r}")
+        out[label] = {key: r[key] for key in
+                      ("kernel_plain", "kernel_exact", "plain_exact")}
+    return out
 
 
 # Page geometry of the paged phases: OPT-1.3B serving pages of 64 rows, 8
@@ -4234,11 +4290,29 @@ def main():
         f32_ptxas = None
         log("ptxas: plane_f32.cu was built before this run, no report")
 
+    if "prefill_attention.cu" in built:
+        k4_ptxas = ptxas_report(built["prefill_attention.cu"]["log"],
+                                "prefill_tf32_kernel", k4_f32_rule)
+        if len(k4_ptxas) != 8:
+            raise AssertionError(f"ptxas: K4's f32 instantiations not "
+                                 f"found: {k4_ptxas}")
+        log("ptxas, prefill_tf32_kernel (K4 f32, DP = D rounded up to 16): "
+            "[registers, spill store bytes, spill load bytes] "
+            + json.dumps(k4_ptxas))
+        spilled = {k: v for k, v in k4_ptxas.items() if v[1] or v[2]}
+        if spilled:
+            raise AssertionError(f"ptxas: K4 f32 spills: {spilled}")
+    else:
+        k4_ptxas = None
+        log("ptxas: prefill_attention.cu was built before this run, no "
+            "report")
+
     cfg = opt_1b3(dtype=torch.bfloat16)
     g = torch.Generator().manual_seed(0)
     cases = {**check_linears(dev, cfg, ["K1"]), "K2": check_k2(dev, g, cfg),
              "K3": check_k3(dev, g, cfg), "K4": check_k4(dev),
              **check_paged(dev, g, cfg)}
+    k4_large = check_k4_f32_large_logits(dev)
     # K10's first case, the one its row reports, is the main path's.
     cases["K10"] = check_k10_prefill(dev) + cases["K10"]
     launches, engine, state = run_engine(dev, cfg, smi)
@@ -4301,6 +4375,8 @@ def main():
     engine["ptxas_plane"] = plane_ptxas
     engine["ptxas_plane_f32"] = f32_ptxas
     engine["ptxas_append_kernel"] = append_ptxas
+    engine["ptxas_k4_f32"] = k4_ptxas
+    engine["k4_f32_large_logits"] = k4_large
     log(f"chip_smoke: {time.perf_counter() - start:.1f} s ({smi})")
     print(json.dumps({"kernels": rows, "engine": engine, "quantize": quant,
                       "cli": cli, "ablation": ablation, "tp": tp,

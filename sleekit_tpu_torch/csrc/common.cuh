@@ -57,6 +57,14 @@ inline cudaError_t allow_smem(Kernel kernel, int bytes, int* raised) {
 
 // ---- PTX helpers of the tensor-core kernels (cp.async, ldmatrix, mma) ----
 
+// The nearest TF32 value to v, ties away from zero, as f32 bits (the
+// low 13 bits 0, so the tensor cores take it as it is).
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }

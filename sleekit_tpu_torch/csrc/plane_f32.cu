@@ -134,14 +134,6 @@ struct Table {
   float step, zero;
 };
 
-// The nearest TF32 value to v, ties away from zero, as f32 bits (the
-// low 13 bits 0, so the tensor cores take it as it is).
-__device__ __forceinline__ uint32_t tf32_rna(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
-  return r;
-}
-
 // v as hi + lo, two TF32 values: lo is v - hi (exact) rounded, so hi + lo
 // is within 2^-22 |v| of v.
 __device__ __forceinline__ void split_tf32(float v, uint32_t& hi,

@@ -20,22 +20,27 @@ A/B are not ported (they come with the experiment CLIs,
 ``experiments/``).
 
 ``--attention`` times K4 (``flash_prefill``) alone instead, in the cases
-of :data:`K4_CASES` (``--models`` picks some of them; bf16 inputs from a
-seed; on the card a CUDA graph of its launches replayed between CUDA
-events). ``--kv-write`` times K10 alone: over a prompt's rows
+of :data:`K4_CASES` (``--models`` picks some of them; inputs from a seed,
+bf16 or, with ``--dtype f32``, f32 for K4's f32 route; on the card a CUDA
+graph of its launches replayed between CUDA events). ``--kv-write``
+times K10 alone: over a prompt's rows
 (``kv_prefill_write``, the prefill's KV write) in the cases of
 :data:`K10_PREFILL_CASES`, beside its plain version (eager), and at one
 row a (batch row, head) - K10 and K14, the split route's append at
 serving decode, and K10 at B 1, KV 1. Run as a file with another
 checkout's package first on ``PYTHONPATH``, either mode times that
 checkout's kernels on the same inputs (a package without
-``kv_prefill_write`` times only its appends).
+``kv_prefill_write`` times only its appends). ``--large-logits`` reads
+K4's f32 route at large logits (:data:`K4_LARGE_CASES`): its distance
+over the 1e-5 gate from its plain version and from the exact answer (f64),
+and the plain version's; run as a file, that of another checkout.
 
 Usage:
   python -m sleekit_tpu_torch.experiments.prefill_bench [--model opt-1.3b]
       [--batch 4] [--seq 512] [--reps 5] [--layout pair|pair3x|pair3]
-      [--device cuda|cpu] [--trace DIR] [--attention [--models M,...]]
-      [--kv-write]
+      [--device cuda|cpu] [--trace DIR]
+      [--attention [--models M,...] [--dtype bf16|f32]] [--kv-write]
+      [--large-logits]
 """
 
 from __future__ import annotations
@@ -53,6 +58,13 @@ import torch
 K4_CASES = (("opt-1.3b", 4, 256), ("bloom-560m", 4, 256),
             ("llama3-8b", 1, 1024))
 
+# K4's f32 route at large logits, (head dim, mean of q and k): q and k
+# N(mean, 1), v N(0, 1), ALiBi at T 1024 (slopes 0.02-0.4, a bias down to
+# -409), B 2, KV 2, G 4; logits about sqrt(D) at mean 1, 9 sqrt(D) at 3.
+K4_LARGE_CASES = tuple((D, mean) for D in (64, 80, 128)
+                       for mean in (1.0, 3.0))
+# The f32 route's gate, elementwise: |got - want| <= 1e-5 + 1e-5 |want|.
+K4_F32_GATE = 1e-5
 
 # K10 over a prompt's rows, (label, B, T, H, KV, D): OPT-1.3B's 256-bucket
 # group and llama3-8b's GQA at a 1024-token prompt, bf16 K/V sliced out of
@@ -78,10 +90,12 @@ def log(*a):
     print(*a, file=sys.stderr, flush=True)
 
 
-def k4_inputs(model: str, batch: int, seq: int, device, seed: int = 0):
+def k4_inputs(model: str, batch: int, seq: int, device, seed: int = 0,
+              dtype=torch.bfloat16):
     """K4's arguments for ``model``'s attention geometry: q (B, T, H, D),
-    kT and vT (B, KV, T, D) in bf16 from ``seed``, the scale, and the
-    model's ALiBi slopes (H,) f32 (None without ALiBi)."""
+    kT and vT (B, KV, T, D) in ``dtype`` (standard normal f32 draws from
+    ``seed``, rounded to bf16 for bf16), the scale, and the model's ALiBi
+    slopes (H,) f32 (None without ALiBi)."""
     from sleekit_tpu_torch.models.transformer import alibi_slopes
     from sleekit_tpu_torch.models.zoo import get_config
 
@@ -91,12 +105,64 @@ def k4_inputs(model: str, batch: int, seq: int, device, seed: int = 0):
 
     def normal(*shape):
         return torch.as_tensor(rng.standard_normal(shape, np.float32)).to(
-            device, torch.bfloat16)
+            device, dtype)
 
     slopes = (torch.as_tensor(alibi_slopes(H)).to(device)
               if cfg.positional == "alibi" else None)
     return (normal(batch, seq, H, D), normal(batch, KV, seq, D),
             normal(batch, KV, seq, D), 1.0 / D ** 0.5, slopes)
+
+
+def k4_exact(q, k, v, scale, slopes):
+    """K4's function in f64 from the same inputs: q (B, T, H, D), k/v (B,
+    KV, T, D), the causal mask and ALiBi as the plain version applies
+    them; (B, T, H, D) f64."""
+    T, G = q.shape[1], q.shape[2] // k.shape[1]
+    s = (q.double().transpose(1, 2)
+         @ k.double().repeat_interleave(G, 1).transpose(-1, -2)) * scale
+    pos = torch.arange(T, device=q.device)
+    dist = (pos[None, :] - pos[:, None]).double()
+    if slopes is not None:
+        s = s + slopes.double()[:, None, None] * dist
+    s = s.masked_fill(dist > 0, float("-inf"))
+    return (torch.softmax(s, -1)
+            @ v.double().repeat_interleave(G, 1)).transpose(1, 2)
+
+
+def k4_gate(got, want) -> float:
+    """The largest |got - want| over the f32 gate's allowance, 1e-5 +
+    1e-5 |want|: at most 1 within the gate."""
+    want = want.double()
+    return ((got.double() - want).abs()
+            / (K4_F32_GATE + K4_F32_GATE * want.abs())).max().item()
+
+
+def k4_large_logits(device):
+    """K4's f32 route in each of :data:`K4_LARGE_CASES` on ``device``: its
+    distance over the gate from its plain version and from the exact
+    answer, and the plain version's from the exact answer
+    (``kernel_plain``, ``kernel_exact``, ``plain_exact``)."""
+    from sleekit_tpu_torch.ops.attention import (
+        flash_prefill, flash_prefill_plain)
+
+    rows = []
+    for D, mean in K4_LARGE_CASES:
+        g = torch.Generator().manual_seed(D + int(mean))
+        q = torch.randn(2, 1024, 8, D, generator=g).to(device) + mean
+        k = torch.randn(2, 2, 1024, D, generator=g).to(device) + mean
+        v = torch.randn(2, 2, 1024, D, generator=g).to(device)
+        slopes = torch.linspace(0.02, 0.4, 8).to(device)
+        got = flash_prefill(q, k, v, D ** -0.5, slopes)
+        want = flash_prefill_plain(q, k, v, D ** -0.5, slopes)
+        exact = k4_exact(q, k, v, D ** -0.5, slopes)
+        rows.append(dict(D=D, mean=mean, kernel_plain=k4_gate(got, want),
+                         kernel_exact=k4_gate(got, exact),
+                         plain_exact=k4_gate(want, exact)))
+        log(f"K4 f32 large logits D={D} mean={mean:g}: over the 1e-5 gate, "
+            f"kernel vs plain {rows[-1]['kernel_plain']:.3f}, kernel vs "
+            f"exact {rows[-1]['kernel_exact']:.3f}, plain vs exact "
+            f"{rows[-1]['plain_exact']:.3f}")
+    return rows
 
 
 def kv_write_bytes(B: int, T: int, KV: int, D: int) -> int:
@@ -180,9 +246,9 @@ def time_kv_write(device, reps: int):
     return rows
 
 
-def time_attention(device, reps: int, models=None):
+def time_attention(device, reps: int, models=None, dtype=torch.bfloat16):
     """K4's time in each of :data:`K4_CASES` on ``device`` (those of
-    ``models`` alone, when given)."""
+    ``models`` alone, when given) at ``dtype``."""
     from sleekit_tpu_torch.ops.attention import flash_prefill
     from sleekit_tpu_torch.utils.profiling import time_ms
 
@@ -190,12 +256,14 @@ def time_attention(device, reps: int, models=None):
     for model, batch, seq in K4_CASES:
         if models and model not in models:
             continue
-        q, k, v, scale, slopes = k4_inputs(model, batch, seq, device)
+        q, k, v, scale, slopes = k4_inputs(model, batch, seq, device,
+                                           dtype=dtype)
         ms = time_ms(lambda i: flash_prefill(q, k, v, scale, slopes), 1,
                      device, iters=reps)
-        rows.append({"case": f"{model} B={batch} T={seq}", "ms": ms})
-        log(f"K4 {rows[-1]['case']} H={q.shape[2]} KV={k.shape[1]} "
-            f"D={q.shape[3]}: {ms:.4f} ms")
+        rows.append({"case": f"{model} B={batch} T={seq}", "ms": ms,
+                     "dtype": str(dtype).replace("torch.", "")})
+        log(f"K4 {rows[-1]['case']} {rows[-1]['dtype']} H={q.shape[2]} "
+            f"KV={k.shape[1]} D={q.shape[3]}: {ms:.4f} ms")
     return rows
 
 
@@ -233,6 +301,13 @@ def main(argv=None):
     ap.add_argument("--models", default=None,
                     help="with --attention: the K4 cases to time, by model "
                     "(comma-separated; default all)")
+    ap.add_argument("--dtype", default="bf16", choices=("bf16", "f32"),
+                    help="with --attention: q, k and v in bf16 or f32 (K4's "
+                    "f32 route)")
+    ap.add_argument("--large-logits", action="store_true",
+                    help="K4's f32 route at large logits (K4_LARGE_CASES): "
+                    "its distances over the 1e-5 gate from its plain "
+                    "version and from the exact answer")
     ap.add_argument("--kv-write", action="store_true",
                     help="time K10 alone, over a prompt's rows and at one "
                     "row (and K14)")
@@ -251,8 +326,13 @@ def main(argv=None):
              else "the CPU (plain versions)")
     if args.attention:
         models = args.models.split(",") if args.models else None
-        out = {"attention": time_attention(dev, args.reps, models),
+        dtype = torch.float32 if args.dtype == "f32" else torch.bfloat16
+        out = {"attention": time_attention(dev, args.reps, models, dtype),
                "device": where}
+        print(out)
+        return out
+    if args.large_logits:
+        out = {"large_logits": k4_large_logits(dev), "device": where}
         print(out)
         return out
     if args.kv_write:

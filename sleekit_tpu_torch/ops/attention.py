@@ -726,9 +726,9 @@ def flash_prefill(q, kT, vT, scale: float, alibi_slopes=None):
     """Kernel K4: causal self-attention for prefill. q (B, T, H, D); kT/vT
     (B, KV, T, D) read in place (no GQA repeat); ALiBi slopes (H,) f32 or
     None. Returns (B, T, H, D) in q's dtype. A CUDA tensor launches the
-    kernel - bf16 on the tensor cores (D % 16 == 0, D <= 128), f32 on the
-    CUDA cores (D % 4 == 0, D <= 128) - or raises; a CPU tensor takes
-    :func:`flash_prefill_plain`."""
+    kernel - bf16 on the tensor cores (D % 16 == 0, D <= 128), f32 as
+    split TF32 on the tensor cores, held to f32 accuracy (D % 4 == 0, D <=
+    128) - or raises; a CPU tensor takes :func:`flash_prefill_plain`."""
     if not q.is_cuda:
         return flash_prefill_plain(q, kT, vT, scale, alibi_slopes)
     B, T, H, D = q.shape

@@ -82,6 +82,38 @@ def same_codewords(got, want, cb, what=""):
                                err_msg=what)
 
 
+def tf32_rna(v):
+    """``v`` rounded to TF32 (10 mantissa bits) to nearest, ties away from
+    zero, as f32: what ``cvt.rna.tf32.f32`` gives."""
+    bits = np.ascontiguousarray(v, dtype=np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def tf32_trunc(v):
+    """The top 19 bits of f32 ``v`` (the TF32 value the tensor cores read
+    from an f32 operand), as f32."""
+    bits = np.ascontiguousarray(v, dtype=np.float32).view(np.uint32)
+    return (bits & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def tf32_mma(c, prods):
+    """One tensor-core sum as an H100 forms it (tests/test_torch_cuda.py
+    test_tf32_mma_truncates): the accumulator c (f32, any shape) and the
+    exact products (c's shape + (8,)), aligned to the largest, each
+    truncated 25 bits below it, summed, and the sum truncated to f32."""
+    terms = np.concatenate([np.asarray(c, np.float64)[..., None], prods],
+                           axis=-1)
+    top = np.abs(terms).max(axis=-1)
+    e = np.floor(np.log2(np.where(top > 0, top, 1.0)))
+    q = np.exp2(e - 25)[..., None]
+    total = (np.trunc(terms / q) * q).sum(axis=-1)
+    f = np.asarray(total.astype(np.float32))
+    over = np.abs(f.astype(np.float64)) > np.abs(total)
+    f[over] = np.nextafter(f[over], np.float32(0))
+    return f
+
+
 @pytest.fixture(scope="module")
 def one_torch_thread():
     """One intra-op thread for a module of many small tensor ops (the

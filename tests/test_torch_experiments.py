@@ -215,14 +215,32 @@ def test_prefill_bench_runs_on_cpu(monkeypatch, capsys, tmp_path, layout,
     assert _printed(capsys.readouterr().out) == out
 
 
+def test_prefill_bench_large_logits_reads_k4_f32(monkeypatch, capsys):
+    """prefill_bench --large-logits reads K4's f32 route in each case of
+    K4_LARGE_CASES: its distances over the 1e-5 gate from its plain version
+    and from the exact answer. On the CPU the route is the plain version
+    itself, and at mean 1 f32 lies within the gate of the exact answer."""
+    monkeypatch.setattr(prefill_bench, "K4_LARGE_CASES",
+                        ((16, 1.0), (16, 3.0)))
+    out = prefill_bench.main(["--large-logits", "--device", "cpu"])
+    rows = out["large_logits"]
+    assert [(r["D"], r["mean"]) for r in rows] == [(16, 1.0), (16, 3.0)]
+    assert all(r["kernel_plain"] == 0.0
+               and r["kernel_exact"] == r["plain_exact"] for r in rows)
+    assert 0.0 < rows[0]["plain_exact"] <= 1.0
+    assert _printed(capsys.readouterr().out) == out
+
+
 def test_prefill_bench_attention_times_k4(monkeypatch, capsys):
     """prefill_bench --attention times flash_prefill alone in each case,
-    with the model's geometry (ALiBi slopes for BLOOM, KV heads for GQA)."""
-    calls = []
+    with the model's geometry (ALiBi slopes for BLOOM, KV heads for GQA),
+    in bf16 or, with --dtype f32, in f32."""
+    calls, dtypes = [], []
     inner = tattn.flash_prefill
 
     def spy(q, k, v, scale, slopes=None):
         calls.append((tuple(q.shape), k.shape[1], slopes is not None))
+        dtypes.append(q.dtype)
         return inner(q, k, v, scale, slopes)
 
     monkeypatch.setattr(tattn, "flash_prefill", spy)
@@ -242,6 +260,13 @@ def test_prefill_bench_attention_times_k4(monkeypatch, capsys):
                               "--reps", "1", "--device", "cpu"])
     assert [r["case"] for r in out["attention"]] == ["llama3-8b B=1 T=8"]
     assert set(calls) == {((1, 8, 32, 128), 8, False)}
+    calls.clear()
+    out = prefill_bench.main(["--attention", "--models", "llama3-8b",
+                              "--dtype", "f32", "--reps", "1", "--device",
+                              "cpu"])
+    assert [r["dtype"] for r in out["attention"]] == ["float32"]
+    assert set(calls) == {((1, 8, 32, 128), 8, False)}
+    assert dtypes[-1] == torch.float32 and dtypes[0] == torch.bfloat16
 
 
 def test_prefill_bench_kv_write_times_k10(monkeypatch, capsys):

@@ -28,7 +28,8 @@ from sleekit_tpu_torch.ops.pack import unpack_indices
 from sleekit_tpu_torch.serve.checkpoint import load_packed_params
 
 from tests._torch_port_util import (  # noqa: F401 (a fixture)
-    TINY_OPT, f32, one_torch_thread, run_main, t, tiny_opt_checkpoint)
+    TINY_OPT, f32, one_torch_thread, run_main, t, tf32_mma, tf32_rna,
+    tf32_trunc, tiny_opt_checkpoint)
 from tests.test_torch_dequant_matmul import PLANE_LUTS, _pair, _plane
 
 QUANT_ARGS = ["--model", TINY_OPT, "--samples", "16", "--seq-len", "32",
@@ -166,14 +167,6 @@ def test_f32_tile_plan_fills_the_sms(m, n, k):
     assert -(-k // 32) // splits >= tdm.F32_TILE_MIN_STEPS
 
 
-def _tf32(v):
-    """``v`` rounded to TF32 (10 mantissa bits) to nearest, ties away from
-    zero, as f32: what ``cvt.rna.tf32.f32`` gives."""
-    bits = np.ascontiguousarray(v, dtype=np.float32).view(np.uint32)
-    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
-        np.float32)
-
-
 def _tile_product(x, w, products):
     """x @ w as the tiled route forms it: each operand as hi = tf32(v) and
     lo = tf32(v - hi); the ``products`` a_lo*b_hi, a_hi*b_lo, a_hi*b_hi
@@ -184,8 +177,8 @@ def _tile_product(x, w, products):
     steps = x.shape[1] // 32
     xs = x.reshape(x.shape[0], steps, 32).transpose(1, 0, 2)
     ws = w.reshape(steps, 32, w.shape[1])
-    xh, wh = _tf32(xs), _tf32(ws)
-    xl, wl = _tf32(xs - xh), _tf32(ws - wh)
+    xh, wh = tf32_rna(xs), tf32_rna(ws)
+    xl, wl = tf32_rna(xs - xh), tf32_rna(ws - wh)
     terms = {3: [(xl, wh), (xh, wl), (xh, wh)], 2: [(xl, wh), (xh, wh)],
              1: [(xh, wh)]}[products]
     part = sum(np.matmul(a.astype(np.float64), b.astype(np.float64))
@@ -216,26 +209,10 @@ def test_split_tf32_holds_1e5_at_fc2(name):
     top = np.abs(plain).max()
     products = 3
     if name == "uniform4":
-        assert np.array_equal(_tf32(values), values)
+        assert np.array_equal(tf32_rna(values), values)
         products = 2
     assert np.abs(_tile_product(x, w, products) - plain).max() <= 1e-5 * top
     assert np.abs(_tile_product(x, w, 1) - plain).max() > 1e-5 * top
-
-
-def _mma(c, prods):
-    """One tensor-core sum as an H100 forms it (tests/test_torch_cuda.py
-    test_tf32_mma_truncates): the accumulator c (f32) and the exact
-    products, aligned to the largest, each truncated 25 bits below it,
-    summed, and the sum truncated to f32."""
-    terms = np.concatenate([c[:, None].astype(np.float64), prods], axis=1)
-    top = np.abs(terms).max(axis=1)
-    e = np.floor(np.log2(np.where(top > 0, top, 1.0)))
-    q = np.exp2(e - 25)[:, None]
-    total = (np.trunc(terms / q) * q).sum(axis=1)
-    f = total.astype(np.float32)
-    over = np.abs(f.astype(np.float64)) > np.abs(total)
-    f[over] = np.nextafter(f[over], np.float32(0))
-    return f
 
 
 @pytest.mark.parametrize("chain,holds", [(1024, False), (16, True)])
@@ -251,9 +228,9 @@ def test_tile_chain_holds_1e5(chain, holds):
     nf4 = np.asarray(PLANE_LUTS["nf4"], np.float32)
     w = nf4[rng.randint(0, 16, (k, n))]
     exact = x.astype(np.float64) @ w.astype(np.float64)
-    xh = (x.view(np.uint32) & np.uint32(0xFFFFE000)).view(np.float32)
-    xl, wh = _tf32(x - xh), _tf32(w)
-    wl = _tf32(w - wh)
+    xh = tf32_trunc(x)
+    xl, wh = tf32_rna(x - xh), tf32_rna(w)
+    wl = tf32_rna(w - wh)
     acc = np.zeros(m * n, np.float32)
     frag = acc.copy()
     for c in range(k // 8):
@@ -262,7 +239,7 @@ def test_tile_chain_holds_1e5(chain, holds):
         for a, b in ((xl, wh), (xh, wl), (xh, wh)):
             prods = (a[:, None, 8 * c:8 * c + 8].astype(np.float64)
                      * b[8 * c:8 * c + 8].T[None].astype(np.float64))
-            frag = _mma(frag, prods.reshape(m * n, 8))
+            frag = tf32_mma(frag, prods.reshape(m * n, 8))
         if c % chain == chain - 1:
             acc = (acc + frag).astype(np.float32)
     err = np.abs(acc.reshape(m, n) - exact).max() / np.abs(exact).max()
