@@ -10,10 +10,10 @@
    pool: bf16 q, int8 cache, bf16 scales), of the 4-bit 'plane'
    instantiations of both routes that the NF4 (K8) and int4 'plane' (K9)
    paths run, of the 4-bit f32 'plane' instantiations of both routes
-   (K8f's table and K9f's grid, streaming at 1, 2, 4 and 8 tokens and
-   tiled), of the main path's ``append_kernel`` instantiations (K10 at
-   prefill and T = 1) and of K4's f32 ``prefill_tf32_kernel`` at each
-   padded head dim (no spill allowed);
+   (K8f's table and K9f's grid, ``stream_tf32_kernel`` at M <= 8 and
+   ``f32_tile_kernel`` above), of the main path's ``append_kernel``
+   instantiations (K10 at prefill and T = 1) and of K4's f32
+   ``prefill_tf32_kernel`` at each padded head dim (no spill allowed);
 2. holds each kernel against its plain PyTorch version on the card at the
    shapes OPT-1.3B serving gives it, and times the kernel, the plain
    version and, where one exists, one PyTorch library call computing the
@@ -79,7 +79,7 @@
    int4 'plane') against their plain versions on the four projections of
    an OPT-1.3B layer at M = 8, 64 and 1024, timed as in 2 (K1 too, in 2);
    and K8f (NF4; the 8-bit affine grid at M = 8 and 512) and K9f
-   (uniform int4) with f32 x at M = 2, 8, 512 and 2048, and at fc2 with
+   (uniform int4) with f32 x at M = 1, 2, 4, 8, 512 and 2048, and at fc2 with
    x >= 0 (as after the relu) at M = 512 and 2048, within 1e-5 of the
    largest |output| of their plain versions (at x >= 0, where their f32
    product is itself off by more than that, of the same function with
@@ -119,10 +119,10 @@
    ``traces/prefill``, which must show 24 K10 and no PyTorch quantizer
    op); their result lines go to stdout;
 9. runs the quantizer on dense bf16 OPT-1.3B at full width (random
-   weights from seed 0, its first 4 layers: the CLI phase solves all 24):
+   weights from seed 0, its first 2 layers: the CLI phase solves all 24):
    calibrates on the JAX CLI's defaults (16 x 256 tokens of
    ``synthetic_stream``, batch 2; exactly 32 K4 launches), quantizes its
-   24 linears (light, 4 bits, packed; a resume directory in the temporary
+   12 linears (light, 4 bits, packed; a resume directory in the temporary
    directory, removed after), then resumes from it
    (nothing solved: the dequantized dense model of the same solve, to
    which every packed linear dequantizes within 1e-6);
@@ -131,7 +131,7 @@
    layer 0's fc1 on the card against the CPU (objective within 1e-3, 99%
    of the codewords equal); serves the packed model (q|k|v fused, int8
    head) as 3 serves the int4 model, and holds its prefill logits to the
-   dequantized dense model's (relative L2 <= 2^-6); solves the same 24
+   dequantized dense model's (relative L2 <= 2^-6); solves the same 12
    linears again with ``layer_parallel=True`` (each shape group as stacks
    in chunks that fit the card, no kernel launched), both routes' wall
    seconds, chunk sizes and peak memory printed: every layer's error
@@ -161,7 +161,7 @@
    prefill group, nothing else), the cold and steady runs' greedy tokens
    equal, slot and paged equal, and the slot run's prefill and decode
    logits, kernels vs plain versions, within a relative L2 of 1e-5
-   through layer 1 (measured through 24); then at 4 layers (CLI_DEPTH)
+   through layer 1 (measured through 24); then at 2 layers (CLI_DEPTH)
    quantizes with ``--codebook lloyd --eval-ppl`` (the same checks), and
    with the uniform codebook (int4 'pair', ``--eval-ppl`` on the plain
    route at f32), serves that checkpoint with ``serve_cli`` (K3 or K5, K4
@@ -178,7 +178,8 @@
    distribution,results}.py``): ``dump_stats`` writes OPT-125m's 72
    linears (full width and depth, random weights from seed 0, the JAX
    CLI's defaults) into the temporary directory, every Hessian finite;
-   each analysis CLI runs over layer 0's six linears (``bits`` at grid 5,
+   each analysis CLI runs over layer 0's linears but fc2 (ABLATION_SKIP;
+   fc2's shape is solved in 9 and 10) (``bits`` at grid 5,
    the others at 10, ``scaling`` with every ``--run-*`` flag) with the
    JAX CLIs' headers, finite values, local search never raising the
    error and 5 bits below 1 bit; ``distribution --save-data`` and
@@ -209,16 +210,16 @@
    replay-counted: 96 K1, 1 K2 and 24 K3 or K5 a step); then two spawned
    gloo ranks on this card, ``make_mesh(data=2, model=1)``, each serve
    their replica (the same tokens, no collective on the data axis while
-   serving), run ``calibrate(mesh=)`` at the quantize step's 4 layers of
+   serving), run ``calibrate(mesh=)`` at the quantize step's 2 layers of
    bf16 OPT-1.3B (counts equal to the single process's, statistics
    within DP_STATS_RTOL) and ``quantize_model(layer_parallel=True,
    pack=True, mesh=)`` (both ranks' words equal; held by the batched
    route's gates to the single process's batched route on the same
    statistics, and by DP_PIPELINE_*_RTOL on error to it on its own);
-14. prints the kernels line (K1-K15, K8f and K9f, with ``quantize``,
-   ``cli``, ``ablation``, ``tp`` and ``data_axis`` entries beside
-   ``engine``), the card's name and power limit, and, last, the result
-   line.
+14. prints each phase's wall seconds, the kernels line (K1-K15, K8f and
+   K9f, with ``quantize``, ``cli``, ``ablation``, ``tp``, ``data_axis``
+   and ``phases`` entries beside ``engine``), the card's name and power
+   limit, and, last, the result line.
 
 Any failure raises; there is no CPU branch and no fallback. It needs a
 CUDA device and exits non-zero without one.
@@ -353,16 +354,17 @@ def plane_rule(name: str):
 def f32_rule(name: str):
     """The 4-bit instantiations of K8f/K9f's two routes
     (``csrc/plane_f32.cu``), read from the mangled name: "K8f stream
-    MT=2" (``f32_stream_kernel<4, true, 2>``: the NF4 table, up to 2
-    tokens), "K9f tile" (``f32_tile_kernel<4, false>``), ...; None for
-    the others."""
-    m = re.search(r"f32_(stream|tile)_kernelILi4ELb([01])E(?:Li(\d)E)?",
-                  name)
+    TOK=4" (``stream_tf32_kernel<4, true, 4>``: the NF4 table, mma.sync
+    at M <= 4 with x's hi and lo in one n8), "K9f tile"
+    (``f32_tile_kernel<4, false>``), ...; None for the others."""
+    m = re.search(r"stream_tf32_kernelILi4ELb([01])ELi(\d)E", name)
+    if m is not None:
+        kern = "K8f" if m.group(1) == "1" else "K9f"
+        return f"{kern} stream TOK={m.group(2)}"
+    m = re.search(r"f32_tile_kernelILi4ELb([01])E", name)
     if m is None:
         return None
-    kern = "K8f" if m.group(2) == "1" else "K9f"
-    return f"{kern} {m.group(1)}" + (f" MT={m.group(3)}" if m.group(3)
-                                     else "")
+    return ("K8f" if m.group(1) == "1" else "K9f") + " tile"
 
 
 def k4_f32_rule(name: str):
@@ -572,8 +574,10 @@ def check_linears(dev, cfg, names, tp=1):
 
 
 # K8f/K9f's M on the f32 path: decode_perplexity's batch 2, serve_cli's
-# 8 slots, eval_ppl's forward (2 x 256) and serve_cli's 8 x 256 prefill.
+# 8 slots, eval_ppl's forward (2 x 256) and serve_cli's 8 x 256 prefill;
+# and the streaming route at 1 and 4 tokens (its n8 partly zero).
 F32_MS = (2, 8, 512, 2048)
+F32_DECODE_MS = (1, 4)
 
 
 def f32_bound(nbytes: float, flops: float, products: int):
@@ -591,7 +595,8 @@ def f32_bound(nbytes: float, flops: float, products: int):
 def check_linears_f32(dev, cfg):
     """K8f (the NF4 table; the 8-bit affine grid at M = 8 and 512) and K9f
     (the uniform int4 grid) on random 'plane' words of the four
-    projections of an OPT-1.3B layer, with f32 x, at F32_MS, and on fc2
+    projections of an OPT-1.3B layer, with f32 x, at F32_MS and
+    F32_DECODE_MS, and on fc2
     with x >= 0 (as after the relu, the worst case for a sum's bias) at
     M = 512 and 2048: within 1e-5 of the largest |output| of the plain
     version (f32, the table unrounded; the plain product with TF32 off)
@@ -615,9 +620,9 @@ def check_linears_f32(dev, cfg):
     nf4 = Codebook.nf4().values.to(dev)
     grid8 = (2.0 / 255, -1.0)
     grid, pos = " (8-bit grid)", " (x >= 0)"
-    runs = [("K8f", "", m, shapes) for m in F32_MS]
+    runs = [("K8f", "", m, shapes) for m in F32_MS + F32_DECODE_MS]
     runs += [("K8f", grid, m, shapes) for m in (8, 512)]
-    runs += [("K9f", "", m, shapes) for m in F32_MS]
+    runs += [("K9f", "", m, shapes) for m in F32_MS + F32_DECODE_MS]
     runs += [(kern, pos, m, shapes[3:]) for kern in ("K8f", "K9f")
              for m in (512, 2048)]
     cases = {"K8f": [], "K9f": []}
@@ -705,12 +710,13 @@ def check_linears_f32(dev, cfg):
             b_ms, b_by, f32_ms, tf32_ms = f32_bound(
                 nbytes, flops, 3 if kern == "K8f" else 2)
             plan = (dm.f32_tile_plan(m, N, K, dm._sms(0))
-                    if m > dm.DECODE_M else None)
+                    if m > dm.DECODE_M else
+                    dm.f32_stream_plan(N, kw_rows, nbits, dm._sms(0))[1])
             cases[kern].append(dict(
                 case=f"{name} M={m}{label}", max_abs_err=err,
                 rel_err=err / top, ms=ms, plain_ms=plain_ms,
                 library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-                f32_ops_ms=f32_ms, tf32_ops_ms=tf32_ms, tile_splits=plan,
+                f32_ops_ms=f32_ms, tf32_ops_ms=tf32_ms, k_splits=plan,
                 f32_product_rel_err=f32_err, bytes=nbytes, flops=flops))
             log(f"{kern} {name:4s} M={m:5d} K={K} N={N}{label}: err "
                 f"{err:.3g} ({err / top:.3g} of max) | kernel {ms:.4f} ms "
@@ -719,12 +725,13 @@ def check_linears_f32(dev, cfg):
                 f"{F32_FLOP_PER_S / 1e12:.0f} TFLOP/s {f32_ms:.4f} ms, split "
                 f"TF32 {TF32_FLOP_PER_S / 1e12:.0f} TFLOP/s {tf32_ms:.4f} ms:"
                 f" {'split TF32' if tf32_ms < f32_ms else 'f32'} bounds)"
-                + (f" K splits {plan}" if plan else "")
+                + f" K splits {plan}"
                 + (f"; held to the exact product, which the plain version "
                    f"misses by {f32_err:.3g} of max" if f32_err is not None
                    else ""))
     for kern, cs in cases.items():
-        for m, label in [(m, "") for m in F32_MS] + [(8, grid), (512, grid)]:
+        for m, label in [(m, "") for m in sorted(F32_MS + F32_DECODE_MS)] + [
+                (8, grid), (512, grid)]:
             mc = [c for c in cs if c["case"].endswith(f" M={m}{label}")]
             if not mc:
                 continue
@@ -2220,7 +2227,7 @@ def run_layouts(dev, cfg, card, state):
 CALIB_SAMPLES, CALIB_LEN, CALIB_BATCH = 16, 256, 2
 # The quantize phase's layers of OPT-1.3B at full width: the CLI phase
 # solves all 24.
-QUANT_DEPTH = 4
+QUANT_DEPTH = 2
 
 
 def make_prompts(cfg):
@@ -2696,7 +2703,7 @@ SERVE_ARGS = ["--kv", "int8", "--random", "8", "--prompt-len", "256",
               "--max-new-tokens", "32"]
 # The lloyd, uniform, spill and drain runs' layers of OPT-1.3B (the NF4 run
 # takes all 24).
-CLI_DEPTH = 4
+CLI_DEPTH = 2
 
 
 def hf_opt_state_dict(params, n_layers, dtype=torch.float16):
@@ -3274,7 +3281,7 @@ def run_cli(dev, card):
                                         "NF4", "K8f")
         torch.cuda.empty_cache()
 
-        # The 4-layer runs, from a 4-layer name of OPT-1.3B.
+        # The CLI_DEPTH-layer runs, from a name of OPT-1.3B at that depth.
         name = f"opt-1.3b-{CLI_DEPTH}l"
         cfg4 = dataclasses.replace(cfg, n_layers=CLI_DEPTH)
         zoo.ZOO[name] = lambda **kw: dataclasses.replace(
@@ -3382,6 +3389,9 @@ ABLATIONS = (
 # dump_stats's model: OPT-125m at full width and depth, on the JAX CLI's
 # defaults (8 x 128 tokens, batch 2, seed 0).
 ABLATION_MODEL = "opt-125m"
+# The analysis CLIs leave out layer 0's fc2: its 3072-wide Hessian is most
+# of their solves' work, and the quantize and CLI phases solve its shape.
+ABLATION_SKIP = ("layers_0_fc2",)
 
 
 def quiet(main, argv):
@@ -3399,11 +3409,12 @@ def run_ablation(card):
     OPT-125m's 72 linears (random weights from seed 0, its calibration on
     the card; the launches it makes are counted) into the temporary
     directory, every Hessian finite; then each analysis CLI runs over
-    layer 0's six linears (a root holding only them), ``bits`` at grid 5
-    and the others at grid 10, ``scaling`` with every ``--run-*`` flag:
-    the JAX CLIs' headers, the six layer names, every value finite,
-    GPTQ+LS100 <= 1.001 x GPTQ, the 5-bit standard error below the 1-bit
-    one; ``distribution --save-data`` writes every weight of the six;
+    layer 0's linears but ABLATION_SKIP (a root holding only them),
+    ``bits`` at grid 5 and the others at grid 10, ``scaling`` with every
+    ``--run-*`` flag: the JAX CLIs' headers, the five layer names, every
+    value finite, GPTQ+LS100 <= 1.001 x GPTQ, the 5-bit standard error
+    below the 1-bit one; ``distribution --save-data`` writes every weight
+    of the five;
     ``results`` on compare's table names SleekitHeavy. Returns each CLI's
     seconds, dump_stats's launches and bytes."""
     m = {"seconds": {}}
@@ -3438,7 +3449,8 @@ def run_ablation(card):
             f"{m['dump_stats_launches']} ({out.strip()}; {card})")
 
         root = os.path.join(tmp, "layer0")
-        layer0 = [n for n in names if n.startswith("layers_0_")]
+        layer0 = [n for n in names if n.startswith("layers_0_")
+                  and n not in ABLATION_SKIP]
         for name in layer0:
             os.makedirs(os.path.join(root, name))
             for f in os.listdir(os.path.join(data, name)):
@@ -3466,7 +3478,7 @@ def run_ablation(card):
                     raise AssertionError(f"ablation: {r[0]}'s 5-bit "
                                          f"error is not below its 1-bit one")
             tables[what] = out
-            log(f"ablation: {what} over layer 0's six linears: "
+            log(f"ablation: {what} over layer 0's {len(layer0)} linears: "
                 f"{m['seconds'][what]:.1f} s ({card})")
             for line in out.strip().split("\n"):
                 log(f"ablation:   {line}")
@@ -4221,9 +4233,18 @@ def main():
     log(f"device: {torch.cuda.get_device_name(0)} ({smi}); torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
 
-    t0 = time.perf_counter()
-    built = kernels.build(ptxas_verbose=True)
-    log(f"build: {time.perf_counter() - t0:.1f} s wall "
+    seconds = {}  # each phase's wall seconds
+
+    def phase(name, fn, *a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            seconds[name] = round(seconds.get(name, 0.0)
+                                  + time.perf_counter() - t0, 1)
+
+    built = phase("build", kernels.build, ptxas_verbose=True)
+    log(f"build: {seconds['build']:.1f} s wall "
         + json.dumps({k: round(v['seconds'], 1) for k, v in built.items()}))
     if "dequant_matmul.cu" in built:
         stream_ptxas = ptxas_report(built["dequant_matmul.cu"]["log"],
@@ -4275,14 +4296,15 @@ def main():
     if "plane_f32.cu" in built:
         f32_log = built["plane_f32.cu"]["log"]
         f32_ptxas = {
-            **ptxas_report(f32_log, "f32_stream_kernel", f32_rule),
+            **ptxas_report(f32_log, "stream_tf32_kernel", f32_rule),
             **ptxas_report(f32_log, "f32_tile_kernel", f32_rule)}
-        if len(f32_ptxas) != 10:
+        if len(f32_ptxas) != 6:
             raise AssertionError(f"ptxas: the 4-bit K8f/K9f instantiations "
                                  f"not found: {f32_ptxas}")
-        log("ptxas, 4-bit 'plane' f32 routes (K8f NF4, K9f int4; stream at "
-            "MT tokens, tile 128 x 128 split-TF32): [registers, spill store "
-            "bytes, spill load bytes] " + json.dumps(f32_ptxas))
+        log("ptxas, 4-bit 'plane' f32 routes (K8f NF4, K9f int4; stream: "
+            "mma.sync at M <= 8, TOK = 4 at M <= 4; tile: 128 x 128 wgmma; "
+            "both split TF32): [registers, spill store bytes, spill load "
+            "bytes] " + json.dumps(f32_ptxas))
         spilled = {k: v for k, v in f32_ptxas.items() if v[1] or v[2]}
         if spilled:
             raise AssertionError(f"ptxas: K8f/K9f spill: {spilled}")
@@ -4309,44 +4331,48 @@ def main():
 
     cfg = opt_1b3(dtype=torch.bfloat16)
     g = torch.Generator().manual_seed(0)
-    cases = {**check_linears(dev, cfg, ["K1"]), "K2": check_k2(dev, g, cfg),
-             "K3": check_k3(dev, g, cfg), "K4": check_k4(dev),
-             **check_paged(dev, g, cfg)}
-    k4_large = check_k4_f32_large_logits(dev)
+    cases = phase("kernels", lambda: {
+        **check_linears(dev, cfg, ["K1"]), "K2": check_k2(dev, g, cfg),
+        "K3": check_k3(dev, g, cfg), "K4": check_k4(dev),
+        **check_paged(dev, g, cfg)})
+    k4_large = phase("kernels", check_k4_f32_large_logits, dev)
     # K10's first case, the one its row reports, is the main path's.
-    cases["K10"] = check_k10_prefill(dev) + cases["K10"]
-    launches, engine, state = run_engine(dev, cfg, smi)
-    paged_launches, paged_metrics, pool = run_paged_engine(dev, cfg, smi,
-                                                           state)
+    cases["K10"] = phase("kernels", check_k10_prefill, dev) + cases["K10"]
+    launches, engine, state = phase("engine", run_engine, dev, cfg, smi)
+    paged_launches, paged_metrics, pool = phase(
+        "paged_engine", run_paged_engine, dev, cfg, smi, state)
     launches["K5"] = paged_launches["K5"]
-    split_launches, split_metrics = run_split(dev, cfg, state, pool)
+    split_launches, split_metrics = phase("split", run_split, dev, cfg,
+                                          state, pool)
     for name, n in split_launches.items():   # K10: the main path's count
         launches.setdefault(name, n)
     engine.update(paged_metrics, **split_metrics)
-    engine.update(run_ew_engine(dev, cfg, state, smi))
-    engine.update(run_sampled(dev, cfg, state, smi))
-    cases.update(check_linears(dev, cfg, ["K6", "K7", "K8", "K9"]))
-    cases.update(check_linears_f32(dev, cfg))
-    layout_launches, layout_metrics = run_layouts(dev, cfg, smi, state)
+    engine.update(phase("ew_engine", run_ew_engine, dev, cfg, state, smi))
+    engine.update(phase("sampled", run_sampled, dev, cfg, state, smi))
+    cases.update(phase("linears", check_linears, dev, cfg,
+                       ["K6", "K7", "K8", "K9"]))
+    cases.update(phase("linears_f32", check_linears_f32, dev, cfg))
+    layout_launches, layout_metrics = phase("layouts", run_layouts, dev, cfg,
+                                            smi, state)
     launches.update(layout_launches)
     engine.update(layout_metrics)
-    engine.update(run_perplexity(dev, cfg, state, smi))
+    engine.update(phase("perplexity", run_perplexity, dev, cfg, state, smi))
     del state, pool
-    benches = run_benches(cfg, os.path.join(ROOT, "traces"))
+    benches = phase("benches", run_benches, cfg, os.path.join(ROOT, "traces"))
     torch.cuda.empty_cache()
-    quant = run_quantize(dev, dataclasses.replace(cfg, n_layers=QUANT_DEPTH),
-                         smi)
+    quant = phase("quantize", run_quantize, dev,
+                  dataclasses.replace(cfg, n_layers=QUANT_DEPTH), smi)
     torch.cuda.empty_cache()
-    cli, path = run_cli(dev, smi)
+    cli, path = phase("cli", run_cli, dev, smi)
     launches.update(path)
     torch.cuda.empty_cache()
-    ablation = run_ablation(smi)
+    ablation = phase("ablation", run_ablation, smi)
     torch.cuda.empty_cache()
-    tp, tp_cases = run_tp(dev, cfg, smi)
+    tp, tp_cases = phase("tp", run_tp, dev, cfg, smi)
     for name, cs in tp_cases.items():
         cases[name] = cases[name] + cs   # after the main path's cases
     torch.cuda.empty_cache()
-    data_axis = run_data_axis(dev, cfg, smi, engine)
+    data_axis = phase("data_axis", run_data_axis, dev, cfg, smi, engine)
 
     rows = []
     for k in (K1, K2, K3, K4, K5, K6, K7, K8, K9, K10, K11, K12, K13, K14,
@@ -4377,10 +4403,13 @@ def main():
     engine["ptxas_append_kernel"] = append_ptxas
     engine["ptxas_k4_f32"] = k4_ptxas
     engine["k4_f32_large_logits"] = k4_large
-    log(f"chip_smoke: {time.perf_counter() - start:.1f} s ({smi})")
+    seconds["total"] = round(time.perf_counter() - start, 1)
+    log("phases (wall s): " + json.dumps(seconds))
+    log(f"chip_smoke: {seconds['total']:.1f} s ({smi})")
     print(json.dumps({"kernels": rows, "engine": engine, "quantize": quant,
                       "cli": cli, "ablation": ablation, "tp": tp,
-                      "data_axis": data_axis, "benches": benches}))
+                      "data_axis": data_axis, "benches": benches,
+                      "phases": seconds}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -104,6 +104,16 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// c += a b over one m16n8k8 TF32 tile (f32 accumulator; the tensor cores
+// read the top 19 bits of each operand register).
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // The transposed fragments of four 8 x 8 bf16 matrices: lane l gives the
 // address of a row of matrix l / 8, and receives, of each matrix, the
 // elements (2*(l%4), l/4) and (2*(l%4) + 1, l/4), the lower row in the

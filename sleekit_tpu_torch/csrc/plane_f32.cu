@@ -1,7 +1,6 @@
 // Kernels K8f and K9f of the port: dequantize + matmul over the 'plane'
-// layout at f32 activations, held to f32 accuracy: f32 operands and
-// accumulation on the CUDA cores at M <= 8, the split-TF32 product on the
-// tensor cores above.
+// layout at f32 activations, held to f32 accuracy: split-TF32 products on
+// the tensor cores at every M, mma.sync at M <= 8, wgmma above.
 //
 // Replaces (x f32, where the JAX kernel's compute_dtype is f32):
 //   K8f sleekit_tpu/ops/dequant_matmul.py  _pallas_impl / _kernel
@@ -32,40 +31,71 @@
 // the tensor cores bound it.
 //
 // What the design does about it:
-// - Streaming route (M <= 8): a lane owns 4 consecutive columns, so a
-//   warp's word loads are 16 bytes a lane of one word row (512
-//   consecutive bytes). K is walked in units of UR word rows of one tile
-//   (32 K rows, 40 at 3 bits): the lane loads the next unit's words
-//   while this unit's run, the warp stages the unit's x (tokens
-//   innermost, MT of them) in its own shared memory, and each field is
-//   one FMA into each of MT x 4 accumulators with x broadcast from shared
-//   memory. K is split over a block's 8 warps and over blocks
-//   (ops/dequant_matmul.py f32_stream_plan) so that OPT-1.3B's N = 2048
-//   fills the SMs; the warps' sums meet in shared memory in warp order,
-//   the blocks' through partials that the last block of a column strip
-//   to take a ticket adds in split order (the tickets are 0 between
-//   launches: that block resets its own), so every run of a call gives
-//   the same bits, eager or replayed.
+// - Both routes split each operand into two TF32 values whose products on
+//   the tensor cores sum to the f32 product: w_lo*x_hi + w_hi*x_lo, then
+//   w_hi*x_hi (K9f's C - 1.5 is exact in TF32: without w_lo); w_lo*x_lo
+//   (about 2^-21 of it) is dropped. The tensor cores align a sum's terms
+//   to the largest, truncate each 25 bits below it and truncate the sum
+//   to f32 (tests/test_torch_cuda.py test_tf32_mma_truncates), a bias
+//   towards zero of up to one f32 step an instruction: over fc2's K = 8192
+//   in one chain, 5e-5 to 8e-5 of the largest output with x >= 0
+//   (tests/test_torch_plane_f32.py). So every chain is short: fresh
+//   fragments, then added into f32 accumulators with __fadd_rn.
+// - Streaming route (M <= 8), stream_tf32_kernel: the operands swap, as
+//   in K1's decode route (dequant_routes.cuh): the decoded weight is the
+//   A operand of mma.sync m16n8k8 TF32 (16 columns by 8 K rows) and the
+//   tokens the n8 B operand (its columns past M zero). K order inside a k8
+//   step is free where A and B share it: step s of a unit is field s of 8
+//   consecutive word rows (8 consecutive K rows), and lane (g, t) holds K
+//   rows 2t and 2t + 1 of it, so its A registers come straight from the
+//   two word rows it loaded (16 bytes of each: 4 columns, so a warp's load
+//   of a row is 128 consecutive bytes) and its B registers from one 8-byte
+//   load of x. Every word serves all its fields: a unit is 8 word rows by
+//   all of a word's fields (8 at 1 and 2 bits, whose words load again for
+//   the rest, from L1). A weight's hi is its value itself (the tensor
+//   cores read its top 19 bits) and lo the rest (2 operations); K8f takes
+//   the value from an f32 table in shared memory (2 integer operations and
+//   a 4-byte lookup; a (hi, lo) table's 8-byte lookups measured no faster
+//   on the card), K9f builds C - 1.5 under the exponent of 1.0 (3
+//   operations). x's hi is the nearest TF32 (cvt.rna.tf32's value,
+//   by integer rounding of the bits) and lo = x - hi (centred: no bias).
+//   At M <= 4 (TOK = 4) x's hi fills columns 0-3 of the n8 and its lo
+//   columns 4-7, so one mma forms both of a weight part's products with x
+//   (K8f 2 mma a k8 step, K9f 1; at TOK = 8, 3 and 2); the hi and lo
+//   columns meet at the end. Each kind of product sums in a fragment of
+//   its own, fresh each unit (8 k8 steps at 4 bits), then into f32
+//   accumulators. A block is a 32-column strip (two m16 tiles a warp; a
+//   strip of one tile measured no faster on the card) over a K slice
+//   split over its warps, each with the next unit's words and x in flight
+//   in registers while this unit's products run; the warps' sums meet in
+//   shared memory in warp order. Where the strips alone leave SMs idle
+//   (o and fc2 of OPT-1.3B: 64 strips) K is split over blocks too
+//   (ops/dequant_matmul.py f32_stream_plan: a power of two, at most 8,
+//   keeping the blocks within one an SM, so that all of a launch's
+//   clusters are resident at once; then 16 warps a block), and a strip's
+//   splits form one thread block cluster along K: each
+//   block stores its sums into the first block's shared memory and
+//   arrives at a cluster barrier; the first alone waits, adds them in
+//   rank order and finishes. No partials go to device memory and no
+//   ticket or fence is needed, so every run of a call gives the same
+//   bits, eager or replayed in a CUDA graph. Each launch is the
+//   programmatic dependent of the kernel before it: it starts, and loads
+//   its words, table, scale and bias (the layer's constants), while that
+//   kernel ends, and waits for it (griddepcontrol.wait) before it reads x
+//   or writes.
+//   What bounds it on the card (PERF.md): not the bytes (the four
+//   projections take several times their bytes bound); timed ablations
+//   put it in the decode's instruction issue (about 60 instructions a
+//   warp's k8 step of 256 weights) and each launch's fixed cost, not in
+//   the loads or the number of mma.
 // - Tiled route (M > 8), f32_tile_kernel: wgmma (m64 n128 k8)
 //   TF32 on split operands, both from shared memory, K-major, with the
-//   128-byte swizzle (a step's 32 K rows are one 128-byte row). A weight
-//   value v is hi = cvt.rna.tf32(v) plus lo = cvt.rna.tf32(v - hi) (v - hi
-//   exact), split once a block into a (hi, lo) table in shared memory, so
-//   a weight decodes into both halves with one lookup; K9f's C - 1.5 is
-//   exact in TF32 (lo = 0). x is staged as it comes and the tensor cores
-//   read its top 19 bits (hi = v truncated), beside lo = cvt.rna.tf32(v -
-//   hi) from that same hi: hi + lo is within 2^-21 |v|. A product is
-//   a_lo*b_hi + a_hi*b_lo, then a_hi*b_hi, into one accumulator (K9f
-//   without a_hi*b_lo); a_lo*b_lo (about 2^-21 of it) is dropped.
-//   Accumulation: the tensor cores align a sum's terms to the largest,
-//   truncate each 25 bits below it and truncate the sum to f32
-//   (tests/test_torch_cuda.py test_tf32_mma_truncates), a bias towards
-//   zero of up to one f32 step an instruction: over fc2's K = 8192 in one
-//   chain, 8e-5 of the largest output in an emulation with x >= 0
-//   (tests/test_torch_plane_f32.py test_tile_chain_holds_1e5). So the
-//   chains are short: the fragment starts afresh every TILE_CHAIN = 4
-//   steps (48 wgmma of 8 K, 32 for K9f) and is then added into f32
-//   accumulators with __fadd_rn (1.4e-6 in the same emulation).
+//   128-byte swizzle (a step's 32 K rows are one 128-byte row); x is
+//   staged as it comes and the tensor cores read its top 19 bits (hi = v
+//   truncated), beside lo = cvt.rna.tf32(v - hi) from that same hi: hi +
+//   lo is within 2^-21 |v|. The fragment starts afresh every TILE_CHAIN =
+//   4 steps (48 wgmma of 8 K, 32 for K9f; 1.4e-6 of the largest output in
+//   the emulation, test_tile_chain_holds_1e5).
 //   Tile and grid: 128 x 128 outputs a block (64 rows a consumer
 //   warpgroup, wgmma m64 n128 k8), and a K split over blocks with the
 //   streaming route's self-resetting tickets where that finishes first
@@ -87,17 +117,26 @@
 //   NF4 (149,072 for K9f); ptxas: 128 registers a thread at launch, no
 //   spills.
 // - K9f's row sums are summed in f32 on the CUDA cores inside the launch
-//   from the staged x, in a fixed order: at M <= 8 by the warps, above by
-//   the producers (4 values pairwise, over a row's 8 lanes, Kahan over the
-//   steps). The epilogue applies a, b, scale and bias and writes f32.
+//   in a fixed order: at M <= 8 by the lanes that load x (a step's pair, a
+//   unit's steps, Kahan over the units; then the lanes of a token, the
+//   warps and the cluster's ranks in order), above by the producers (4
+//   values pairwise, over a row's 8 lanes, Kahan over the steps). The
+//   epilogue applies a, b, scale and bias and writes f32.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int NWARPS = THREADS / 32;
+constexpr int NWARPS = 8;  // a streaming block's warps, twice that where K
+                           // splits
 constexpr int PLANE_ROWS = 32;  // word rows per plane tile
-constexpr int SCOLS = 128;      // streaming block's columns: 4 a lane
+constexpr int TILES = 2;        // streaming route: m16 tiles a warp
+constexpr int COLS = 16 * TILES, CPL = 2 * TILES;  // a strip's, a lane's
+constexpr int UNIT_ROWS = 8;    // streaming route: word rows a unit
+constexpr int MAX_CLUSTER = 8;  // streaming route: K splits at most
 constexpr int TILE_M = 128;      // tiled route's block rows: 64 a consumer
 constexpr int TILE_N = 128;      // and columns
 constexpr int PRODUCERS = 256;   // tiled route: warpgroups 0, 1 stage
@@ -116,10 +155,9 @@ struct Args {
   float a, b;  // K9f: out = (a*acc + b*rowsum)*scale + bias
 };
 
-// The K split over blocks: splits slices, and above one the partial sums
-// (splits, M, N), then K9f's partial row sums (splits, strips of 128
-// columns, M), and one ticket per column strip (streaming route) or per
-// tile (tiled route), 0 between launches.
+// The tiled route's K split over blocks: splits slices, and above one the
+// partial sums (splits, M, N), then K9f's partial row sums (splits, strips
+// of 128 columns, M), and one ticket per tile, 0 between launches.
 struct Split {
   float* part;
   int* tickets;
@@ -142,25 +180,47 @@ __device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
   lo = tf32_rna(__fsub_rn(v, __uint_as_float(hi)));
 }
 
+// x as hi + lo for the streaming route's B operand: hi the nearest TF32
+// (cvt.rna.tf32's value: the bits rounded half away from zero at bit 13),
+// lo = x - hi, exact in f32 and centred on 0 (the tensor cores read its
+// top 19 bits).
+__device__ __forceinline__ void split_rn(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+  lo = __float_as_uint(__fsub_rn(x, __uint_as_float(hi)));
+}
+
+// v - hi, hi the top 19 bits of v (the TF32 value the tensor cores read
+// of it): exact in f32, at most 13 significant bits, of v's sign.
+__device__ __forceinline__ float low_part(float v) {
+  return __fsub_rn(v, __uint_as_float(__float_as_uint(v) & 0xFFFFE000u));
+}
+
 template <int NB, bool LUT>
 struct Rule {
   static constexpr int VPW = NB == 3 ? 10 : 32 / NB;  // fields a word
   static constexpr int BK = PLANE_ROWS * VPW;         // K rows a tile
-  static constexpr int UR = NB == 3 ? 4 : 32 / VPW;   // word rows a unit
-  static constexpr int UK = UR * VPW;                 // K rows a unit
   static constexpr uint32_t MASK = (1u << NB) - 1u;
-  static constexpr int TAB = LUT ? 1 << NB : 1;
-  static_assert(PLANE_ROWS % UR == 0, "a unit lies in one tile");
+  // Streaming route: a unit is UNIT_ROWS word rows of a tile by STEPS of
+  // their fields (one k8 step each), SUB units a row group.
+  static constexpr int STEPS = VPW > 10 ? 8 : VPW;
+  static constexpr int SUB = VPW / STEPS;
+  static_assert(VPW % STEPS == 0 && PLANE_ROWS % UNIT_ROWS == 0,
+                "plane tile geometry");
+  static_assert(LUT || NB <= 10, "C - 1.5 is exact in TF32");
 
-  // K8f: the table in shared memory, f32 as given (the 8-bit grid as
-  // the plain version computes it: a product, then a sum, each rounded).
-  // Every thread of the block calls it.
+  // K8f's value of index i: the table's (0 past ksize) or the 8-bit grid's
+  // as the plain version computes it (a product, then a sum, each
+  // rounded).
+  static __device__ __forceinline__ float lut_value(const Table& t, int i) {
+    return t.lut ? (i < t.ksize ? __ldg(t.lut + i) : 0.0f)
+                 : __fadd_rn(__fmul_rn((float)i, t.step), t.zero);
+  }
+
+  // The streaming route's table: K8f's values, f32 as given. Every thread
+  // of the block calls it.
   static __device__ __forceinline__ void setup(float* tab, const Table& t) {
-    if constexpr (LUT) {
-      for (int i = threadIdx.x; i < (1 << NB); i += blockDim.x)
-        tab[i] = t.lut ? (i < t.ksize ? t.lut[i] : 0.0f)
-                       : __fadd_rn(__fmul_rn((float)i, t.step), t.zero);
-    }
+    for (int i = threadIdx.x; i < (1 << NB); i += blockDim.x)
+      tab[i] = lut_value(t, i);
     __syncthreads();
   }
 
@@ -172,212 +232,320 @@ struct Rule {
     for (int i = threadIdx.x; i < (1 << NB); i += blockDim.x) {
       if constexpr (LUT) {
         uint32_t hi, lo;
-        split_tf32(t.lut ? (i < t.ksize ? t.lut[i] : 0.0f)
-                         : __fadd_rn(__fmul_rn((float)i, t.step), t.zero),
-                   hi, lo);
+        split_tf32(lut_value(t, i), hi, lo);
         tab[2 * i] = __uint_as_float(hi);
         tab[2 * i + 1] = __uint_as_float(lo);
       } else {
-        tab[i] = value((uint32_t)i, 0, nullptr);
+        tab[i] = __fsub_rn(__fmul_rn((float)i, 1.0f / (1 << NB)), 0.5f);
       }
     }
     __syncthreads();
   }
 
-  // The weight of field j of word w: v[idx], or C - 1.5 = idx/2^NB - 0.5.
-  static __device__ __forceinline__ float value(uint32_t w, int j,
-                                                const float* tab) {
-    const uint32_t idx = (w >> (NB * j)) & MASK;
+  // Streaming route: field s of word v as an A register's hi and lo (hi
+  // the value itself: the tensor cores read its top 19 bits). K8f: the
+  // field times 4 (2 integer operations) is the byte offset of its value
+  // in the table, and lo its low part (2 operations; a (v, lo) table's
+  // 8-byte lookups measured no faster on the card); K9f: C - 1.5, the
+  // field under the exponent of 1.0 (2 operations) minus 1.5 (exact in
+  // TF32; lo 0, unused).
+  static __device__ __forceinline__ void weight(uint32_t v, int s,
+                                                const float* tab,
+                                                uint32_t& hi, uint32_t& lo) {
+    const int p = NB * s;  // a constant where the steps unroll
     if constexpr (LUT) {
-      return tab[idx];
+      const float e = *reinterpret_cast<const float*>(
+          reinterpret_cast<const char*>(tab) +
+          ((p >= 2 ? v >> (p - 2) : v << (2 - p)) & (MASK << 2)));
+      hi = __float_as_uint(e);
+      lo = __float_as_uint(low_part(e));
     } else {
-      return __fsub_rn(__fmul_rn((float)idx, 1.0f / (1 << NB)), 0.5f);
+      constexpr int Q = 23 - NB;  // the field's place under the exponent
+      const uint32_t c =
+          ((p >= Q ? v >> (p - Q) : v << (Q - p)) & (MASK << Q)) |
+          0x3F800000u;
+      hi = __float_as_uint(__fsub_rn(__uint_as_float(c), 1.5f));
+      lo = 0u;
     }
   }
 };
 
-// Output column n from its sum s (and K9f's row sum r).
+// An output from its column's sum s (and K9f's row sum r), the column's
+// scale sc and bias bi.
 template <bool LUT>
-__device__ __forceinline__ float value_out(const Args& g, int n, float s,
-                                           float r) {
-  float y = LUT ? __fmul_rn(s, g.scale[n])
+__device__ __forceinline__ float value_out(const Args& g, float s, float r,
+                                           float sc, float bi) {
+  float y = LUT ? __fmul_rn(s, sc)
                 : __fmul_rn(__fadd_rn(__fmul_rn(g.a, s), __fmul_rn(g.b, r)),
-                            g.scale[n]);
-  return g.bias ? __fadd_rn(y, g.bias[n]) : y;
+                            sc);
+  return g.bias ? __fadd_rn(y, bi) : y;
 }
 
-template <bool LUT>
-__device__ __forceinline__ void store(const Args& g, int m, int n, float s,
-                                      float r) {
-  g.out[(size_t)m * g.N + n] = value_out<LUT>(g, n, s, r);
+// s += v with Kahan's compensation c (K9f's row sums).
+__device__ __forceinline__ void kahan_add(float& s, float& c, float v) {
+  const float y = __fsub_rn(v, c);
+  const float t = __fadd_rn(s, y);
+  c = __fsub_rn(__fsub_rn(t, s), y);
+  s = t;
 }
 
-// Columns n .. n + 3 of word row r: one 16-byte load where vec, else four
-// 4-byte ones; zeros past N.
-__device__ __forceinline__ void load4(const int* words, int r, int N, int n,
-                                      bool vec, uint32_t (&w)[4]) {
-  const int* p = words + (size_t)r * N + n;
-  if (vec) {
-    uint4 q = make_uint4(0u, 0u, 0u, 0u);
-    if (n < N) q = __ldg(reinterpret_cast<const uint4*>(p));
-    w[0] = q.x;
-    w[1] = q.y;
-    w[2] = q.z;
-    w[3] = q.w;
-  } else {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) w[c] = n + c < N ? (uint32_t)__ldg(p + c) : 0u;
-  }
-}
-
-// MT consecutive floats of shared memory (MT = 1, 2, 4 or 8).
-template <int MT>
-__device__ __forceinline__ void load_tokens(const float* p, float (&v)[MT]) {
-  if constexpr (MT >= 4) {
-#pragma unroll
-    for (int q = 0; q < MT / 4; ++q) {
-      const float4 f = reinterpret_cast<const float4*>(p)[q];
-      v[4 * q] = f.x;
-      v[4 * q + 1] = f.y;
-      v[4 * q + 2] = f.z;
-      v[4 * q + 3] = f.w;
-    }
-  } else if constexpr (MT == 2) {
-    const float2 f = *reinterpret_cast<const float2*>(p);
-    v[0] = f.x;
-    v[1] = f.y;
-  } else {
-    v[0] = p[0];
-  }
-}
-
-// The streaming route at M <= MT <= 8: block (x, y) takes the SCOLS-column
-// strip x over K slice y of sp.splits (units in equal shares), its warps
-// over 8 sub-slices.
-template <int NB, bool LUT, int MT>
-__global__ void __launch_bounds__(THREADS)
-    f32_stream_kernel(Args g, Split sp, Table t) {
+// The streaming route at M <= TOK (4 or 8): block (x, y) takes the
+// COLS-column strip x over K slice y of gridDim.y (units in equal shares),
+// split again over its warps; the gridDim.y blocks of a strip form a
+// cluster along K. Lane (g, t) holds columns CPL g .. CPL g + CPL - 1 of
+// the strip and, of every k8 step, K rows 2t and 2t + 1 (word rows 2t, 2t
+// + 1 of the unit) and the n8 column g: at TOK = 8 token g's x as hi and
+// lo; at TOK = 4 token g % 4's x hi (g < 4) or lo (g >= 4), so that one
+// mma forms both of a weight part's products with x. Tile i takes its rows
+// g and g + 8 from the lane's columns 2i and 2i + 1. A block has NWARPS
+// warps, or twice as many where K splits (then the blocks are at most one
+// an SM); either way at most 128 registers a thread.
+template <int NB, bool LUT, int TOK>
+__global__ void __launch_bounds__(64 * NWARPS, 1)
+    stream_tf32_kernel(Args g, Table t) {
   using R = Rule<NB, LUT>;
-  __shared__ float tab[R::TAB];
-  __shared__ __align__(16) float xs[NWARPS][R::UK][MT];
-  __shared__ __align__(16) float red[NWARPS][MT][SCOLS];
-  __shared__ float rsw[NWARPS][MT];
-  __shared__ int last;
+  constexpr int ST = R::STEPS;
+  __shared__ float tab[LUT ? 1 << NB : 1];
+  __shared__ float red[2 * NWARPS][8][COLS];
+  __shared__ float rsw[2 * NWARPS][8];
+  // The first rank's: every rank's sums, written through distributed
+  // shared memory.
+  __shared__ float sums[MAX_CLUSTER][8][COLS];
+  __shared__ float rows[MAX_CLUSTER][8];
+  // A kernel launched after this one as its programmatic dependent may
+  // start now: it waits for this grid before it reads x or writes. Where
+  // K splits, this block arrives at the cluster's first barrier phase:
+  // waited for at the end, it shows that every block of the cluster has
+  // started before any writes into another's shared memory.
+  asm volatile("griddepcontrol.launch_dependents;\n" ::);
+  if (gridDim.y > 1)
+    asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int n0 = blockIdx.x * SCOLS, n = n0 + 4 * lane;
-  const bool vec = g.N % 4 == 0 &&
-                   (reinterpret_cast<uintptr_t>(g.w) & 15) == 0;
-  const int units = g.kw / R::UR;
-  const int b0 = units * blockIdx.y / sp.splits;
-  const int b1 = units * (blockIdx.y + 1) / sp.splits;
-  const int u0 = b0 + (b1 - b0) * warp / NWARPS;
-  const int u1 = b0 + (b1 - b0) * (warp + 1) / NWARPS;
-  R::setup(tab, t);
+  const int nw = blockDim.x / 32;
+  const int gq = lane / 4, t4 = lane % 4;
+  const int n0 = blockIdx.x * COLS, n = n0 + CPL * gq;
+  const bool vec = g.N % CPL == 0 &&
+                   (reinterpret_cast<uintptr_t>(g.w) & (4 * CPL - 1)) == 0;
+  const bool xvec = g.K % 2 == 0 &&
+                    (reinterpret_cast<uintptr_t>(g.x) & 7) == 0;
+  const int splits = gridDim.y;
+  const int units = g.kw / UNIT_ROWS * R::SUB;
+  const int b0 = units * blockIdx.y / splits;
+  const int b1 = units * (blockIdx.y + 1) / splits;
+  const int u0 = b0 + (b1 - b0) * warp / nw;
+  const int u1 = b0 + (b1 - b0) * (warp + 1) / nw;
+  // The lane's token, whether it passes x's lo (TOK = 4, g >= 4) and
+  // whether its x counts in K9f's row sums (once a token).
+  const int token = gq % TOK;
+  const bool lo_half = TOK == 4 && gq >= 4;
+  const bool tok = token < g.M;
+  const bool counts = tok && !lo_half;
+  const float* xrow = g.x + (size_t)(tok ? token : 0) * g.K;
+  // The epilogue's thread, one of the first 8 x COLS: token m, column c of
+  // the strip; its scale and bias load now.
+  const int m = tid / COLS % 8, c = tid % COLS, nn = n0 + c;
+  const bool out = tid < 8 * COLS;
+  const bool mine = out && m < g.M && nn < g.N;
+  const float sc = mine ? __ldg(g.scale + nn) : 0.0f;
+  const float bi = mine && g.bias ? __ldg(g.bias + nn) : 0.0f;
 
-  float acc[MT][4];
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[m][c] = 0.0f;
-  float rs = 0.0f;  // K9f: token lane % MT's sum over the x it stages
-
-  uint32_t w[R::UR][4], wn[R::UR][4];
-  const auto load_w = [&](int u, uint32_t (&wu)[R::UR][4]) {
-#pragma unroll
-    for (int i = 0; i < R::UR; ++i)
-      load4(g.w, u * R::UR + i, g.N, n, vec, wu[i]);
+  // First K row of step s of unit u: field (u % SUB)*STEPS + s of the
+  // unit's 8 word rows, in its tile.
+  const auto step_row = [&](int u, int s) {
+    const int q = u / R::SUB;  // the unit's row group
+    return q / (PLANE_ROWS / UNIT_ROWS) * R::BK +
+           PLANE_ROWS * (u % R::SUB * ST + s) +
+           UNIT_ROWS * (q % (PLANE_ROWS / UNIT_ROWS));
   };
-  if (u0 < u1) load_w(u0, w);
-  float(&xw)[R::UK][MT] = xs[warp];
-  for (int u = u0; u < u1; ++u) {
-    if (u + 1 < u1) load_w(u + 1, wn);
-    // Unit u: word rows r0 .. r0 + UR - 1, in one tile; field j of word
-    // row r0 + i holds K row kt + j*32 + i, staged as xw[j*UR + i][token].
-    const int r0 = u * R::UR;
-    const int kt = r0 / PLANE_ROWS * R::BK + r0 % PLANE_ROWS;
-    for (int e = lane; e < R::UK * MT; e += 32) {
-      const int m = e % MT, l = e / MT;
-      const int k = kt + l / R::UR * PLANE_ROWS + l % R::UR;
-      const float v = m < g.M && k < g.K ? __ldg(g.x + (size_t)m * g.K + k)
-                                         : 0.0f;
-      xw[l][m] = v;
-      if constexpr (!LUT) rs += v;
+  // The lane's CPL columns of the unit's word rows 2t, 2t + 1: one 16-byte
+  // load a row where vec, else 4-byte ones; zeros past N.
+  static_assert(CPL == 4, "a lane's columns are one 16-byte load");
+  const auto load_w = [&](int u, uint32_t (&w)[2][CPL]) {
+    const int r = u / R::SUB * UNIT_ROWS + 2 * t4;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int* p = g.w + (size_t)(r + i) * g.N + n;
+      if (vec) {
+        uint4 q = make_uint4(0u, 0u, 0u, 0u);
+        if (n < g.N) q = __ldg(reinterpret_cast<const uint4*>(p));
+        w[i][0] = q.x;
+        w[i][1] = q.y;
+        w[i][2] = q.z;
+        w[i][3] = q.w;
+      } else {
+#pragma unroll
+        for (int e = 0; e < CPL; ++e)
+          w[i][e] = n + e < g.N ? (uint32_t)__ldg(p + e) : 0u;
+      }
     }
-    __syncwarp();
+  };
+  const auto load_x = [&](int u, float (&x)[ST][2]) {
 #pragma unroll
-    for (int i = 0; i < R::UR; ++i)
-#pragma unroll
-      for (int j = 0; j < R::VPW; ++j) {
-        float xv[MT];
-        load_tokens<MT>(xw[j * R::UR + i], xv);
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const float v = R::value(w[i][c], j, tab);
-#pragma unroll
-          for (int m = 0; m < MT; ++m) acc[m][c] = fmaf(xv[m], v, acc[m][c]);
+    for (int s = 0; s < ST; ++s) {
+      const int k = step_row(u, s) + 2 * t4;
+      float2 v = make_float2(0.0f, 0.0f);
+      if (tok && k < g.K) {
+        if (xvec) {
+          v = __ldg(reinterpret_cast<const float2*>(xrow + k));
+        } else {
+          v.x = __ldg(xrow + k);
+          if (k + 1 < g.K) v.y = __ldg(xrow + k + 1);
         }
       }
-    __syncwarp();  // xw is read before the next unit's staging
+      x[s][0] = v.x;
+      x[s][1] = v.y;
+    }
+  };
+
+  // A ring of two units in registers: unit u0 + v in buffer v % 2, and
+  // unit u + 1 loads while the products of unit u run. The words, the
+  // table, scale and bias do not depend on the kernel launched before
+  // this one on the stream (of which it is the programmatic dependent);
+  // x does, and every write comes after x.
+  uint32_t w[2][2][CPL];
+  float x[2][ST][2];
+  if (u0 < u1) load_w(u0, w[0]);
+  if constexpr (LUT) R::setup(tab, t);
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  if (u0 < u1) load_x(u0, x[0]);
+
+  float acc[TILES][4];
 #pragma unroll
-    for (int i = 0; i < R::UR; ++i)
+  for (int i = 0; i < TILES; ++i)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) w[i][c] = wn[i][c];
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
+  float rs = 0.0f, rc = 0.0f;  // K9f: the lane's x, Kahan over the units
+
+  // The products of unit u, each kind in a fragment of its own, fresh
+  // each unit, so a tile has P independent mma chains of ST steps; at the
+  // end the small kinds, then the largest, are added into acc. TOK = 8:
+  // f[P - 1] w_hi*x_hi, f[P - 2] w_hi*x_lo and, for K8f, f[0] w_lo*x_hi;
+  // TOK = 4: f[P - 1] w_hi*x and, for K8f, f[0] w_lo*x, each x hi in
+  // columns 0-3 and lo in 4-7. Steps at or past K meet x = 0 and add
+  // nothing.
+  constexpr int P = (LUT ? 2 : 1) + (TOK == 8 ? 1 : 0);
+  const auto unit = [&](int u, const uint32_t (&wu)[2][CPL],
+                        const float (&xu)[ST][2]) {
+    const int sh = NB * ST * (u % R::SUB);  // the unit's first field
+    uint32_t v[2][CPL];
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int e = 0; e < CPL; ++e) v[r][e] = wu[r][e] >> sh;
+    float f[TILES][P][4];
+#pragma unroll
+    for (int i = 0; i < TILES; ++i)
+#pragma unroll
+      for (int p = 0; p < P; ++p)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) f[i][p][e] = 0.0f;
+    float us = 0.0f;
+#pragma unroll
+    for (int s = 0; s < ST; ++s) {
+      uint32_t bh[2], bl[2];
+      split_rn(xu[s][0], bh[0], bl[0]);
+      split_rn(xu[s][1], bh[1], bl[1]);
+      if (TOK == 4 && lo_half) {  // this lane's n8 column is x's lo
+        bh[0] = bl[0];
+        bh[1] = bl[1];
+      }
+      if constexpr (!LUT) us = __fadd_rn(us, __fadd_rn(xu[s][0], xu[s][1]));
+#pragma unroll
+      for (int i = 0; i < TILES; ++i) {
+        const uint32_t wv[4] = {v[0][2 * i], v[0][2 * i + 1], v[1][2 * i],
+                                v[1][2 * i + 1]};
+        uint32_t ah[4], al[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) R::weight(wv[e], s, tab, ah[e], al[e]);
+        if constexpr (LUT) mma_tf32(f[i][0], al, bh[0], bh[1]);
+        if constexpr (TOK == 8) mma_tf32(f[i][P - 2], ah, bl[0], bl[1]);
+        mma_tf32(f[i][P - 1], ah, bh[0], bh[1]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < TILES; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float small = 0.0f;
+#pragma unroll
+        for (int p = 0; p < P - 1; ++p)
+          small = p ? __fadd_rn(small, f[i][p][e]) : f[i][p][e];
+        acc[i][e] = __fadd_rn(
+            acc[i][e], P > 1 ? __fadd_rn(small, f[i][P - 1][e])
+                             : f[i][P - 1][e]);
+      }
+    if constexpr (!LUT) {
+      if (counts) kahan_add(rs, rc, us);
+    }
+  };
+  for (int u = u0; u < u1; u += 2) {
+#pragma unroll
+    for (int d = 0; d < 2; ++d) {
+      if (u + d + 1 < u1) {
+        load_w(u + d + 1, w[1 - d]);
+        load_x(u + d + 1, x[1 - d]);
+      }
+      if (u + d < u1) unit(u + d, w[d], x[d]);
+    }
+  }
+  if constexpr (TOK == 4) {
+    // Column 2t + e of lane t >= 2 holds token 2t + e - 4's products with
+    // x's lo: the hi and lo sums of tokens 0-3 meet in lanes t < 2.
+#pragma unroll
+    for (int i = 0; i < TILES; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[i][e] = __fadd_rn(acc[i][e],
+                              __shfl_xor_sync(0xffffffffu, acc[i][e], 2));
   }
 
+  // acc[i][e]: the lane's column 2i + e / 2, token 2t + e % 2.
+#pragma unroll
+  for (int i = 0; i < TILES; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      red[warp][2 * t4 + e % 2][CPL * gq + 2 * i + e / 2] = acc[i][e];
   if constexpr (!LUT) {
-    // A lane stages token lane % MT only: the lanes of one token meet.
-#pragma unroll
-    for (int o = MT; o < 32; o <<= 1)
-      rs += __shfl_xor_sync(0xffffffffu, rs, o);
-    if (lane < MT) rsw[warp][lane] = rs;
+    // The 4 lanes of token g, in a fixed order.
+    rs = __fadd_rn(rs, __shfl_xor_sync(0xffffffffu, rs, 1));
+    rs = __fadd_rn(rs, __shfl_xor_sync(0xffffffffu, rs, 2));
+    if (t4 == 0) rsw[warp][gq] = rs;
   }
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-    *reinterpret_cast<float4*>(&red[warp][m][4 * lane]) =
-        make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
   __syncthreads();
-  const auto row_sum = [&](int m) {
-    float r = 0.0f;
-    if constexpr (!LUT)
-#pragma unroll
-      for (int v = 0; v < NWARPS; ++v) r += rsw[v][m];
-    return r;
+  float sum = 0.0f, row = 0.0f;
+  for (int wi = 0; wi < nw; ++wi) {
+    sum += red[wi][m][c];
+    if constexpr (!LUT) row += rsw[wi][m];
+  }
+  const auto finish = [&](float s2, float r2) {
+    g.out[(size_t)m * g.N + nn] = value_out<LUT>(g, s2, r2, sc, bi);
   };
-  for (int e = tid; e < MT * SCOLS; e += THREADS) {
-    const int m = e / SCOLS, c = e % SCOLS, nn = n0 + c;
-    if (m >= g.M || nn >= g.N) continue;
-    float s = 0.0f;
-#pragma unroll
-    for (int v = 0; v < NWARPS; ++v) s += red[v][m][c];
-    if (sp.splits == 1)
-      store<LUT>(g, m, nn, s, row_sum(m));
-    else
-      sp.part[((size_t)blockIdx.y * g.M + m) * g.N + nn] = s;
+  if (splits == 1) {
+    if (mine) finish(sum, row);
+    return;
   }
-  if (sp.splits == 1) return;
-  const int strips = gridDim.x;
-  float* prs = sp.part + (size_t)sp.splits * g.M * g.N;
-  if (!LUT && tid < g.M)
-    prs[((size_t)blockIdx.y * strips + blockIdx.x) * g.M + tid] = row_sum(tid);
-  __threadfence();  // the partials are visible before the ticket is taken
-  __syncthreads();
-  if (tid == 0)
-    last = atomicAdd(sp.tickets + blockIdx.x, 1) == sp.splits - 1;
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  for (int e = tid; e < MT * SCOLS; e += THREADS) {
-    const int m = e / SCOLS, c = e % SCOLS, nn = n0 + c;
-    if (m >= g.M || nn >= g.N) continue;
-    float s = 0.0f, r = 0.0f;
-    for (int y = 0; y < sp.splits; ++y) {
-      s += __ldcg(sp.part + ((size_t)y * g.M + m) * g.N + nn);
-      if constexpr (!LUT)
-        r += __ldcg(prs + ((size_t)y * strips + blockIdx.x) * g.M + m);
+  // The cluster's blocks (one a K slice) write their sums into the first
+  // one's shared memory and arrive; the first alone waits, then adds them
+  // in rank order and finishes. The others do not wait: nothing reads
+  // their shared memory.
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned rank = cluster.block_rank();
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  if (out) {
+    *cluster.map_shared_rank(&sums[rank][m][c], 0) = sum;
+    if (!LUT && c == 0) *cluster.map_shared_rank(&rows[rank][m], 0) = row;
+  }
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  if (rank != 0) return;
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+  if (mine) {
+    float s2 = 0.0f, r2 = 0.0f;
+    for (int y = 0; y < splits; ++y) {
+      s2 += sums[y][m][c];
+      if constexpr (!LUT) r2 += rows[y][m];
     }
-    store<LUT>(g, m, nn, s, r);
+    finish(s2, r2);
   }
-  if (tid == 0) sp.tickets[blockIdx.x] = 0;  // ready for the next launch
 }
 
 // The tiled route's shared memory (floats): a ring of NS stages, each the
@@ -515,14 +683,6 @@ __device__ __forceinline__ void add8(const float* p, int n, int N, bool vec,
       if (c + 1 < N) v[2 * j + 1] += __ldcg(p + c + 1);
     }
   }
-}
-
-// s += v with Kahan's compensation c (K9f's row sums).
-__device__ __forceinline__ void kahan_add(float& s, float& c, float v) {
-  const float y = __fsub_rn(v, c);
-  const float t = __fadd_rn(s, y);
-  c = __fsub_rn(__fsub_rn(t, s), y);
-  s = t;
 }
 
 // Named barriers (ids 1 ..; 0 is __syncthreads), over the block's threads
@@ -745,9 +905,12 @@ __global__ void __launch_bounds__(TILE_THREADS, 1)
 #pragma unroll
     for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int e = 0; e < 2; ++e)
-        if (nl + 8 * j + e < g.N)
-          v[2 * j + e] = value_out<LUT>(g, nl + 8 * j + e, v[2 * j + e], rr);
+      for (int e = 0; e < 2; ++e) {
+        const int n = nl + 8 * j + e;
+        if (n < g.N)
+          v[2 * j + e] = value_out<LUT>(g, v[2 * j + e], rr, g.scale[n],
+                                        g.bias ? g.bias[n] : 0.0f);
+      }
     put8(g.out + (size_t)(m0 + r) * g.N, nl, g.N, ovec, v);
   };
   if (sp.splits == 1) {
@@ -803,23 +966,50 @@ int launch_tile(const Args& g, const Split& sp, const Table& t,
   return (int)cudaGetLastError();
 }
 
+// The streaming route over (strips, splits) blocks, the splits of a strip
+// one cluster along K (splits a power of two, at most MAX_CLUSTER; then
+// the blocks are at most one an SM, ops/dequant_matmul.py f32_stream_plan,
+// and have twice the warps), as the programmatic dependent of the kernel
+// before it, so that its start and its word loads overlap that kernel's
+// end. At M <= 4 the instantiation that packs x's hi and lo into the n8.
+template <int NB, bool LUT, int TOK>
+int launch_tokens(const Args& g, int splits, const Table& t,
+                  cudaStream_t stream) {
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  attr[1].id = cudaLaunchAttributeClusterDimension;
+  attr[1].val.clusterDim.x = 1;
+  attr[1].val.clusterDim.y = splits;
+  attr[1].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((g.N + COLS - 1) / COLS, splits);
+  cfg.blockDim = dim3(32 * NWARPS * (splits > 1 ? 2 : 1));
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = splits > 1 ? 2 : 1;
+  return (int)cudaLaunchKernelEx(&cfg, stream_tf32_kernel<NB, LUT, TOK>, g,
+                                 t);
+}
+
+template <int NB, bool LUT>
+int launch_stream(const Args& g, int splits, const Table& t,
+                  cudaStream_t stream) {
+  if (splits < 1 || splits > MAX_CLUSTER || (splits & (splits - 1)))
+    return (int)cudaErrorInvalidValue;
+  const int e = g.M <= 4 ? launch_tokens<NB, LUT, 4>(g, splits, t, stream)
+                         : launch_tokens<NB, LUT, 8>(g, splits, t, stream);
+  return e != cudaSuccess ? e : (int)cudaGetLastError();
+}
+
 template <int NB, bool LUT>
 int launch(const Args& g, const Split& sp, const Table& t,
            cudaStream_t stream) {
   if (g.M < 1 || g.kw % PLANE_ROWS != 0) return (int)cudaErrorInvalidValue;
+  if (g.M <= 8) return launch_stream<NB, LUT>(g, sp.splits, t, stream);
   if (sp.splits < 1 || (sp.splits > 1 && (!sp.part || !sp.tickets)))
     return (int)cudaErrorInvalidValue;
-  if (g.M > 8) return launch_tile<NB, LUT>(g, sp, t, stream);
-  dim3 grid((g.N + SCOLS - 1) / SCOLS, sp.splits);
-  if (g.M == 1)
-    f32_stream_kernel<NB, LUT, 1><<<grid, THREADS, 0, stream>>>(g, sp, t);
-  else if (g.M == 2)
-    f32_stream_kernel<NB, LUT, 2><<<grid, THREADS, 0, stream>>>(g, sp, t);
-  else if (g.M <= 4)
-    f32_stream_kernel<NB, LUT, 4><<<grid, THREADS, 0, stream>>>(g, sp, t);
-  else
-    f32_stream_kernel<NB, LUT, 8><<<grid, THREADS, 0, stream>>>(g, sp, t);
-  return (int)cudaGetLastError();
+  return launch_tile<NB, LUT>(g, sp, t, stream);
 }
 
 Args f32_args(const void* x, const void* words, const void* scale,
@@ -836,10 +1026,9 @@ Args f32_args(const void* x, const void* words, const void* scale,
 // K8f. x (M, K) f32; words (kw, N) int32 'plane', kw % 32 == 0; scale and
 // bias (N,) f32 (bias may be null); lut (ksize,) f32 with ksize <=
 // 2^nbits, or null for the affine grid f32(idx)*step + zero; out (M, N)
-// f32; part, tickets and splits from f32_stream_plan at M <= 8 (part
-// (splits, M, N) f32, tickets one zeroed int32 a 128-column strip) or
-// f32_tile_plan above (part the same, tickets one a 128 x 128 tile);
-// both null at one split.
+// f32; splits from f32_stream_plan at M <= 8 (a cluster along K: part and
+// tickets unused) or f32_tile_plan above (part (splits, M, N) f32, tickets
+// one zeroed int32 a 128 x 128 tile; both null at one split).
 extern "C" int plane_lut_matmul_f32(const void* x, const void* words,
                                     const void* scale, const void* bias,
                                     const void* lut, void* out, void* part,
@@ -864,9 +1053,9 @@ extern "C" int plane_lut_matmul_f32(const void* x, const void* words,
 }
 
 // K9f. Arguments as K8f without the table; a = step * 2^nbits and b the
-// rowsum coefficient of the fold over C - 1.5 (zero + step/2); part holds
-// (splits, strips, M) f32 row sums after the (splits, M, N) partials
-// (strips: of 128 columns, at either route).
+// rowsum coefficient of the fold over C - 1.5 (zero + step/2); on the
+// tiled route part holds (splits, strips, M) f32 row sums after the
+// (splits, M, N) partials (strips of 128 columns).
 extern "C" int plane_affine_matmul_f32(const void* x, const void* words,
                                        const void* scale, const void* bias,
                                        void* out, void* part, void* tickets,

@@ -398,14 +398,6 @@ __device__ __forceinline__ void split3(float v, uint32_t& hi, uint32_t& mid,
   lo = __float_as_uint(__fsub_rn(r, __uint_as_float(mid)));
 }
 
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // Four 8 x 4 f32 matrices by ldmatrix (an 8 x 8 b16 matrix is 8 rows of 4
 // f32): lane (g, t) receives float t of row g of each, which is the
 // m16n8k8 TF32 fragment layout.

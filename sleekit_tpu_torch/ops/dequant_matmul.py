@@ -20,10 +20,10 @@ packed words streamed from device memory and decoded on chip.
   K1's two routes (``csrc/dequant_routes.cuh``) under the 'plane' tile
   rules in ``csrc/plane_matmul.cu``, for bf16 x; kernels K8f and K9f,
   the same wrappers at f32 x (the JAX kernels' f32 ``compute_dtype``),
-  held to f32 accuracy, in ``csrc/plane_f32.cu``: a streaming route on
-  the CUDA cores at M <= ``DECODE_M`` and, above, a tiled one on the
-  tensor cores (split-TF32: each operand as two TF32 halves, three
-  products; :func:`f32_tile_plan`).
+  held to f32 accuracy, in ``csrc/plane_f32.cu``: split-TF32 products on
+  the tensor cores (each operand as two TF32 halves, three products; two
+  for K9f), a streaming route at M <= ``DECODE_M`` (:func:`f32_stream_plan`)
+  and a tiled one above (:func:`f32_tile_plan`).
 
 K1, K2, K6 and K7 fuse the prologue (layernorm/rmsnorm masked to the
 valid K, relu, gelu, silu_glu) and the epilogue ``(a*acc + b*rowsum)*scale
@@ -97,12 +97,18 @@ STREAM_WARPS = 8
 STREAM_BLOCKS_PER_SM = 2
 H100_SMS = 132
 
-# K8f/K9f's streaming route (``csrc/plane_f32.cu`` ``f32_stream_kernel``):
-# a block of STREAM_WARPS warps streams F32_STREAM_COLS columns (4 a
-# lane) over its slice of K, in units of PLANE_F32_UNIT[nbits] word rows
-# of one tile (32 K rows, 40 at 3 bits; ``Rule::UR``).
-F32_STREAM_COLS = 128
-PLANE_F32_UNIT = {1: 1, 2: 2, 3: 4, 4: 4, 8: 8}
+# K8f/K9f's streaming route (``csrc/plane_f32.cu`` ``stream_tf32_kernel``,
+# mma.sync with the decoded weight as the A operand and the tokens as the
+# n8): a block of STREAM_WARPS warps, twice as many where K splits over
+# blocks, streams F32_STREAM_COLS columns (two m16 tiles) over its slice
+# of K, in units of F32_UNIT_ROWS word rows of one tile by up to 8 of
+# their fields, one k8 step a field (:func:`f32_stream_units`). A strip's
+# K splits form one thread block cluster, so they are a power of two, at
+# most F32_MAX_CLUSTER (``COLS``, ``UNIT_ROWS``, ``NWARPS``,
+# ``MAX_CLUSTER``).
+F32_STREAM_COLS = 32
+F32_UNIT_ROWS = 8
+F32_MAX_CLUSTER = 8
 
 # K8f/K9f's tiled route (``f32_tile_kernel``): a block computes F32_TILE_M
 # rows by F32_TILE_N columns, 32 K rows a step, a step taking
@@ -393,14 +399,30 @@ def stream_plan(n: int, kw: int, layout: str, sms: int = H100_SMS,
     return strips, _splits(strips, stream_units(kw, layout, nbits), sms)
 
 
+def f32_stream_units(kw: int, nbits: int) -> int:
+    """Units of K8f/K9f's streaming route over kw word rows: F32_UNIT_ROWS
+    word rows by :func:`plane_unit_steps` fields (``Rule::STEPS``)."""
+    return (kw // F32_UNIT_ROWS
+            * (vals_per_word(nbits) // plane_unit_steps(nbits)))
+
+
 def f32_stream_plan(n: int, kw: int, nbits: int, sms: int = H100_SMS):
     """(strips, splits) of K8f/K9f's streaming route over (kw, n) 'plane'
-    words of ``nbits``: F32_STREAM_COLS-column strips and :func:`_splits`
-    over its units of PLANE_F32_UNIT[nbits] word rows. Above one split
-    the scratch holds the (splits, M, n) f32 partials (and, for K9f, the
-    (splits, strips, M) row sums), with one ticket a strip."""
+    words of ``nbits``: F32_STREAM_COLS-column strips, and K split into
+    the largest power of two, at most F32_MAX_CLUSTER, that keeps the
+    blocks within one an SM and gives each of a split block's 2 x
+    STREAM_WARPS warps at least one unit. A strip's splits are one
+    cluster, whose blocks sum through distributed shared memory (no
+    scratch, no tickets); within one block an SM every cluster is
+    resident at once (on an H100 only 62 clusters of 4 blocks are, where
+    OPT-1.3B's 64 strips of N = 2048 need 64)."""
     strips = -(-n // F32_STREAM_COLS)
-    return strips, _splits(strips, kw // PLANE_F32_UNIT[nbits], sms)
+    units = f32_stream_units(kw, nbits)
+    splits = 1
+    while (2 * splits <= F32_MAX_CLUSTER and strips * 2 * splits <= sms
+           and units >= 2 * splits * 2 * STREAM_WARPS):
+        splits *= 2
+    return strips, splits
 
 
 def f32_tile_plan(m: int, n: int, k: int, sms: int = H100_SMS) -> int:
@@ -473,19 +495,17 @@ def _scratch(x: torch.Tensor, k: int, n: int = 0, kw: int = 0,
 def _f32_scratch(x: torch.Tensor, n: int, k: int, kw: int, nbits: int,
                  rows: bool):
     """K8f/K9f's scratch and plan, with the device's SM count: at M <=
-    DECODE_M :func:`f32_stream_plan`, above :func:`f32_tile_plan`; over
-    more than one split, one f32 buffer of the partials (with the row
-    sums for K9f, ``rows``) and the device's zeroed tickets (one a strip,
-    or a tile). Returns (the buffer, splits, the addresses of the
-    partials and the tickets, 0 where absent)."""
+    DECODE_M :func:`f32_stream_plan` (a cluster along K: no scratch),
+    above :func:`f32_tile_plan`, over more than one split one f32 buffer
+    of the partials (with the row sums for K9f, ``rows``) and the device's
+    zeroed tickets (one a tile). Returns (the buffer, splits, the
+    addresses of the partials and the tickets, 0 where absent)."""
     m = x.shape[0]
     sms = _sms(x.device.index or 0)
     if m <= DECODE_M:
-        strips, splits = f32_stream_plan(n, kw, nbits, sms)
-        tickets = strips
-    else:
-        strips, splits = -(-n // F32_TILE_N), f32_tile_plan(m, n, k, sms)
-        tickets = -(-m // F32_TILE_M) * strips
+        return None, f32_stream_plan(n, kw, nbits, sms)[1], 0, 0
+    strips, splits = -(-n // F32_TILE_N), f32_tile_plan(m, n, k, sms)
+    tickets = -(-m // F32_TILE_M) * strips
     if splits == 1:
         return None, 1, 0, 0
     buf = torch.empty(splits * m * (n + (strips if rows else 0)),

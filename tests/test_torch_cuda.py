@@ -983,8 +983,8 @@ def _plane_f32_call(dev, g, codebook, m, K, N, bias=True, positive=False):
 
 def _f32_close(got, ref):
     """Within 1e-5 of the largest |ref|: two f32-accurate sums of the same
-    products in another order (K up to 8192 terms; the tiled route's
-    products split-TF32, each within about 2^-21 of the f32 product)."""
+    products in another order (K up to 8192 terms; the kernels' products
+    split-TF32, each within about 2^-21 of the f32 product)."""
     assert got.dtype == ref.dtype == torch.float32
     err = (got - ref).abs().max().item()
     assert torch.isfinite(got).all()
@@ -1018,19 +1018,24 @@ def _exact_f32(x, args, kw):
 @pytest.mark.parametrize("codebook", _PLANE_CODEBOOKS)
 @pytest.mark.parametrize("m,K,N", [
     (m, K, N) for K, N in [(700, 198), (2048, 2052)]
-    for m in [1, 2, 8, 9, 64, 520]] + [(520, 8192, 2048)])
+    for m in [1, 2, 3, 4, 5, 8, 9, 64, 520]] + [
+        (m, 8192, 2048) for m in (2, 520)] + [
+        (m, 8192, 256) for m in (2, 8)] + [(m, 700, 4498) for m in (2, 5)])
 @pytest.mark.parametrize("bias", [True, False])
 def test_k8f_k9f_match_plain(dev, codebook, m, K, N, bias):
     """K8f and K9f (f32 x) on 'plane' words against their plain versions
     (f32, the table unrounded, TF32 off), within 1e-5 of the largest
-    output: on the streaming route (m <= 8; 1, 2 and 8 tokens a lane's
-    accumulators, K split over blocks at K = 2048) and the tiled route (m
-    = 9, 64, 520: split-TF32 in 128 x 128 tiles, K split over blocks
-    where the tiles are fewer than the SMs), with K (700) not a multiple
-    of any plane tile and, at 3 bits, K = 2048 ending inside the last
-    320-row tile; N not a multiple of the 128-column strip nor of 4 at 198
-    (4-byte word loads); fc2's shape (K 8192, N 2048) at m = 520; with and
-    without a bias. One counted launch a call."""
+    output: on the streaming route (m <= 8: the tokens as mma.sync's n8,
+    its columns past m zero, so 1-5 and 8 tokens, x's hi and lo sharing
+    the n8 up to 4; 32-column strips, 141 at N = 4498, more than the
+    SMs; K split over a cluster of blocks at K = 2048 but at 3 bits and
+    at N = 256) and the tiled
+    route (m = 9, 64, 520: split-TF32 in 128 x 128 tiles, K split over
+    blocks where the tiles are fewer than the SMs), with K (700) not a
+    multiple of any plane tile and, at 3 bits, K = 2048 ending inside the
+    last 320-row tile; N not a multiple of a strip nor of 4 at 198 and
+    4498 (4-byte word loads); fc2's shape (K 8192, N 2048) at m = 2 and
+    520; with and without a bias. One counted launch a call."""
     assert not torch.backends.cuda.matmul.allow_tf32
     g = torch.Generator().manual_seed(N + K + m)
     kernel, fn, plain, args, kw, x = _plane_f32_call(dev, g, codebook, m, K,
@@ -1043,7 +1048,7 @@ def test_k8f_k9f_match_plain(dev, codebook, m, K, N, bias):
 
 
 @pytest.mark.parametrize("codebook", ["nf4", "affine8", "uniform4"])
-@pytest.mark.parametrize("m", [8, 520, 2048])
+@pytest.mark.parametrize("m", [2, 8, 520, 2048])
 def test_k8f_k9f_nonnegative_x_long_k(dev, codebook, m):
     """K8f (NF4, the 8-bit affine grid) and K9f (uniform 4-bit) at fc2's
     shape (K 8192, N 2048) with x >= 0, as fc2's input is after the relu:
@@ -1051,7 +1056,7 @@ def test_k8f_k9f_nonnegative_x_long_k(dev, codebook, m):
     within 1e-5 of the largest output of the plain version's function
     with its product taken exactly (_exact_f32: the plain version's f32
     product is itself up to 1.4e-5 off there), on the streaming route (m
-    = 8) and the tiled one (m = 520 with its K split, m = 2048)."""
+    = 2 and 8) and the tiled one (m = 520 with its K split, m = 2048)."""
     assert not torch.backends.cuda.matmul.allow_tf32
     g = torch.Generator().manual_seed(m + len(codebook))
     kernel, fn, plain, args, kw, x = _plane_f32_call(
@@ -1064,23 +1069,27 @@ def test_k8f_k9f_nonnegative_x_long_k(dev, codebook, m):
 
 
 @pytest.mark.parametrize("codebook", ["nf4", "uniform4", "affine8"])
-@pytest.mark.parametrize("m", [2, 8, 64, 2048])
-def test_k8f_k9f_replay_in_cuda_graph(dev, codebook, m):
+@pytest.mark.parametrize("m,N", [(2, 2048), (8, 2048), (2, 256), (64, 2048),
+                                 (2048, 2048)])
+def test_k8f_k9f_replay_in_cuda_graph(dev, codebook, m, N):
     """K8f and K9f captured in a CUDA graph at OPT-1.3B's fc2 shape (K
-    8192, N 2048: at m <= 8 and at m = 64 K split over blocks, the
-    partials in a scratch allocated under capture, the tickets the
-    device's; at m = 2048 the tiled route unsplit): two replays after x
-    changes in place each equal the eager call for the new x, bit for
-    bit, and an eager call equals a second one; the capture counts one
-    launch."""
+    8192, N 2048: at m <= 8 K split over a cluster of 2 blocks, summed
+    through distributed shared memory; at m = 64 over blocks of the tiled
+    route, the partials in a scratch allocated under capture, the tickets
+    the device's; at m = 2048 the tiled route unsplit) and at N 256 (8
+    strips, K split over a cluster of 8 blocks): two
+    replays after x changes in place each equal the eager call for the
+    new x, bit for bit, and an eager call equals a second one; the
+    capture counts one launch."""
     from sleekit_tpu_torch.ops import dequant_matmul as dm
 
-    g = torch.Generator().manual_seed(m)
-    K, N = 8192, 2048
+    g = torch.Generator().manual_seed(m + N)
+    K = 8192
     kernel, fn, _, args, kw, x = _plane_f32_call(dev, g, codebook, m, K, N)
     if m <= dm.DECODE_M:
         assert dm.f32_stream_plan(N, args[0].shape[0], kw["nbits"],
-                                  dm._sms(0))[1] > 1
+                                  dm._sms(0)) == {2048: (64, 2),
+                                                  256: (8, 8)}[N]
     else:
         assert (dm.f32_tile_plan(m, N, K, dm._sms(0)) > 1) == (m == 64)
     first = fn(x, *args, **kw)
@@ -1124,8 +1133,9 @@ extern "C" int mma_probe(const void* c, const void* p, void* out, int n) {
 
 
 def test_tf32_mma_truncates(dev, tmp_path):
-    """The tensor cores' f32 sums, which the tiled route of K8f/K9f works
-    around (a fresh fragment every TILE_CHAIN steps), and K4's f32 route
+    """The tensor cores' f32 sums, which both routes of K8f/K9f work
+    around (a fresh fragment every TILE_CHAIN steps, or each unit of the
+    streaming route), and K4's f32 route
     (a fresh P·V fragment a chunk): an m16n8k8 TF32 mma.sync aligns the
     accumulator and the products to the largest, truncates each 25 bits
     below it, and truncates the sum to f32 - no rounding to nearest (the
@@ -1162,10 +1172,11 @@ def test_tf32_mma_truncates(dev, tmp_path):
 
 
 def test_k8f_k9f_raise_without_scratch(dev):
-    """A launch of K8f or K9f over more than one split without the
-    partials and tickets (the streaming route at m = 4, the tiled one at
-    m = 64), or at a width the kernels do not take (5 bits), returns a
-    CUDA error that the binding raises."""
+    """A launch of K8f or K9f over K splits that no cluster holds (the
+    streaming route at m = 4: 16 splits, or 3), over more than one split
+    without the partials and tickets (the tiled route at m = 64), or at a
+    width the kernels do not take (5 bits), returns a CUDA error that the
+    binding raises."""
     from sleekit_tpu_torch.ops import dequant_matmul as dm
     from sleekit_tpu_torch.ops.pack import pack_indices
 
@@ -1175,7 +1186,8 @@ def test_k8f_k9f_raise_without_scratch(dev):
     packed = pack_indices(torch.zeros(K, N, dtype=torch.int64), 4,
                           layout="plane").to(dev)
     kw = packed.shape[0]
-    for m, splits, nbits in ((4, 2, 4), (4, 1, 5), (64, 2, 4), (64, 1, 5)):
+    for m, splits, nbits in ((4, 16, 4), (4, 3, 4), (4, 1, 5), (64, 2, 4),
+                             (64, 1, 5)):
         x = torch.zeros(m, K, device=dev)
         out = torch.empty(m, N, device=dev)
         with pytest.raises(RuntimeError, match="CUDA error"):

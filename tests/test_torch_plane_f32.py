@@ -246,6 +246,128 @@ def test_tile_chain_holds_1e5(chain, holds):
     assert (err <= 1e-5) == holds, err
 
 
+# ---- K8f/K9f's streaming route: its plan and its split-TF32 product -----
+
+# f32_stream_plan at OPT-1.3B's projections ((K, N): the fused qkv, o, fc1,
+# fc2) and at a narrow fc2-like (K 8192, N 256) over 4-bit words on 132
+# SMs: (32-column strips, K splits = cluster size).
+_STREAM_PLANS = {(2048, 6144): (192, 1), (2048, 2048): (64, 2),
+                 (2048, 8192): (256, 1), (8192, 2048): (64, 2),
+                 (8192, 256): (8, 8)}
+
+
+@pytest.mark.parametrize("k,n", list(_STREAM_PLANS))
+def test_f32_stream_plan_fills_the_sms(k, n):
+    """K8f/K9f's streaming plan at decode: F32_STREAM_COLS-column strips,
+    K split where the strips alone leave SMs idle (o and fc2: 64 strips,
+    2 splits; N = 256: 8 strips, 8 splits), the splits a power of two of
+    at most F32_MAX_CLUSTER (one cluster), the blocks at most one an SM
+    (every cluster resident at once), and every warp of a slice (twice
+    STREAM_WARPS where K splits) at least one unit of F32_UNIT_ROWS word
+    rows."""
+    kw = k // 256 * 32
+    strips, splits = tdm.f32_stream_plan(n, kw, 4, 132)
+    assert (strips, splits) == _STREAM_PLANS[k, n]
+    assert strips == -(-n // tdm.F32_STREAM_COLS)
+    assert splits <= tdm.F32_MAX_CLUSTER and splits & (splits - 1) == 0
+    assert splits == 1 or strips * splits <= 132
+    units = tdm.f32_stream_units(kw, 4)
+    assert units == kw // tdm.F32_UNIT_ROWS
+    assert units // splits >= tdm.STREAM_WARPS * (2 if splits > 1 else 1)
+
+
+def _stream_product(x, w, products, tok=8, fresh=True):
+    """x @ w (K = 8192 at 4 bits) as the streaming route forms it: a k8
+    step is field j of 8 consecutive word rows (K rows 256 tile + 32 j + 8
+    group + 0..7), a unit one row group's 8 fields, and the 128 units in
+    16 contiguous slices of 8 (fc2's 2 splits by a block's 8 warps); x as
+    hi = rna(x) and lo = x - hi, w as hi = its top 19 bits and lo = w - hi
+    (the tensor cores read the top 19 bits of each register, so lo is read
+    truncated too). With ``tok`` = 8 (5-8 tokens) the ``products``
+    w_lo*x_hi, w_hi*x_lo, w_hi*x_hi (3) or w_hi*x_lo, w_hi*x_hi (2) a
+    step, each an mma's truncating sum into a fragment of its own kind,
+    fresh each unit, then added into f32 sums (``__fadd_rn``: the small
+    kinds, then w_hi*x_hi); with ``tok`` = 4 (1-4 tokens, x's hi in
+    columns 0-3 of the n8 and lo in 4-7) w_lo*x and w_hi*x (3) or w*x (2),
+    the hi and lo columns summed apart and added at the end of the slice.
+    Then the warps' sums in warp order and the splits' in rank order.
+    ``fresh=False``: one fragment over all of K and every kind instead."""
+    m, k = x.shape
+    n = w.shape[1]
+    slices = 16 if fresh else 1
+    order = np.arange(k).reshape(k // 256, 8, 4, 8).transpose(0, 2, 1, 3)
+    order = order.reshape(slices, -1, 8, 8)
+    xh = tf32_rna(x)
+    xl = tf32_trunc(x - xh)
+    wh = tf32_trunc(w)
+    wl = tf32_trunc(w - wh)
+    if tok == 8:   # (A, B, sum) a kind: sum 0 alone
+        kinds = {3: [(wl, xh), (wh, xl), (wh, xh)],
+                 2: [(wh, xl), (wh, xh)]}[products]
+        parts = [list(range(len(kinds)))]
+    else:          # the hi columns' kinds, then the lo columns'
+        a_parts = [wl, wh] if products == 3 else [wh]
+        kinds = [(a, xh) for a in a_parts] + [(a, xl) for a in a_parts]
+        half = len(a_parts)
+        parts = [list(range(half)), list(range(half, 2 * half))]
+    acc = [np.zeros((slices, m * n), np.float32) for _ in parts]
+    frag = [np.zeros((slices, m * n), np.float32) for _ in kinds]
+    for u in range(order.shape[1]):
+        if fresh:
+            frag = [np.zeros_like(f) for f in frag]
+        for s in range(8):
+            rows = order[:, u, s]                        # (slices, 8)
+            for j, (a, b) in enumerate(kinds):
+                prods = (b[:, rows].transpose(1, 0, 2)[:, :, None, :]
+                         .astype(np.float64)
+                         * a[rows].transpose(0, 2, 1)[:, None].astype(
+                             np.float64))
+                f = j if fresh else 0
+                frag[f] = tf32_mma(frag[f], prods.reshape(slices, m * n, 8))
+        if fresh:
+            for p, kind in enumerate(parts):
+                unit = frag[kind[0]]
+                for j in kind[1:]:
+                    unit = (unit + frag[j]).astype(np.float32)
+                acc[p] = (acc[p] + unit).astype(np.float32)
+    if not fresh:
+        return frag[0].reshape(m, n)
+    total = acc[0] if len(acc) == 1 else (acc[0] + acc[1]).astype(np.float32)
+    out = np.zeros(m * n, np.float32)
+    for y in range(2):
+        block = np.zeros(m * n, np.float32)
+        for v in range(8):
+            block = (block + total[8 * y + v]).astype(np.float32)
+        out = (out + block).astype(np.float32)
+    return out.reshape(m, n)
+
+
+@pytest.mark.parametrize("name,tok,fresh", [
+    ("nf4", 4, True), ("nf4", 8, True), ("uniform4", 4, True),
+    ("uniform4", 8, True), ("nf4", 8, False)])
+def test_stream_route_holds_1e5(name, tok, fresh):
+    """The streaming route's arithmetic at fc2's K = 8192 with x >= 0 (2
+    tokens, 128 columns), emulated with the tensor cores' truncating sums:
+    NF4's three products and C - 1.5's two (exact in TF32), at 1-4 tokens
+    (x's hi and lo in one n8) and at 5-8, fresh fragments a unit (8 k8
+    steps, one a kind of product) in f32 sums, the warps' and the splits'
+    sums in order, land within 1e-5 of the largest output of the product
+    taken exactly; one fragment over all of K (1,024 k8 steps) does not."""
+    rng = np.random.RandomState(23)
+    m, k, n = 2, 8192, 128
+    x = np.abs(rng.randn(m, k)).astype(np.float32)
+    values = {"nf4": np.asarray(PLANE_LUTS["nf4"], np.float32),
+              "uniform4": np.arange(16, dtype=np.float32) / 16 - 0.5}[name]
+    w = values[rng.randint(0, 16, (k, n))]
+    exact = x.astype(np.float64) @ w.astype(np.float64)
+    products = 3 if name == "nf4" else 2
+    if products == 2:
+        assert np.array_equal(tf32_rna(values), values)
+    got = _stream_product(x, w, products, tok, fresh)
+    err = np.abs(got - exact).max() / np.abs(exact).max()
+    assert (err <= 1e-5) == fresh, err
+
+
 # ---- the commands on the 'plane' layout -----------------------------------
 
 
