@@ -117,7 +117,13 @@
    ``kernel_bench`` on the four decode shapes, and ``prefill_bench`` on
    the int4 model's 256-bucket group (with a trace of one prefill under
    ``traces/prefill``, which must show 24 K10 and no PyTorch quantizer
-   op); their result lines go to stdout;
+   op): its matmul section (K1 int4 'pair' and K7 int3 'pair3' against
+   dequantize + ``torch.matmul`` and ``torch.matmul`` on the bf16 weight,
+   at fc1 and the fused q|k|v, M = 8, 128, 512, 2048: every form within
+   the bf16 tolerance of the f32 product; ms, MFU and the crossover
+   printed) and its attention-route A/B (``--modes ours,xla``: the 'xla'
+   route's prefill logits within a relative L2 of 2^-6 of K4's); their
+   result lines go to stdout;
 9. runs the quantizer on dense bf16 OPT-1.3B at full width (random
    weights from seed 0, its first 2 layers: the CLI phase solves all 24):
    calibrates on the JAX CLI's defaults (16 x 256 tokens of
@@ -148,7 +154,11 @@
    checkpoint (``facebook/opt-1.3b``'s keys, F16, two safetensors shards
    and their index) into the temporary directory, holds
    ``load_hf_checkpoint`` to the init weights rounded to f16, bit for bit,
-   and ``calibrate_spill`` to ``calibrate`` (max |diff| 0); quantizes it
+   and ``calibrate_spill`` to ``calibrate`` (max |diff| 0); writes the
+   CLI's calibration stream as an SKT1 shard (the native loader's
+   ``write_shard``), reads it back through ``load_token_stream`` (the
+   native ``TokenShard.windows``) bit for bit, and gives it to every
+   quantize run below as ``--tokens`` (one shard read a run); quantizes it
    with ``--codebook nf4 --eval-ppl`` at full depth (light, 4 bits: 192
    K4 launches in calibration, 144 linears solved once, all NF4 'plane'
    on reload; the scorings' launches counted, K8f 144 a forward batch
@@ -216,10 +226,17 @@
    pack=True, mesh=)`` (both ranks' words equal; held by the batched
    route's gates to the single process's batched route on the same
    statistics, and by DP_PIPELINE_*_RTOL on error to it on its own);
-14. prints each phase's wall seconds, the kernels line (K1-K15, K8f and
-   K9f, with ``quantize``, ``cli``, ``ablation``, ``tp``, ``data_axis``
-   and ``phases`` entries beside ``engine``), the card's name and power
-   limit, and, last, the result line.
+14. runs ``tools/gpu_kernel_smoke.py`` at its full geometries: every
+   kernel at every layout, bit width and geometry of the JAX tool's
+   matrix (8B-class K 4096 and 14336 with the layernorm prologue, GQA
+   decode at G = 4), at M = 8 and 64 and with f32 x where JAX sends it,
+   each case within 2e-2 of a dense f32 oracle and within its plain
+   version's tolerance, naming the kernels it launched (summary in the
+   git-ignored ``chiprun_out/gpu_kernel_smoke.json``);
+15. prints each phase's wall seconds, the kernels line (K1-K15, K8f and
+   K9f, with ``quantize``, ``cli``, ``ablation``, ``tp``, ``data_axis``,
+   ``kernel_smoke`` and ``phases`` entries beside ``engine``), the card's
+   name and power limit, and, last, the result line.
 
 Any failure raises; there is no CPU branch and no fallback. It needs a
 CUDA device and exits non-zero without one.
@@ -262,7 +279,9 @@ from sleekit_tpu_torch import pipeline as pipe_mod  # noqa: E402
 from sleekit_tpu_torch import solver as solver_mod  # noqa: E402
 from sleekit_tpu_torch.hessian import remove_input_bias  # noqa: E402
 from sleekit_tpu_torch.models.data import (  # noqa: E402
-    calibration_batches, synthetic_stream)
+    calibration_batches, load_token_stream, synthetic_stream)
+from sleekit_tpu_torch.native.dataio import (  # noqa: E402
+    TokenShard, write_shard)
 from sleekit_tpu_torch.models import eval as eval_mod  # noqa: E402
 from sleekit_tpu_torch.models.eval import (  # noqa: E402
     DecodeGraph, chunk_tokens, decode_perplexity, decode_scan, perplexity)
@@ -2073,9 +2092,13 @@ def run_benches(cfg, trace_dir):
             out[f"profile_decode_attn_only_{mode}"] = profile_decode.main(
                 at_ctx + ["--variants", "attn_only"])
     out["kernel_bench"] = kernel_bench.main(["--iters", "64"])
+    t0 = time.perf_counter()
     out["prefill_bench"] = pre = prefill_bench.main(
         ["--model", "opt-1.3b", "--batch", "4", "--seq", "256", "--reps",
-         "3", "--trace", os.path.join(trace_dir, "prefill")])
+         "3", "--modes", "ours,xla", "--trace",
+         os.path.join(trace_dir, "prefill")])
+    out["prefill_bench_s"] = time.perf_counter() - t0
+    check_prefill_bench(pre)
     k10 = [row for row in pre["trace"]["kernels"]
            if "append_kernel" in row[0]]
     if (len(k10) != 1 or k10[0][2] != cfg.n_layers
@@ -2088,6 +2111,40 @@ def run_benches(cfg, trace_dir):
     log(f"benches (OPT-1.3B, {cfg.n_layers} layers): "
         f"{json.dumps(out, default=str)}")
     return out
+
+
+def check_prefill_bench(pre):
+    """prefill_bench's matmul section and attention-route A/B: every form
+    (K1/K7, dequantize + ``torch.matmul``, ``torch.matmul`` on the bf16
+    weight) within the bf16 tolerance of the f32 product at every case,
+    and the 'xla' route's prefill logits within a relative L2 of 2^-6 of
+    K4's ('ours')."""
+    rows = pre["matmul"]
+    if len(rows) != (len(prefill_bench.MATMUL_GEOMS)
+                     * len(prefill_bench.MATMUL_BITS)
+                     * len(prefill_bench.MATMUL_MS)):
+        raise AssertionError(f"prefill_bench: {len(rows)} matmul cases")
+    for r in rows:
+        bad = [f for f, ok in r["within"].items() if not ok]
+        if bad or set(r["within"]) != set(prefill_bench.MATMUL_FORMS):
+            raise AssertionError(
+                f"prefill_bench {r['geom']} int{r['nbits']} M={r['M']}: "
+                f"{bad} beyond the bf16 tolerance of the f32 product "
+                f"(max |err| {r['err']})")
+    modes = pre["modes"]
+    if set(modes) != {"ours", "xla"} or not modes["xla"]["rel_l2"] <= 2 ** -6:
+        raise AssertionError(f"prefill_bench --modes: {modes}")
+    log("prefill_bench matmul section (ms: pair, deq+mm, dense; MFU of the "
+        "faster of pair and deq+mm against 989 TFLOP/s): " + json.dumps(
+            [[r["geom"], r["nbits"], r["M"], round(r["pair_ms"], 4),
+              round(r["deq+mm_ms"], 4), round(r["dense_ms"], 4),
+              round(r["mfu"], 4)] for r in rows])
+        + f"; crossover (the first M where deq+mm beats pair) "
+        f"{json.dumps(pre['crossover'])}; every form within the bf16 "
+        f"tolerance of the f32 product")
+    log(f"prefill_bench --modes: ours (K4) {modes['ours']['ms']:.3f} ms, xla "
+        f"(_attention) {modes['xla']['ms']:.3f} ms; xla's logits "
+        f"{modes['xla']['rel_l2']:.3g} from ours' (relative L2, <= 2^-6)")
 
 
 # ---- phase 7: the 3-bit and 'plane' layouts through the Engine (K6-K9) -----
@@ -2833,6 +2890,34 @@ def cli_calibrations(cfg, params, card):
             "calibrate_spill_s": spill_s}
 
 
+def cli_shard(tmp, cfg, m, card):
+    """The CLI's calibration stream (its default: ``synthetic_stream``
+    from seed 0, samples x seq_len + 4096 tokens) written as an SKT1 shard
+    with the native ``write_shard`` and read back through
+    ``load_token_stream`` (the native ``TokenShard.windows``): the same
+    tokens, bit for bit, so the CLI runs given ``--tokens`` the shard solve
+    on the inputs they solve on without it. Returns the shard's path."""
+    need = CALIB_SAMPLES * CALIB_LEN + 4096
+    want = synthetic_stream(cfg.vocab_size, need, 0)
+    path = os.path.join(tmp, "calib.skt")
+    t0 = time.perf_counter()
+    write_shard(path, want)
+    got, prov = load_token_stream(path, cfg.vocab_size, need)
+    secs = time.perf_counter() - t0
+    if prov != f"shard:{path}" or not np.array_equal(got, want) or (
+            got.dtype != want.dtype):
+        raise AssertionError(f"cli: the SKT1 shard read back {prov} "
+                             f"{got.dtype} {got[:8]}, not the stream")
+    m["shard"] = {"tokens": int(got.size), "bytes": os.path.getsize(path),
+                  "write_read_s": secs}
+    log(f"cli: the calibration stream ({got.size} tokens) as an SKT1 shard "
+        f"({m['shard']['bytes']} bytes, u16) written by the native "
+        f"write_shard and read back through load_token_stream "
+        f"(TokenShard.windows) in {secs:.4f} s: bit for bit the stream; the "
+        f"CLI runs read it with --tokens ({card})")
+    return path
+
+
 def plane_on_kernels():
     """A context in which ``dequant_matmul_ref`` raises for a 'plane'
     linear on a CUDA tensor: every such linear must run K8/K9 or K8f/K9f,
@@ -2880,7 +2965,13 @@ def quantize_cli(out, model, hf_dir, extra=(), limit=None):
     peak memory, and ``dequant_matmul_ref`` raising for a 'plane' linear
     on the card. Returns (its result, calibration launches, the
     scorings' launches, peak bytes, seconds)."""
-    calib, evals = {}, []
+    calib, evals, reads = {}, [], []
+
+    def count_reads(inner):
+        def wrapped(*a, **kw):
+            reads.append(1)
+            return inner(*a, **kw)
+        return wrapped
 
     def count_calibration(inner):
         def wrapped(*a, **kw):
@@ -2899,12 +2990,16 @@ def quantize_cli(out, model, hf_dir, extra=(), limit=None):
     try:
         with patched(quant_mod, "calibrate", count_calibration), \
                 patched(quant_mod, "calibrate_spill", count_calibration), \
+                patched(TokenShard, "windows", count_reads), \
                 eval_launches(evals), plane_on_kernels():
             res = quantize_model_cli.main(
                 [out, "--model", model, "--checkpoint", hf_dir, *CLI_ARGS,
                  *extra])
     finally:
         os.environ.pop("QUANT_HBM_LIMIT", None)
+    if "--tokens" in extra and len(reads) != 1:
+        raise AssertionError(f"cli: the calibration shard was read through "
+                             f"TokenShard.windows {len(reads)} times, not 1")
     torch.cuda.synchronize()
     return (res, calib, evals, torch.cuda.max_memory_allocated(),
             time.perf_counter() - t0)
@@ -3268,12 +3363,13 @@ def run_cli(dev, card):
                                    layers=params["layers"][:CLI_DEPTH]))
         del params
         torch.cuda.empty_cache()
+        tok = ["--tokens", cli_shard(tmp, cfg, m, card)]
 
         # NF4 at full depth: the slice's path, every linear K8f.
         nf4 = os.path.join(tmp, "nf4")
         m["nf4"], _ = run_quantize_cli(nf4, "opt-1.3b", hf_dir, cfg,
                                        "NF4 'plane'", card,
-                                       ["--codebook", "nf4"], "K8f")
+                                       ["--codebook", "nf4", *tok], "K8f")
         path = {"K8f": sum(n.get("K8f", 0) for n in
                            m["nf4"]["eval_launches"].values())}
         torch.cuda.empty_cache()
@@ -3289,11 +3385,11 @@ def run_cli(dev, card):
         try:
             m["lloyd"], _ = run_quantize_cli(
                 os.path.join(tmp, "lloyd"), name, hf_dir, cfg4,
-                "lloyd 'plane'", card, ["--codebook", "lloyd"], "K8f")
+                "lloyd 'plane'", card, ["--codebook", "lloyd", *tok], "K8f")
             torch.cuda.empty_cache()
             uni = os.path.join(tmp, "uniform")
             m["quantize"], uni_words = run_quantize_cli(
-                uni, name, hf_dir, cfg4, "int4 'pair'", card)
+                uni, name, hf_dir, cfg4, "int4 'pair'", card, tok)
             torch.cuda.empty_cache()
             m["serve"] = serve_cli_runs(dev, uni, name, cfg4, card,
                                         "uniform")
@@ -3323,7 +3419,7 @@ def run_cli(dev, card):
             for branch in ("spill", "drain"):
                 out = os.path.join(tmp, branch)
                 res, calib, _, peak, secs = quantize_cli(
-                    out, name, hf_dir, limit=limits[branch])
+                    out, name, hf_dir, tok, limit=limits[branch])
                 check_cli_reports(res, cfg4, f"{branch} run")
                 want_k4 = {"K4": CLI_DEPTH * CALIB_SAMPLES // CALIB_BATCH}
                 if calib != want_k4:
@@ -4219,6 +4315,48 @@ def run_data_axis(dev, cfg, card, single):
     return m
 
 
+def run_kernel_smoke(card):
+    """``tools/gpu_kernel_smoke.py`` at its full geometries (8B-class K
+    with the layernorm prologue, GQA decode at G = 4), its summary written
+    to the git-ignored ``chiprun_out/gpu_kernel_smoke.json``: every case
+    within the oracle's and its plain version's tolerance, and each naming
+    the kernels it launched. Returns the summary's counts and extremes."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import gpu_kernel_smoke
+
+    out = os.path.join(ROOT, "chiprun_out", "gpu_kernel_smoke.json")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    t0 = time.perf_counter()
+    rc = gpu_kernel_smoke.main(["--out", out])
+    secs = time.perf_counter() - t0
+    with open(out) as f:
+        summary = json.load(f)
+    rows = summary["results"]
+    if rc != 0 or summary["failed"] or not all(r["kernels"] for r in rows):
+        raise AssertionError(f"gpu_kernel_smoke: rc {rc}, failed "
+                             f"{summary['failed']}")
+    slow = max(rows, key=lambda r: r["secs"])
+    rel = max((r for r in rows if "max_rel_err" in r),
+              key=lambda r: r["max_rel_err"])
+    worst = {}
+    for r in rows:
+        if r.get("plain_err", 0) >= worst.get(r["plain_tol"], {}).get(
+                "plain_err", -1):
+            worst[r["plain_tol"]] = r
+    m = {"cases": len(rows), "ok": summary["ok"], "seconds": secs,
+         "slowest": [slow["case"], slow["secs"]],
+         "worst_rel": [rel["case"], rel["max_rel_err"]],
+         "worst_plain": {t: [r["case"], r["plain_err"]]
+                         for t, r in worst.items()},
+         "kernels": sorted({k for r in rows for k in r["kernels"]})}
+    log(f"gpu_kernel_smoke: {m['ok']}/{m['cases']} cases OK in {secs:.1f} s, "
+        f"every row naming its kernels ({', '.join(m['kernels'])}); slowest "
+        f"{m['slowest']}, worst oracle distance {m['worst_rel']}, worst "
+        f"plain distance by tolerance {json.dumps(m['worst_plain'])} "
+        f"({card}; rows in {out})")
+    return m
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
@@ -4373,6 +4511,8 @@ def main():
         cases[name] = cases[name] + cs   # after the main path's cases
     torch.cuda.empty_cache()
     data_axis = phase("data_axis", run_data_axis, dev, cfg, smi, engine)
+    torch.cuda.empty_cache()
+    kernel_smoke = phase("kernel_smoke", run_kernel_smoke, smi)
 
     rows = []
     for k in (K1, K2, K3, K4, K5, K6, K7, K8, K9, K10, K11, K12, K13, K14,
@@ -4409,7 +4549,7 @@ def main():
     print(json.dumps({"kernels": rows, "engine": engine, "quantize": quant,
                       "cli": cli, "ablation": ablation, "tp": tp,
                       "data_axis": data_axis, "benches": benches,
-                      "phases": seconds}))
+                      "kernel_smoke": kernel_smoke, "phases": seconds}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

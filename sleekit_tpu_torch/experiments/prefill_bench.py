@@ -1,12 +1,42 @@
-"""End-to-end prefill time of a packed model (port of the end-to-end
-section of ``sleekit_tpu/experiments/prefill_bench.py``).
+"""Prefill on the card (port of ``sleekit_tpu/experiments/prefill_bench.py``):
+the packed-vs-dense matmul section, then the end-to-end prefill, with an
+A/B of the prefill attention routes.
 
-Times one full-depth prefill of ``--batch`` rows of ``--seq`` random
-tokens through ``models.transformer.prefill`` with the kernels, into a
-fresh int8 KV cache, as the Engine prefills one length bucket: every
-layer's packed linears (K1 for 'pair', K6 for 'pair3x', K7 for 'pair3')
-at M = batch * seq, K4, and the int8 head (K2) over every position. The
-model is random (seed 0), fused q|k|v, with an int8 head.
+The matmul section (skipped with ``--skip-matmul``) times three forms of
+``y = x @ deq(W)`` at each geometry of :data:`MATMUL_GEOMS` (fc1 and the
+fused q|k|v of OPT-1.3B), int4 'pair' and int3 'pair3' weights from
+``random_packed_linear`` (seed 0) and M in :data:`MATMUL_MS`, x from a
+numpy seed:
+
+  * ``pair``   - the port's kernel entry (``quantized_matmul``: K1 for
+    'pair', K7 for 'pair3'; the streaming route at M <= 8, the tensor-core
+    route above);
+  * ``deq+mm`` - dequantize the weight to bf16 at every call, then
+    ``torch.matmul`` (:func:`dequant_dense_bf16`, the counterpart of JAX's
+    ``_dequant_dense_bf16``);
+  * ``dense``  - ``torch.matmul`` on the bf16 weight dequantized
+    beforehand (an upper bound).
+
+The last two are yardsticks that only this bench calls. It logs ms for
+each form, the MFU of the faster of ``pair`` and ``deq+mm`` against
+:data:`BF16_PEAK` (the H100's dense bf16 rate; the card only), each form's
+distance from the f32 product within the bf16 tolerance, and the crossover:
+the first M where ``deq+mm`` beats ``pair``, per (geometry, bits). On the
+card each time is the best of ``--reps`` CUDA graphs of
+:data:`MATMUL_ITERS` calls over rotating argument sets larger than twice
+L2, between CUDA events.
+
+The end-to-end section times one full-depth prefill of ``--batch`` rows of
+``--seq`` random tokens through ``models.transformer.prefill`` with the
+kernels, into a fresh int8 KV cache, as the Engine prefills one length
+bucket: every layer's packed linears (K1 for 'pair', K6 for 'pair3x', K7
+for 'pair3') at M = batch * seq, K4, and the int8 head (K2) over every
+position. The model is random (seed 0), fused q|k|v, with an int8 head.
+``--modes ours,xla`` times it under each prefill attention route
+(``models/transformer.py`` ``PREFILL_MODE``: 'ours' K4, 'xla' the
+materialized-logits ``_attention``; 'stock' raises, as the port has no
+such route) and returns each mode's logits' relative L2 from the first
+mode's; the global is put back after each.
 
 On the card the prefills run eagerly between CUDA events (Python issues
 the launches, as in the Engine); ``--trace DIR`` records one more prefill
@@ -15,9 +45,7 @@ and returns the trace's device time by kernel (``trace``: K10, the KV
 write, is ``append_kernel``) and its calls of the int8 KV quantizer's
 PyTorch ops (``quant_ops``: ``aten::round``, ``aten::amax``, none when
 K10 writes the cache). With ``--device cpu`` the plain versions run, timed
-by the host clock. The JAX bench's matmul section and its attention-route
-A/B are not ported (they come with the experiment CLIs,
-``experiments/``).
+by the host clock (no MFU).
 
 ``--attention`` times K4 (``flash_prefill``) alone instead, in the cases
 of :data:`K4_CASES` (``--models`` picks some of them; inputs from a seed,
@@ -38,7 +66,7 @@ and the plain version's; run as a file, that of another checkout.
 Usage:
   python -m sleekit_tpu_torch.experiments.prefill_bench [--model opt-1.3b]
       [--batch 4] [--seq 512] [--reps 5] [--layout pair|pair3x|pair3]
-      [--device cuda|cpu] [--trace DIR]
+      [--device cuda|cpu] [--trace DIR] [--skip-matmul] [--modes ours,xla]
       [--attention [--models M,...] [--dtype bf16|f32]] [--kv-write]
       [--large-logits]
 """
@@ -46,6 +74,8 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import sys
 
 import numpy as np
@@ -80,6 +110,16 @@ K10_PREFILL_CASES = (("prefill opt-1.3b B=4 T=256", 4, 256, 32, 32, 64),
 K10_APPEND_CASES = (("T=1 B=8 KV=32", 8, 32, (256, 280), True),
                     ("T=1 B=1 KV=1", 1, 1, (256,), False))
 APPEND_LAYERS, APPEND_ROWS, APPEND_D, APPEND_PAGE = 24, 512, 64, 64
+
+# The matmul section: geometries (name, K, N), M, and bit widths with their
+# layouts, as the JAX bench's; graph calls a timing, and the H100 SXM's
+# dense bf16 tensor-core rate (NVIDIA data sheet), the MFU's peak.
+MATMUL_GEOMS = (("fc1", 2048, 8192), ("attn-qkv", 2048, 6144))
+MATMUL_MS = (8, 128, 512, 2048)
+MATMUL_BITS = ((3, "pair3"), (4, "pair"))
+MATMUL_FORMS = ("pair", "deq+mm", "dense")
+MATMUL_ITERS = 32
+BF16_PEAK = 989e12
 
 # The PyTorch ops of the int8 KV quantizer (``ops/attention.py``
 # ``_quant_rows``) that nothing else of a prefill calls.
@@ -267,21 +307,127 @@ def time_attention(device, reps: int, models=None, dtype=torch.bfloat16):
     return rows
 
 
+def dequant_dense_bf16(x: torch.Tensor, w) -> torch.Tensor:
+    """Dequantize-then-dense: ``w`` dequantized to a bf16 (K, N) matrix at
+    this call, then one ``torch.matmul`` (the counterpart of JAX's
+    ``_dequant_dense_bf16``). A yardstick of the matmul section; no path
+    of the port calls it."""
+    y = torch.matmul(x, w.dequantize().to(torch.bfloat16))
+    return y if w.bias is None else y + w.bias.to(y.dtype)
+
+
+def bf16_distance(got: torch.Tensor, ref: torch.Tensor):
+    """(max |got - ref|, whether every element is within the bf16
+    tolerance: rtol 2^-6, atol 1e-2 max|ref|)."""
+    got, ref = got.float(), ref.float()
+    err = (got - ref).abs()
+    tol = 2 ** -6 * ref.abs() + 1e-2 * ref.abs().max()
+    return (err.max().item(),
+            bool(torch.isfinite(got).all()) and not bool((err > tol).any()))
+
+
+def _best_ms(fn, n_args: int, device, reps: int) -> float:
+    """The best of ``reps`` CUDA-graph timings of MATMUL_ITERS calls on the
+    card; on the CPU the host clock over ``reps`` calls."""
+    from sleekit_tpu_torch.utils.profiling import time_ms
+
+    if device.type != "cuda":
+        return time_ms(fn, n_args, device, iters=reps, graph=False)
+    return min(time_ms(fn, n_args, device, iters=MATMUL_ITERS)
+               for _ in range(reps))
+
+
+def time_matmuls(device, reps: int):
+    """The matmul section: every form at every (geometry, bits, M). Returns
+    ``(rows, crossover)``: a row per case with each form's ms, the MFU of
+    the faster of ``pair`` and ``deq+mm`` (None on the CPU) and each form's
+    bf16 distance from the f32 product (``err``, ``within``); the
+    crossover maps ``"<geometry>/int<bits>"`` to the first M where
+    ``deq+mm`` beats ``pair`` (None if none does)."""
+    from sleekit_tpu_torch.codebooks import UniformCodebook
+    from sleekit_tpu_torch.experiments.kernel_bench import _copies
+    from sleekit_tpu_torch.models.fake_quant import random_packed_linear
+    from sleekit_tpu_torch.ops.dequant_matmul import quantized_matmul
+
+    rng = np.random.default_rng(0)
+    rows, crossover = [], {}
+    log(f"{'geom':10s} {'bits':5s} {'M':>5s} {'pair ms':>9s} "
+        f"{'deq+mm ms':>10s} {'dense ms':>9s} {'best MFU':>9s}")
+    for gname, K, N in MATMUL_GEOMS:
+        for nbits, layout in MATMUL_BITS:
+            w = random_packed_linear(0, K, N,
+                                     UniformCodebook(2 ** nbits, -1.0, 1.0),
+                                     layout=layout, device=device)
+            n = _copies(w.packed.numel() * 4, device)
+            ws = [w] + [dataclasses.replace(w, packed=w.packed.clone(),
+                                            scale=w.scale.clone())
+                        for _ in range(n - 1)]
+            dense = [v.dequantize().to(torch.bfloat16) for v in ws]
+            key = f"{gname}/int{nbits}"
+            crossover[key] = None
+            for M in MATMUL_MS:
+                x = torch.as_tensor(rng.standard_normal(
+                    (M, K), np.float32) * 0.1).to(device, torch.bfloat16)
+                xs = [x] + [x.clone() for _ in range(n - 1)]
+                fns = {"pair": lambda i: quantized_matmul(
+                           xs[i], ws[i], use_kernel=True),
+                       "deq+mm": lambda i: dequant_dense_bf16(xs[i], ws[i]),
+                       "dense": lambda i: torch.matmul(xs[i], dense[i])}
+                ref = x.float() @ w.dequantize()
+                row = {"geom": gname, "K": K, "N": N, "nbits": nbits,
+                       "layout": layout, "M": M, "err": {}, "within": {}}
+                for form, fn in fns.items():
+                    row["err"][form], row["within"][form] = bf16_distance(
+                        fn(0), ref)
+                    row[f"{form}_ms"] = _best_ms(fn, n, device, reps)
+                best = min(row["pair_ms"], row["deq+mm_ms"])
+                row["mfu"] = (2.0 * M * K * N / (best * 1e-3) / BF16_PEAK
+                              if device.type == "cuda" else None)
+                rows.append(row)
+                if crossover[key] is None and row["deq+mm_ms"] < row["pair_ms"]:
+                    crossover[key] = M
+                mfu = "-" if row["mfu"] is None else f"{row['mfu']:.1%}"
+                log(f"{gname:10s} int{nbits:<2d} {M:>5d} "
+                    f"{row['pair_ms']:>9.4f} {row['deq+mm_ms']:>10.4f} "
+                    f"{row['dense_ms']:>9.4f} {mfu:>9s}")
+                del xs, fns
+            del ws, dense
+    log(f"pair -> deq+mm crossover (the first M where deq+mm wins): "
+        f"{crossover}")
+    return rows, crossover
+
+
+def prefill_logits(cfg, params, tokens: torch.Tensor) -> torch.Tensor:
+    """One prefill's logits with the kernels, into a fresh int8 cache."""
+    from sleekit_tpu_torch.models.transformer import init_kv_cache, prefill
+
+    cache = init_kv_cache(cfg, tokens.shape[0], tokens.shape[1], torch.int8,
+                          device=tokens.device)
+    return prefill(cfg, params, tokens, cache, use_kernel=True)[0]
+
+
+@contextlib.contextmanager
+def prefill_mode(mode: str):
+    """``models.transformer.PREFILL_MODE`` set to ``mode`` in the block and
+    put back after it, however it ends."""
+    from sleekit_tpu_torch.models import transformer as tr
+
+    old = tr.PREFILL_MODE
+    tr.PREFILL_MODE = mode
+    try:
+        yield
+    finally:
+        tr.PREFILL_MODE = old
+
+
 def time_prefill(cfg, params, tokens: torch.Tensor, reps: int = 5) -> float:
     """Mean ms of one prefill of ``tokens`` (B, T) with the kernels into a
     fresh int8 cache: between CUDA events on the card (eager), by the host
     clock on the CPU."""
-    from sleekit_tpu_torch.models.transformer import init_kv_cache, prefill
     from sleekit_tpu_torch.utils.profiling import time_ms
 
-    dev = tokens.device
-
-    def run(_):
-        cache = init_kv_cache(cfg, tokens.shape[0], tokens.shape[1],
-                              torch.int8, device=dev)
-        return prefill(cfg, params, tokens, cache, use_kernel=True)[0]
-
-    return time_ms(run, 1, dev, iters=reps, graph=False)
+    return time_ms(lambda _: prefill_logits(cfg, params, tokens), 1,
+                   tokens.device, iters=reps, graph=False)
 
 
 def main(argv=None):
@@ -311,6 +457,11 @@ def main(argv=None):
     ap.add_argument("--kv-write", action="store_true",
                     help="time K10 alone, over a prompt's rows and at one "
                     "row (and K14)")
+    ap.add_argument("--skip-matmul", action="store_true",
+                    help="only the end-to-end prefill section")
+    ap.add_argument("--modes", default="ours",
+                    help="comma list of prefill attention routes to A/B "
+                    "(ours | xla; transformer.PREFILL_MODE)")
     args = ap.parse_args(argv)
 
     from sleekit_tpu_torch.codebooks import UniformCodebook
@@ -339,6 +490,9 @@ def main(argv=None):
         out = {"kv_write": time_kv_write(dev, args.reps), "device": where}
         print(out)
         return out
+    out = {}
+    if not args.skip_matmul:
+        out["matmul"], out["crossover"] = time_matmuls(dev, args.reps)
     cfg = get_config(args.model, dtype=torch.bfloat16)
     nbits = 4 if args.layout == "pair" else 3
     params, _ = random_packed_params(
@@ -349,10 +503,22 @@ def main(argv=None):
     tokens = torch.as_tensor(
         rng.integers(0, cfg.vocab_size, (args.batch, args.seq)),
         dtype=torch.int64, device=dev)
-    ms = time_prefill(cfg, params, tokens, args.reps)
     n = args.batch * args.seq
-    log(f"prefill {args.model} int{nbits} {args.layout} batch {args.batch} "
-        f"x {args.seq}: {ms:.3f} ms = {n / ms * 1e3:.0f} tokens/s on {where}")
+    modes, first = {}, None
+    for mode in args.modes.split(","):
+        with prefill_mode(mode):
+            ms = time_prefill(cfg, params, tokens, args.reps)
+            logits = prefill_logits(cfg, params, tokens).float()
+        first = logits if first is None else first
+        modes[mode] = {"ms": ms, "tokens_per_s": n / ms * 1e3,
+                       "rel_l2": ((logits - first).norm()
+                                  / first.norm()).item()}
+        log(f"prefill {args.model} int{nbits} {args.layout} [attn={mode}] "
+            f"batch {args.batch} x {args.seq}: {ms:.3f} ms = "
+            f"{n / ms * 1e3:.0f} tokens/s on {where}; logits' relative L2 "
+            f"from the first mode's {modes[mode]['rel_l2']:.3g}")
+        del logits
+    ms = next(iter(modes.values()))["ms"]
 
     if args.trace:
         cache = init_kv_cache(cfg, args.batch, args.seq, torch.int8,
@@ -375,8 +541,10 @@ def main(argv=None):
         del trace["ops"]
         log(f"  device time {trace['device_ms']:.3f} ms; by kernel: "
             f"{trace['kernels']}; quantizer ops {trace['quant_ops']}")
-    out = {"ms": ms, "tokens": n, "tokens_per_s": n / ms * 1e3,
-           "layout": args.layout, "device": where}
+    out.update({"ms": ms, "tokens": n, "tokens_per_s": n / ms * 1e3,
+                "layout": args.layout, "device": where})
+    if len(modes) > 1:
+        out["modes"] = modes
     if args.trace:
         out["trace"] = trace
     print(out)

@@ -4,9 +4,11 @@
 :func:`load_token_stream` resolves, as the JAX package does:
 
   1. a pre-tokenized ``.npy`` int32 stream;
-  2. an ``.skt`` token shard (the "SKT1" format of
-     ``sleekit_tpu/native/dataio.py``: magic, u32 dtype size, u64 count,
-     then a u16 or u32 payload), read through a numpy memmap;
+  2. an ``.skt`` token shard (the "SKT1" format: magic, u32 dtype size,
+     u64 count, then a u16 or u32 payload), read through the native
+     loader's ``TokenShard.windows`` (``native/dataio.py``), as the JAX
+     package reads it; :func:`read_token_shard_plain`, a numpy memmap, is
+     its plain version;
   3. ``wikitext2`` through HF ``datasets`` and a tokenizer, where both are
      installed and the dataset is cached or reachable;
   4. a deterministic synthetic stream for ``None``.
@@ -18,7 +20,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-_SKT_MAGIC = b"SKT1"
+from sleekit_tpu_torch.native.dataio import (
+    TokenShard, read_header, windows_plain)
 
 
 def synthetic_stream(vocab_size: int, n_tokens: int,
@@ -34,20 +37,18 @@ def synthetic_stream(vocab_size: int, n_tokens: int,
 
 def read_token_shard(path: str, n_tokens: int) -> np.ndarray:
     """The first ``n_tokens`` tokens (at most the shard's) of an SKT1 shard,
-    as int32."""
-    with open(path, "rb") as f:
-        head = f.read(16)
-    if head[:4] != _SKT_MAGIC:
-        raise ValueError(f"{path}: not an SKT1 shard")
-    dtype_size = int(np.frombuffer(head[4:8], "<u4")[0])
-    count = int(np.frombuffer(head[8:16], "<u8")[0])
-    if dtype_size not in (2, 4):
-        raise ValueError(f"{path}: token size {dtype_size}, not 2 or 4")
-    dt = "<u2" if dtype_size == 2 else "<u4"
-    mm = np.memmap(path, dtype=dt, mode="r", offset=16, shape=(count,))
-    out = mm[:min(n_tokens, count)].astype(np.int32)
-    del mm
-    return out
+    as int32, through the native loader."""
+    with TokenShard(path) as shard:
+        return shard.windows(np.zeros(1, np.int64),
+                             min(n_tokens, len(shard)))[0]
+
+
+def read_token_shard_plain(path: str, n_tokens: int) -> np.ndarray:
+    """numpy version of :func:`read_token_shard` (a memmap)."""
+    n = min(n_tokens, read_header(path)[1])
+    if n == 0:
+        return np.zeros(0, np.int32)
+    return windows_plain(path, np.zeros(1, np.int64), n)[0]
 
 
 def load_token_stream(

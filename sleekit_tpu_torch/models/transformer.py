@@ -288,13 +288,33 @@ def _causal_bias(cfg: TransformerConfig, q_pos, k_pos, slopes=None):
     return bias
 
 
+# The prefill attention route, read at each call (the counterpart of
+# ``sleekit_tpu/models/transformer.py`` ``PREFILL_MODE``): 'ours' sends
+# 128-aligned T >= 256 to K4 (its plain version on the CPU); 'xla' always
+# takes :func:`_attention`, the materialized-logits route that JAX's 'xla'
+# mode and the Engine's buckets below 256 take. JAX's 'stock' route (the
+# stock Pallas kernel) has no counterpart: SDPA is not a kernel of this
+# repo, so 'stock' raises. ``prefill_bench --modes`` sets it to A/B them.
+PREFILL_MODE = "ours"
+PREFILL_MODES = ("ours", "xla")
+
+
 def _causal_attention(cfg: TransformerConfig, q, kT, vT, positions,
                       slopes=None, use_kernel: bool = False):
     """Causal self-attention from position 0: q (B, T, H, hd); kT, vT
-    (B, KV, T, hd). 128-aligned T >= 256 goes to K4 (or its plain
-    version), as the JAX package routes it to its flash prefill kernel."""
+    (B, KV, T, hd). Under :data:`PREFILL_MODE` 'ours', 128-aligned T >=
+    256 goes to K4 (or its plain version), as the JAX package routes it to
+    its flash prefill kernel; the rest, and every T under 'xla', to
+    :func:`_attention`."""
+    if PREFILL_MODE not in PREFILL_MODES:
+        raise ValueError(
+            f"PREFILL_MODE {PREFILL_MODE!r}: the port's routes are "
+            f"{PREFILL_MODES}; JAX's 'stock' route is not ported (ROADMAP.md: "
+            "\"The 'stock' prefill route: SDPA is not a kernel of this "
+            "repo\")")
     T = q.shape[1]
-    if T >= 256 and T % 128 == 0 and T == kT.shape[2]:
+    if (PREFILL_MODE == "ours" and T >= 256 and T % 128 == 0
+            and T == kT.shape[2]):
         fn = flash_prefill if use_kernel else flash_prefill_plain
         return fn(q.contiguous(), kT.contiguous(), vT.contiguous(),
                   1.0 / math.sqrt(cfg.head_dim), slopes)

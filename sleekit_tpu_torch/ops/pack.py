@@ -163,7 +163,9 @@ def pack_indices(idx: torch.Tensor, nbits: int,
         n_pad = -(-n // 1024) * 1024
         idx = torch.nn.functional.pad(idx, (0, n_pad - n, 0, k_pad - k),
                                       value=128)
-        return (idx - 128).to(torch.int8)
+        # Row-major, as K2 reads it: with nothing to pad, the elementwise
+        # ops keep a transposed index's strides.
+        return (idx - 128).to(torch.int8).contiguous()
     if layout == "pair":
         hp, pg = pair_planes(nbits), pair_group(nbits)
         tiles = _pad_rows(idx, 2 * pg * hp).reshape(-1, 2 * pg * hp, n)

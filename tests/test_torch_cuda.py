@@ -2012,3 +2012,64 @@ def test_finalize_psum_stages_cuda_stats_through_gloo(dev, tmp_path):
         assert isinstance(empty, LayerStats)
     finally:
         dist.destroy_process_group()
+
+
+def test_native_shard_tokens_on_card_path(dev, tmp_path):
+    """The quantize CLI's calibration stream (its default: the synthetic
+    stream from seed 0, samples x seq_len + 4096 tokens) written as an
+    SKT1 shard by the native ``write_shard`` and read back through
+    ``load_token_stream`` (``TokenShard.windows``): the same tokens, bit
+    for bit; the calibration batches cut from it equal the stream's, and
+    ``calibrate`` on the card gives the same statistics from both."""
+    import numpy as np
+
+    from sleekit_tpu_torch.models.data import (
+        calibration_batches, load_token_stream, synthetic_stream)
+    from sleekit_tpu_torch.models.quantize import calibrate
+    from sleekit_tpu_torch.models.transformer import init_params
+    from sleekit_tpu_torch.models.zoo import tiny_test
+    from sleekit_tpu_torch.native.dataio import write_shard
+
+    cfg = tiny_test()
+    samples, seq_len, batch = 4, 32, 2
+    need = samples * seq_len + 4096
+    want = synthetic_stream(cfg.vocab_size, need, 0)
+    path = str(tmp_path / "calib.skt")
+    write_shard(path, want)
+    got, prov = load_token_stream(path, cfg.vocab_size, need)
+    assert prov == f"shard:{path}" and got.dtype == want.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
+    gb = calibration_batches(got, samples, seq_len, batch)
+    wb = calibration_batches(want, samples, seq_len, batch)
+    assert len(gb) == len(wb)
+    for g, w in zip(gb, wb):
+        np.testing.assert_array_equal(g, w)
+    params = init_params(cfg, seed=0, device=dev)
+    a, b = calibrate(cfg, params, gb), calibrate(cfg, params, wb)
+    assert set(a) == set(b)
+    for name in a:
+        assert torch.equal(a[name].hessian, b[name].hessian)
+        assert torch.equal(a[name].mean, b[name].mean)
+
+
+@pytest.mark.parametrize("m", [8, 64])
+def test_k2_takes_pack_quantized_int8_words(dev, m):
+    """An 8-bit ``pack_quantized`` (out, in) weight with nothing to pad (K
+    % 32 == 0, N % 1024 == 0; the GPU kernel smoke's int8 rows) runs K2:
+    its words are row-major (they kept the transposed index's strides, and
+    K2's wrapper refused them), and K2 matches its plain version."""
+    from sleekit_tpu_torch.codebooks import UniformCodebook
+    from sleekit_tpu_torch.ops import dequant_matmul as dm
+    from sleekit_tpu_torch.ops.pack import pack_quantized
+
+    g = torch.Generator(dev).manual_seed(m)
+    w = torch.randn(2048, 1024, device=dev, generator=g) * 0.02
+    p = pack_quantized(w, w.abs().amax(dim=1) + 1e-3,
+                       UniformCodebook(256, -1.0, 1.0), layout="int8")
+    assert p.packed.is_contiguous() and p.layout == "int8"
+    x = (torch.randn(m, 1024, device=dev, generator=g) * 0.1).bfloat16()
+    before = dm.K2.launches
+    got = dm.quantized_matmul(x, p)
+    torch.cuda.synchronize()
+    assert dm.K2.launches == before + 1
+    _bf16_close(got, dm.quantized_matmul(x, p, use_kernel=False))

@@ -206,7 +206,7 @@ def test_prefill_bench_runs_on_cpu(monkeypatch, capsys, tmp_path, layout,
         x.shape[0]) or inner(x, *a, **k))
     out = prefill_bench.main(["--model", "tiny", "--batch", "2", "--seq",
                               "16", "--reps", "1", "--layout", layout,
-                              "--device", "cpu", "--trace",
+                              "--device", "cpu", "--skip-matmul", "--trace",
                               str(tmp_path / "t")])
     assert out["tokens"] == 32 and out["ms"] > 0
     assert out["tokens_per_s"] == pytest.approx(32 / out["ms"] * 1e3)
@@ -309,7 +309,8 @@ def test_prefill_bench_trace_counts_the_quantizer(tmp_path):
 
     out = prefill_bench.main(["--model", "tiny", "--batch", "2", "--seq",
                               "16", "--reps", "1", "--device", "cpu",
-                              "--trace", str(tmp_path / "t")])
+                              "--skip-matmul", "--trace",
+                              str(tmp_path / "t")])
     n = get_config("tiny").n_layers
     assert out["trace"]["device_ms"] == 0 and out["trace"]["kernels"] == []
     assert out["trace"]["quant_ops"] == {"aten::round": 2 * n,

@@ -55,6 +55,28 @@ def test_int8_words_bit_identical_and_padded():
     np.testing.assert_array_equal(back[:, :300].numpy(), idx)
 
 
+@pytest.mark.parametrize("layout,nbits", [
+    ("int8", 8), ("linear", 4), ("plane", 4), ("pair", 4), ("pair3", 3),
+    ("pair3x", 3)])
+def test_words_row_major_from_a_transposed_index(layout, nbits):
+    """Words are row-major whatever the index's strides, as the kernels
+    read them: ``pack_quantized`` packs the transpose of an (out, in)
+    index, and with nothing to pad (K % 32 == 0, N % 1024 == 0) the int8
+    layout's elementwise ops kept its strides (K2 refused the words on
+    the card). The words equal the JAX package's."""
+    idx = np.random.RandomState(3).randint(0, 2 ** nbits, (1024, 512))
+    got = tpack.pack_indices(torch.from_numpy(idx).T, nbits, layout=layout)
+    assert got.is_contiguous()
+    want = jpack.pack_indices(jnp.asarray(idx.T), nbits, layout=layout)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    w = torch.from_numpy(np.random.RandomState(4).standard_normal(
+        (1024, 512)).astype(np.float32))
+    p = tpack.pack_quantized(w, w.abs().amax(dim=1) + 1e-3,
+                             UniformCodebook(2 ** nbits, -1.0, 1.0),
+                             layout=layout)
+    assert p.packed.is_contiguous()
+
+
 @pytest.mark.parametrize("layout,nbits,ks", [
     ("plane", 1, (77, 1024, 1100)), ("plane", 2, (77, 512, 600)),
     ("plane", 3, (77, 320, 700)), ("plane", 4, (77, 256, 300)),
